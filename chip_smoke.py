@@ -1,27 +1,47 @@
 #!/usr/bin/env python3
 """Chip smoke for lis_tpu_torch: build, check and time the CUDA kernels,
-then drive the CG + Jacobi solve over the CST SpMV on one CUDA device.
+then drive the ported solve paths on one CUDA device.
 
 Usage: python3 chip_smoke.py [--seed N]
 
 Phases (one or more lines each):
 1. environment: the card (nvidia-smi name and power limit), torch and
-   CUDA versions, and the nvcc build of lis_tpu_torch/csrc/*.cu;
-2. every kernel against its plain PyTorch version on the card, f64 and
-   f32, at the shapes of the solve below: permutations bit-equal, row sums
-   to rtol 1e-12 (f64) / 1e-5 (f32);
-3. the slice: solve(A, ones, "-i cg -p jacobi -storage cst -tol 1e-10")
-   for the locality-free SPD system a + aᵀ + 32·I, n = 2^20, 8 random
-   columns per row, made from --seed; SUCCESS with true residual <= 1e-9,
-   the iteration count of the port's plain path on the CPU (±1: the CSR
-   remainder sums with atomics on the card), and every kernel launched at
-   least once per iteration; then once more at -f single;
+   CUDA versions, and the nvcc build of lis_tpu_torch/csrc/*.cu (one nvcc
+   per source, in parallel);
+2. every kernel against its plain PyTorch version on the card, at the
+   shapes of the solves below: permutations bit-equal (lane_shuffle in
+   f32, f64, complex64 and complex128; a benes_pass with d = 16 through
+   lane_shuffle), row sums to rtol 1e-12 (f64) / 1e-5 (f32); f64 and f32
+   timed beside the plain version;
+3. CG + Jacobi over the CST SpMV: solve(A, ones, "-i cg -p jacobi
+   -storage cst -tol 1e-10") for the locality-free SPD system
+   a + aᵀ + 32·I, n = 2^20, 8 random columns per row, made from --seed;
+   SUCCESS with true residual <= 1e-9, the iteration count of the port's
+   plain path on the CPU (±1: the CSR remainder sums with atomics on the
+   card), and kernels A-D launched at least once per iteration; then once
+   more at -f single.  Each solve rebuilds the CST on the host;
 4. the CST matvec, kernels against plain torch on the card, in
-   csr-equivalent GB/s = (nnz·12 + 2n·8) / t.
+   csr-equivalent GB/s = (nnz·12 + 2n·8) / t;
+5. reuse: one CST of the nonsymmetric a − 0.5·aᵀ + 32·I (phase 3's
+   pattern), built once with its transpose grid, solved with
+   "-storage cst -scale 1 -p jacobi -tol 1e-10" by bicg, bicr, bicgstab
+   and bicrstab, which scale the grid itself (lane_shuffle); then
+   "-i cg -p jacobi -storage cst -scale 1" on phase 4's prebuilt SPD CST
+   (scale_symm).  Each: SUCCESS, true residual <= 1e-9 (scipy too), the
+   iteration count of the same CST on the CPU ±1, lane_shuffle launched;
+   BiCG and BiCR launch kernels A-D at least once per iteration;
+6. complex: the complex-symmetric a + aᵀ + 32·I with complex128 values on
+   the same pattern, one CST; cocg and cocr with -p jacobi, checked as
+   in phase 5 with lane_shuffle launched at least once per iteration;
+   cocg at -f single, which must keep complex128 and is held against the
+   CPU run at double; the complex CST matvec against its plain version
+   to rel 1e-12, both timed.
 
-It prints one JSON line of per-kernel results, then as its last line
-{"ok": true, "device": {...}}.  Any failure exits non-zero before that
-line; so does a machine without CUDA.
+Launch counts are set to 0 just before each solve of phases 3, 5 and 6
+and read just after; launches made to compare a kernel with its plain
+version are not counted.  It prints one JSON line of per-kernel results,
+then as its last line {"ok": true, "device": {...}}.  Any failure exits
+non-zero before that line; so does a machine without CUDA.
 """
 
 from __future__ import annotations
@@ -41,15 +61,21 @@ def fail(msg: str):
     sys.exit(1)
 
 
-def spd_system(n: int, k: int, seed: int):
-    """a + aᵀ + 4k·I with k random columns per row (scipy CSR)."""
+def system(n: int, k: int, seed: int, kind: str = "spd"):
+    """a + aᵀ + 4k·I ("spd"), a − 0.5·aᵀ + 4k·I ("nonsym") or a + aᵀ + 4k·I
+    with standard-normal real and imaginary parts ("csym"), where a has k
+    random columns per row: one sparsity pattern for every kind (scipy
+    CSR)."""
     import scipy.sparse as sp
     rng = np.random.default_rng(seed)
     rows = np.repeat(np.arange(n), k)
     cols = rng.integers(0, n, size=n * k)
-    a = sp.coo_matrix((rng.standard_normal(n * k), (rows, cols)),
-                      shape=(n, n)).tocsr()
-    a = (a + a.T + sp.eye(n) * (4 * k)).tocsr()
+    vals = rng.standard_normal(n * k)
+    if kind == "csym":
+        vals = vals + 1j * rng.standard_normal(n * k)
+    a = sp.coo_matrix((vals, (rows, cols)), shape=(n, n)).tocsr()
+    a = (a - 0.5 * a.T if kind == "nonsym" else a + a.T) + sp.eye(n) * (4 * k)
+    a = a.tocsr()
     a.sort_indices()
     return a
 
@@ -113,57 +139,87 @@ def main() -> None:
     gen.manual_seed(args.seed)
 
     def randn(n, dtype):
+        if dtype.is_complex:
+            re = torch.randn(2 * n, generator=gen, device=dev,
+                             dtype=torch.float64)
+            return torch.complex(re[:n], re[n:]).to(dtype)
         return torch.randn(n, generator=gen, device=dev,
                            dtype=torch.float64).to(dtype)
 
-    def row_perms(M):
-        r = torch.rand(M // 128, 128, generator=gen, device=dev)
-        return torch.argsort(r, dim=1).to(torch.uint8)
+    def row_perms(M, d=128):
+        """Random lane permutations of each 128-lane row, within aligned
+        groups of d lanes (a pass with digit d)."""
+        r = torch.rand(M // 128, 128 // d, d, generator=gen, device=dev)
+        base = torch.arange(0, 128, d, device=dev).view(1, -1, 1)
+        return (torch.argsort(r, dim=2) + base).view(-1, 128).to(torch.uint8)
 
     # ---- 2. kernels against their plain versions ---------------------------
     M = 1 << 25              # the slot count of the n = 2^20, Kp = 32 grid
     CB = (1 << 20) // 128
     mtag = f"M=2^{M.bit_length() - 1}"
-    results = {}             # kernel -> (max_abs_err, ms, plain_ms)
+    results = {}             # kernel -> (max_abs_err, ms, plain_ms), f64
+    results32 = {}          # the same at f32
 
-    def check(name, dtype, shape, got, want, exact, main_shape, timed):
-        err = (got.double() - want.double()).abs().max().item()
+    def check(name, dtype, shape, got, want, exact, timed=None):
+        """Hold a kernel's output against its plain version's; with
+        ``timed`` = (kernel fn, plain fn) also time both (the slice's
+        shape: recorded per dtype)."""
+        wide = torch.complex128 if got.is_complex() else torch.float64
+        err = (got.to(wide) - want.to(wide)).abs().max().item()
         if exact:
             ok = torch.equal(got, want)
         else:
             rtol = 1e-12 if dtype == torch.float64 else 1e-5
-            scale = want.double().abs().max().item()
+            scale = want.to(wide).abs().max().item()
             ok = err <= rtol * max(scale, 1.0)
         line = (f"phase kernels: {name} {str(dtype)[6:]} {shape}: "
                 f"max_abs_err {err:.3e} "
                 f"({'bit-equal' if exact else 'rtol'}) "
                 f"{'ok' if ok else 'MISMATCH'}")
-        if main_shape:
+        if timed is not None:
             ms, plain_ms = cuda_ms(timed[0]), cuda_ms(timed[1])
-            results[name] = (err, ms, plain_ms)
+            if dtype == torch.float64:
+                results[name] = (err, ms, plain_ms)
+            elif dtype == torch.float32:
+                results32[name] = (err, ms, plain_ms)
             line += f"; {ms:.4f} ms vs plain {plain_ms:.4f} ms"
         print(line, flush=True)
         if not ok:
             fail(f"{name} {dtype} {shape} disagrees with its plain version")
 
+    R = M // 128
+    for dtype in (torch.float64, torch.float32, torch.complex128,
+                  torch.complex64):
+        for rep in (1, 32):     # rep 32: the select of the Kp = 32 grid
+            x, idx = randn(R // rep * 128, dtype).view(-1, 128), row_perms(M)
+            check("lane_shuffle", dtype, f"R=2^{R.bit_length() - 1} "
+                  f"rep={rep}", sh.lane_shuffle(x, idx, rep),
+                  sh._lane_shuffle_plain(x, idx, rep), True,
+                  (lambda: sh.lane_shuffle(x, idx, rep),
+                   lambda: sh._lane_shuffle_plain(x, idx, rep))
+                  if rep == 1 and not dtype.is_complex else None)
     for dtype in (torch.float64, torch.float32):
-        f64 = dtype == torch.float64
         for s in (1, 128, 16384):
             x, idx = randn(M, dtype), row_perms(M)
             check("benes_pass", dtype, f"{mtag} s={s}",
                   sh.benes_pass(x, idx, 128, s),
-                  sh._pass_plain(x, idx, 128, s), True, f64 and s == 16384,
+                  sh._pass_plain(x, idx, 128, s), True,
                   (lambda: sh.benes_pass(x, idx, 128, s),
-                   lambda: sh._pass_plain(x, idx, 128, s)))
+                   lambda: sh._pass_plain(x, idx, 128, s))
+                  if s == 16384 else None)
+        d, s = 16, 1024         # a digit below 128: lane_shuffle's route
+        x, idx = randn(M, dtype), row_perms(M, d)
+        check("benes_pass", dtype, f"{mtag} d={d} s={s} (lane_shuffle)",
+              sh.benes_pass(x, idx, d, s), sh._pass_plain(x, idx, d, s),
+              True)
         for s, kp in ((16384, 32), (16384, 2), (1024, 256), (128, 16)):
             x, idx = randn(M, dtype), row_perms(M)
             check("benes_pass_rowsum", dtype, f"{mtag} s={s} Kp={kp}",
                   sh.benes_pass_rowsum(x, idx, s, kp),
                   sh._pass_plain(x, idx, 128, s).view(-1, kp).sum(1), False,
-                  f64 and (s, kp) == (16384, 32),
                   (lambda: sh.benes_pass_rowsum(x, idx, s, kp),
                    lambda: sh._pass_plain(x, idx, 128, s).view(-1, kp)
-                   .sum(1)))
+                   .sum(1)) if (s, kp) == (16384, 32) else None)
         ss = [128, 1, 128]
         x, idxs = randn(M, dtype), [row_perms(M) for _ in ss]
 
@@ -176,9 +232,9 @@ def main() -> None:
         for kp in (None, 16, 32, 128):
             check("benes_small_run", dtype, f"{mtag} s={ss} Kp={kp}",
                   sh.benes_small_run(x, idxs, ss, Kp=kp), run_plain(kp),
-                  kp is None, f64 and kp is None,
+                  kp is None,
                   (lambda: sh.benes_small_run(x, idxs, ss, Kp=kp),
-                   lambda: run_plain(kp)))
+                   lambda: run_plain(kp)) if kp is None else None)
         for beta, rbc in ((256, 16), (4096, 1), (64, 32)):
             n_slot = CB * rbc * beta
             xp = randn(CB * 128, dtype)
@@ -188,16 +244,47 @@ def main() -> None:
             check("cst_front", dtype, f"CB={CB} beta={beta} RBc={rbc}",
                   cstm.cst_front(xp, lidx, val, rbc, beta),
                   cstm._front_plain(xp, lidx, val, rbc, beta), True,
-                  f64 and (beta, rbc) == (4096, 1),
                   (lambda: cstm.cst_front(xp, lidx, val, rbc, beta),
-                   lambda: cstm._front_plain(xp, lidx, val, rbc, beta)))
+                   lambda: cstm._front_plain(xp, lidx, val, rbc, beta))
+                  if (beta, rbc) == (4096, 1) else None)
+    for name, (e, ms, plain_ms) in results32.items():
+        print(f"phase kernels: {name} float32 at the slice's shape: "
+              f"{ms:.4f} ms vs plain {plain_ms:.4f} ms", flush=True)
     del x, idx, idxs, xp, lidx, val
     torch.cuda.empty_cache()
 
     # ---- 3. the slice: CG + Jacobi over the CST SpMV -----------------------
+    kernels = {"lane_shuffle": sh.lane_shuffle, "cst_front": cstm.cst_front,
+               "benes_pass": sh.benes_pass,
+               "benes_pass_rowsum": sh.benes_pass_rowsum,
+               "benes_small_run": sh.benes_small_run}
+    matvec_kernels = ("cst_front", "benes_pass", "benes_pass_rowsum",
+                      "benes_small_run")
+    total = dict.fromkeys(kernels, 0)     # launches over the counted solves
+
+    def counted(fn):
+        """fn() with every launch count set to 0 just before it and read
+        just after: (result, launches, wall s)."""
+        for f in kernels.values():
+            f.launches = 0
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got = {name: f.launches for name, f in kernels.items()}
+        for name, cnt in got.items():
+            total[name] += cnt
+        return out, got, wall
+
+    def need_launches(got, names, least, what):
+        for name in names:
+            if got[name] < least:
+                fail(f"{what}: {name} launched {got[name]} times, "
+                     f"expected at least {least}")
+
     n, k = 1 << 20, 8
     t0 = time.perf_counter()
-    a = spd_system(n, k, args.seed)
+    a = system(n, k, args.seed)
     A_cpu = lis_tpu_torch.CSRMatrix.from_csr_arrays(a.indptr, a.indices,
                                                     a.data, a.shape)
     A = A_cpu.to(dev)
@@ -205,15 +292,8 @@ def main() -> None:
     print(f"phase slice: system n={n} nnz={a.nnz} built in "
           f"{time.perf_counter() - t0:.2f} s", flush=True)
     opts = "-i cg -p jacobi -storage cst -tol 1e-10"
-    kernels = {"cst_front": cstm.cst_front, "benes_pass": sh.benes_pass,
-               "benes_pass_rowsum": sh.benes_pass_rowsum,
-               "benes_small_run": sh.benes_small_run}
-    for fn in kernels.values():
-        fn.launches = 0
-    t0 = time.perf_counter()
-    r = lis_tpu_torch.solve(A, b, options=opts)
-    t_cold = time.perf_counter() - t0
-    launches = {name: fn.launches for name, fn in kernels.items()}
+    r, launches, t_cold = counted(
+        lambda: lis_tpu_torch.solve(A, b, options=opts))
 
     def report(tag, res, wall):
         print(f"phase slice: {tag}: status {res.status} iters {res.iters} "
@@ -231,12 +311,11 @@ def main() -> None:
         fail(f"slice status {r.status}")
     if not (r.true_resid <= 1e-9 and res_scipy <= 1e-9):
         fail(f"true residual {r.true_resid:.3e} / {res_scipy:.3e} > 1e-9")
-    for name, cnt in launches.items():
-        if cnt < r.iters:
-            fail(f"{name} launched {cnt} times in {r.iters} iterations")
+    need_launches(launches, matvec_kernels, r.iters, "slice")
     t0 = time.perf_counter()
     r2 = lis_tpu_torch.solve(A, b, options=opts)
-    report("cuda f64 warm", r2, time.perf_counter() - t0)
+    t_warm = time.perf_counter() - t0
+    report("cuda f64 warm", r2, t_warm)
     t0 = time.perf_counter()
     rc = lis_tpu_torch.solve(A_cpu, b, options=opts)
     report("cpu f64 plain path", rc, time.perf_counter() - t0)
@@ -250,22 +329,34 @@ def main() -> None:
         fail(f"-f single true residual {rs.true_resid:.3e}")
 
     # ---- 4. CST matvec: kernels against plain torch on the card ------------
-    C = cstm.CSTMatrix.from_csr_arrays(a.indptr, a.indices, a.data, a.shape,
-                                       transpose=False).to(dev)
-    xv = randn(n, torch.float64)
+    C_cpu = cstm.CSTMatrix.from_csr_arrays(a.indptr, a.indices, a.data,
+                                           a.shape, transpose=False)
+    C = C_cpu.to(dev)
 
-    def plain_matvec():
-        xp = torch.nn.functional.pad(xv, (0, C.n_pad - n))
-        t = cstm._front_plain(xp, C.lidx, C.val, C.RBc, C.beta)
-        for (d, s), idx in zip(C.plan.meta, C.plan.idxs):
-            t = sh._pass_plain(t, idx, d, s)
-        y = t.view(-1, C.Kp).sum(1)[:n]
+    def plain_matvec(C, xv):
+        """C.matvec(xv) through the kernels' plain versions only."""
+        xp = torch.nn.functional.pad(xv, (0, C.n_pad - xv.shape[0]))
+        if xv.is_complex():
+            t = sh._lane_shuffle_plain(xp.view(-1, 128), C.lidx, C.Kp) * C.val
+            t = t.view(-1, C.RBc, C.beta).transpose(0, 1).reshape(-1)
+        else:
+            t = cstm._front_plain(xp, C.lidx, C.val, C.RBc, C.beta)
+
+        def route(t):
+            for (d, s), idx in zip(C.plan.meta, C.plan.idxs):
+                t = sh._pass_plain(t, idx, d, s)
+            return t.view(-1, C.Kp).sum(1)
+
+        y = (torch.complex(route(t.real.contiguous()),
+                           route(t.imag.contiguous()))
+             if t.is_complex() else route(t))[: C.nrows]
         return y if C.rem is None else y + C.rem.matvec(xv)
 
-    y_k, y_p = C.matvec(xv), plain_matvec()
+    xv = randn(n, torch.float64)
+    y_k, y_p = C.matvec(xv), plain_matvec(C, xv)
     err = ((y_k - y_p).abs().max() / y_p.abs().max()).item()
     ms_k = cuda_ms(lambda: C.matvec(xv))
-    ms_p = cuda_ms(plain_matvec)
+    ms_p = cuda_ms(lambda: plain_matvec(C, xv))
     ms_csr = cuda_ms(lambda: A.matvec(xv))
     traffic = a.nnz * 12 + 2 * n * 8
     print(f"phase matvec: CST Kp={C.Kp} M=2^{C.plan.M.bit_length() - 1} "
@@ -278,8 +369,107 @@ def main() -> None:
     if err > 1e-12:
         fail(f"CST matvec kernels vs plain: relative error {err:.3e}")
 
+    def solve_checked(tag, Ad, Ac, a_sp, b, opts, per_iter, once,
+                      rc=None):
+        """One counted solve on the card and the same prebuilt operator
+        on the CPU (or the CPU result ``rc`` of an equivalent solve):
+        SUCCESS, true residual <= 1e-9 (the port's and scipy's),
+        iterations equal ±1, and the kernels in ``per_iter`` launched at
+        least once per iteration, those in ``once`` at least once.
+        Returns (result, wall s, CPU result)."""
+        r, got, wall = counted(
+            lambda: lis_tpu_torch.solve(Ad, b, options=opts))
+        t0 = time.perf_counter()
+        if rc is None:
+            rc = lis_tpu_torch.solve(Ac, b, options=opts)
+        wall_cpu = time.perf_counter() - t0
+        x = r.x.cpu().numpy()
+        res_scipy = np.linalg.norm(a_sp @ x - b) / np.linalg.norm(b)
+        print(f"phase {tag}: {opts}: status {r.status} iters {r.iters} "
+              f"(cpu {rc.iters}) true_resid {r.true_resid:.3e} "
+              f"(scipy {res_scipy:.3e}) x {r.x.dtype}; solve {wall:.4f} s "
+              f"(itime {r.itime:.4f} s, "
+              f"{1e3 * r.itime / max(r.iters, 1):.4f} ms/iter; "
+              f"cpu {wall_cpu:.2f} s); launches {got}", flush=True)
+        if r.status != lis_tpu_torch.LIS_SUCCESS or rc.status != r.status:
+            fail(f"{tag} {opts}: status {r.status} (cpu {rc.status})")
+        if not (r.true_resid <= 1e-9 and res_scipy <= 1e-9):
+            fail(f"{tag} {opts}: true residual {r.true_resid:.3e} / "
+                 f"{res_scipy:.3e} > 1e-9")
+        if abs(rc.iters - r.iters) > 1:
+            fail(f"{tag} {opts}: cuda iters {r.iters} vs cpu {rc.iters}")
+        need_launches(got, per_iter, r.iters, f"{tag} {opts}")
+        need_launches(got, once, 1, f"{tag} {opts}")
+        return r, wall, rc
+
+    # ---- 5. reuse: one prebuilt CST, scaled by each solve ------------------
+    t0 = time.perf_counter()
+    an = system(n, k, args.seed, "nonsym")
+    N_cpu = cstm.CSTMatrix.from_csr_arrays(an.indptr, an.indices, an.data,
+                                           an.shape)
+    N = N_cpu.to(dev)
+    print(f"phase reuse: nonsymmetric system nnz={an.nnz}, CST with its "
+          f"transpose grid built once in {time.perf_counter() - t0:.2f} s "
+          f"(phase 3 rebuilt per solve: {t_cold:.2f} s cold, "
+          f"{t_warm:.2f} s warm)", flush=True)
+    walls = []
+    for solver in ("bicg", "bicr", "bicgstab", "bicrstab"):
+        _, wall, _ = solve_checked(
+            "reuse", N, N_cpu, an, b,
+            f"-i {solver} -p jacobi -storage cst -scale 1 -tol 1e-10",
+            matvec_kernels if solver in ("bicg", "bicr") else (),
+            ("lane_shuffle",) + matvec_kernels)
+        walls.append(wall)
+    _, wall, _ = solve_checked(
+        "reuse", C, C_cpu, a, b,
+        "-i cg -p jacobi -storage cst -scale 1 -tol 1e-10",
+        matvec_kernels, ("lane_shuffle",))
+    walls.append(wall)
+    print(f"phase reuse: per-solve wall {min(walls):.4f}-{max(walls):.4f} s "
+          f"on the prebuilt CST, against {t_warm:.2f} s for phase 3's warm "
+          f"solve that rebuilds it", flush=True)
+    del N, N_cpu
+    torch.cuda.empty_cache()
+
+    # ---- 6. complex: COCG / COCR over a complex CST -------------------------
+    t0 = time.perf_counter()
+    ac = system(n, k, args.seed, "csym")
+    Z_cpu = cstm.CSTMatrix.from_csr_arrays(ac.indptr, ac.indices, ac.data,
+                                           ac.shape, transpose=False)
+    Z = Z_cpu.to(dev)
+    rng = np.random.default_rng(args.seed + 1)
+    bc = rng.standard_normal(n) + 1j * rng.standard_normal(n)
+    print(f"phase complex: complex-symmetric system nnz={ac.nnz}, CST built "
+          f"once in {time.perf_counter() - t0:.2f} s", flush=True)
+    cpu = {}
+    for solver, single in (("cocg", ""), ("cocr", ""), ("cocg", " -f single")):
+        opts = f"-i {solver} -p jacobi -storage cst -tol 1e-10" + single
+        # a complex vector takes the select (lane_shuffle) in place of
+        # kernel A, then B, C and D on its real and imaginary planes.
+        # -f single leaves complex128 as it is, so it is held against
+        # the CPU run at double
+        r, _, cpu[solver] = solve_checked(
+            "complex", Z, Z_cpu, ac, bc, opts,
+            ("lane_shuffle",) + matvec_kernels[1:], (), cpu.get(solver))
+        if r.x.dtype != torch.complex128:
+            fail(f"complex {opts}: x is {r.x.dtype}")
+    zv = randn(n, torch.complex128)
+    y_k, y_p = Z.matvec(zv), plain_matvec(Z, zv)
+    err = ((y_k - y_p).abs().max() / y_p.abs().max()).item()
+    ms_zk = cuda_ms(lambda: Z.matvec(zv))
+    ms_zp = cuda_ms(lambda: plain_matvec(Z, zv))
+    print(f"phase complex: complex128 CST matvec: kernels {ms_zk:.4f} ms "
+          f"({ms_zk / ms_k:.2f}x the real f64 matvec's {ms_k:.4f} ms), "
+          f"plain torch {ms_zp:.4f} ms; kernel vs plain rel err {err:.2e}",
+          flush=True)
+    if err > 1e-12:
+        fail(f"complex CST matvec kernels vs plain: relative error "
+             f"{err:.3e}")
+
     # ---- results -----------------------------------------------------------
     where = {
+        "lane_shuffle": ("lis_tpu_torch/csrc/lane_shuffle.cu",
+                         "lis_tpu/ops/shuffle.py:350"),
         "cst_front": ("lis_tpu_torch/csrc/cst_front.cu",
                       "lis_tpu/matrix/cst.py:259"),
         "benes_pass": ("lis_tpu_torch/csrc/benes.cu",
@@ -289,11 +479,13 @@ def main() -> None:
         "benes_small_run": ("lis_tpu_torch/csrc/benes.cu",
                             "lis_tpu/ops/shuffle.py:583"),
     }
+    print(f"phase results: launches over the counted solves {total}",
+          flush=True)
     rows = []
     for name, (src, tpu) in where.items():
         e, ms, plain_ms = results[name]
         rows.append({"name": name, "route": "cuda", "source": src,
-                     "replaces": tpu, "launches": launches[name],
+                     "replaces": tpu, "launches": total[name],
                      "max_abs_err": e, "ms": ms, "plain_ms": plain_ms})
     print(json.dumps({"kernels": rows}))
     print(smi_line)

@@ -22,6 +22,19 @@ def dot(x, y):
     return torch.vdot(x, y) if x.is_complex() else torch.dot(x, y)
 
 
+def nhdot(x, y):
+    """Σ x_i·y_i, neither side conjugated (lis_vector_nhdot): the
+    bilinear form of the complex-symmetric solvers COCG and COCR."""
+    return torch.dot(x, y)
+
+
+def conj(x):
+    """Complex conjugate, materialised (no lazy conj view, so a kernel's
+    data pointer sees the conjugated values); a real vector is returned
+    as it is."""
+    return torch.conj_physical(x) if x.is_complex() else x
+
+
 def nrm2(x):
     if x.is_complex():
         return torch.sqrt(torch.vdot(x, x).real)

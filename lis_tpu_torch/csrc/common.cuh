@@ -3,8 +3,9 @@
 // Every entry point has a plain C interface (loaded with ctypes by
 // lis_tpu_torch/ops/_cuda.py): device pointers and the stream arrive as
 // void*, sizes as int64_t, and the function returns cudaGetLastError()
-// right after its launch.  Values are float or double (dtype code 0 / 1);
-// index tables are uint8 lane ids.
+// right after its launch.  Values are float or double (dtype code 0 / 1;
+// lane_shuffle also takes complex64 / complex128 as codes 2 / 3); index
+// tables are uint8 lane ids.
 #pragma once
 
 #include <cstdint>

@@ -11,6 +11,8 @@ run.
 
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 import torch
 
@@ -78,3 +80,16 @@ class CSRMatrix(SparseMatrix):
         y = torch.zeros(self.nrows, dtype=self.value.dtype,
                         device=self.value.device)
         return y.index_add_(0, self.row_ids, contrib)
+
+
+def csr_scaled(m: CSRMatrix, row_d=None, col_d=None) -> CSRMatrix:
+    """Row and column scaling of a CSRMatrix on its device (lis_tpu
+    ``matrix/css.py::_csr_scaled``): value times row_d at each entry's row
+    and col_d at its column.  The CST and CSS grids scale their remainder
+    with it."""
+    v = m.value
+    if row_d is not None:
+        v = v * row_d.index_select(0, m.row_ids).to(v.dtype)
+    if col_d is not None:
+        v = v * col_d.index_select(0, m.index).to(v.dtype)
+    return dataclasses.replace(m, value=v)

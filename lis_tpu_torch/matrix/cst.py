@@ -9,27 +9,39 @@ other.  Bucket overflow (> beta) and row overflow (> Kp) spill to a
 plain-CSR remainder.  The host build is ported unchanged, so both
 packages produce equal arrays and plans.
 
-``matvec`` on a CUDA tensor runs three hand-written kernels and one plain
+``matvec`` on a CUDA tensor runs hand-written kernels and one plain
 torch remainder:
 
-1. ``cst_front`` (kernel A): select x by lane id, times val, written in
-   the transposed (RBc, CB, beta) bucket order;
+1. real dtypes: ``cst_front`` (kernel A) selects x by lane id, times val,
+   written in the transposed (RBc, CB, beta) bucket order.  Complex
+   dtypes take lis_tpu's unfused chain (cst.py:322-327): ``_select``
+   (kernel #1, ``lane_shuffle``), times val, then the bucket transpose in
+   torch;
 2. ``plan.apply_rowsum``: Benes passes and the ELL row sums (kernels B,
-   C, D);
+   C, D; a complex vector as its real and imaginary planes);
 3. the CSR remainder (gather x value, row segment-sum in plain torch).
 
 ``matvech`` routes through the transpose grid ``at`` built with the
 matrix; without one it falls back to one plain scatter-add.
+
+``scale_rows`` / ``scale_symm`` scale a built grid in place of a rebuild
+(lis_tpu cst.py:382-416): the row factor is a gather by ``rowf``, the
+column factor is ``_select`` of the scaling vector, and the transpose
+grid ``at`` is scaled to match, so a prebuilt CST serves many solves.
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 import torch
 
 from lis_tpu_torch.matrix.base import SparseMatrix, matrix_format, static, host
+from lis_tpu_torch.matrix.csr import csr_scaled
 from lis_tpu_torch.ops import _cuda
-from lis_tpu_torch.ops.shuffle import ShufflePlan, block_digits, plan_shuffle
+from lis_tpu_torch.ops.shuffle import (ShufflePlan, block_digits,
+                                       lane_shuffle, plan_shuffle)
 
 
 def _next_pow2(x: int) -> int:
@@ -239,10 +251,25 @@ class CSTMatrix(SparseMatrix):
                    RBc=int(RBc))
 
     # ------------------------------------------------------------------
+    def _select(self, x):
+        """Entry-wise x values in the source layout, (M/128, 128): chunk
+        c of the padded x serves the Kp rows of its slots, lane-shuffled
+        by lidx (lis_tpu cst.py:306-313; the repeat is the kernel's
+        ``rep``)."""
+        xp = torch.nn.functional.pad(x, (0, self.n_pad - x.shape[0]))
+        return lane_shuffle(xp.view(-1, 128), self.lidx, rep=self.Kp)
+
     def matvec(self, x):
         dt = torch.promote_types(x.dtype, self.val.dtype)
-        xp = torch.nn.functional.pad(x.to(dt), (0, self.n_pad - x.shape[0]))
-        t = cst_front(xp, self.lidx, self.val.to(dt), self.RBc, self.beta)
+        if dt.is_complex:
+            CB = self.n_pad // 128
+            t = self._select(x.to(dt)) * self.val.to(dt)
+            t = t.view(CB, self.RBc, self.beta).transpose(0, 1).reshape(-1)
+        else:
+            xp = torch.nn.functional.pad(x.to(dt),
+                                         (0, self.n_pad - x.shape[0]))
+            t = cst_front(xp, self.lidx, self.val.to(dt), self.RBc,
+                          self.beta)
         # exact-holes plan: unreal slots carry zeros, so the row sums need
         # no destination mask (see from_csr_arrays)
         y = self.plan.apply_rowsum(t, self.Kp)[: self.nrows]
@@ -254,7 +281,8 @@ class CSTMatrix(SparseMatrix):
         if self.at is not None:
             # ``at`` was built from the FULL A^T, spilled entries included
             if self.val.is_complex():
-                return self.at.matvec(x.conj()).conj()
+                return torch.conj_physical(
+                    self.at.matvec(torch.conj_physical(x)))
             return self.at.matvec(x)
         # no transpose grid: one plain scatter-add, A^H x = sum over
         # entries of conj(val) * x[row] into their columns.  (lis_tpu
@@ -293,10 +321,36 @@ class CSTMatrix(SparseMatrix):
         return (a.indptr.astype(np.int32), a.indices.astype(np.int32),
                 a.data)
 
-    def scale_rows(self, d):
-        raise NotImplementedError(
-            "CST scaling needs the select kernel (#1), not ported yet "
-            "(ROADMAP.md queue 1 item 3); scale the CSR operator before "
-            "converting, as solve() does")
+    # ---- scaling (setup time, once per solve) --------------------------
+    def _row_factor(self, d):
+        dr = torch.nn.functional.pad(d, (0, 1))
+        return dr.index_select(0, self.rowf).view(self.val.shape)
 
-    scale_symm = scale_rows
+    def _col_factor(self, d):
+        return self._select(d)
+
+    def _scaled(self, row_d=None, col_d=None):
+        v, dg = self.val, self.diag
+        if row_d is not None:
+            v = v * self._row_factor(row_d).to(v.dtype)
+            dg = dg * row_d.to(dg.dtype)
+        if col_d is not None:
+            v = v * self._col_factor(col_d).to(v.dtype)
+            dg = dg * col_d[: self.nrows].to(dg.dtype)
+        rem = None if self.rem is None else csr_scaled(self.rem, row_d, col_d)
+        return dataclasses.replace(self, val=v, diag=dg, rem=rem)
+
+    def scale_rows(self, d):
+        """D A (-scale jacobi); the transpose grid becomes Aᵀ D."""
+        out = self._scaled(row_d=d)
+        if self.at is not None:          # rows of A = columns of Aᵀ
+            out = dataclasses.replace(out, at=self.at._scaled(col_d=d))
+        return out
+
+    def scale_symm(self, dsqrt_inv):
+        """D A D (-scale symm_diag), the transpose grid likewise."""
+        out = self._scaled(row_d=dsqrt_inv, col_d=dsqrt_inv)
+        if self.at is not None:
+            out = dataclasses.replace(
+                out, at=self.at._scaled(row_d=dsqrt_inv, col_d=dsqrt_inv))
+        return out

@@ -41,6 +41,7 @@ _SIGNATURES = {
     "lis_benes_pass": [_INT, _P, _P, _P, _I64, _I64, _P],
     "lis_benes_pass_rowsum": [_INT, _P, _P, _P, _I64, _I64, _I64, _P],
     "lis_benes_small_run": [_INT, _P, _P, _P, _INT, _P, _I64, _INT, _P],
+    "lis_lane_shuffle": [_INT, _P, _P, _P, _I64, _I64, _P],
 }
 
 _lib = None
@@ -77,17 +78,38 @@ def build() -> str:
         return _SO
     import time
     os.makedirs(_BUILD, exist_ok=True)
-    tmp = f"{_SO}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
-           "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-           "-Xptxas", "-v", "-I", _CSRC, "-o", tmp,
-           *[s for s in _sources() if s.endswith(".cu")]]
+    nvcc, pid = _nvcc(), os.getpid()
+    tmp = f"{_SO}.{pid}.tmp"
     t0 = time.perf_counter()
-    r = subprocess.run(cmd, capture_output=True, text=True)
+    # one nvcc per source, all started together, then one link
+    jobs = []
+    for src in [s for s in _sources() if s.endswith(".cu")]:
+        obj = os.path.join(_BUILD, f"{os.path.basename(src)}.{pid}.o")
+        cmd = [nvcc, "-gencode", "arch=compute_90a,code=sm_90a",
+               "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+               "-I", _CSRC, "-c", src, "-o", obj]
+        jobs.append((obj, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                           stderr=subprocess.STDOUT,
+                                           text=True)))
+    logs, failed = [], []
+    for obj, p in jobs:
+        logs.append(p.communicate()[0])
+        if p.returncode != 0:
+            failed.append(p.returncode)
+    objs = [obj for obj, _ in jobs]
+    if not failed:
+        r = subprocess.run([nvcc, "-shared", "-o", tmp, *objs],
+                           capture_output=True, text=True)
+        logs.append(r.stdout + r.stderr)
+        if r.returncode != 0:
+            failed.append(r.returncode)
+    for obj in objs:
+        if os.path.exists(obj):
+            os.remove(obj)
     build_seconds = time.perf_counter() - t0
-    build_log = r.stdout + r.stderr
-    if r.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({r.returncode}):\n{build_log}")
+    build_log = "".join(logs)
+    if failed:
+        raise RuntimeError(f"nvcc failed ({failed[0]}):\n{build_log}")
     os.replace(tmp, _SO)
     return _SO
 
@@ -121,7 +143,9 @@ def stream() -> int:
     return torch.cuda.current_stream().cuda_stream
 
 
-DTYPE_CODE = {torch.float32: 0, torch.float64: 1}
+# the complex codes serve lane_shuffle only, which moves whole elements
+DTYPE_CODE = {torch.float32: 0, torch.float64: 1, torch.complex64: 2,
+              torch.complex128: 3}
 
 
 def check(t: torch.Tensor, name: str, dtype=None, numel=None) -> None:
@@ -130,6 +154,9 @@ def check(t: torch.Tensor, name: str, dtype=None, numel=None) -> None:
         raise ValueError(f"{name}: expected a CUDA tensor, got {t.device}")
     if not t.is_contiguous():
         raise ValueError(f"{name}: expected a contiguous tensor")
+    if t.is_conj() or t.is_neg():
+        # a lazy view: the data pointer holds the values before it
+        raise ValueError(f"{name}: resolve the conj/neg view first")
     if dtype is not None and t.dtype not in (
             dtype if isinstance(dtype, tuple) else (dtype,)):
         raise ValueError(f"{name}: dtype {t.dtype} not supported "

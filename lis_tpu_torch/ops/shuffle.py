@@ -11,9 +11,13 @@ computed on the host at build time (native C++ from lis_native.cpp, with
 pure-Python fallbacks).  The host half is ported unchanged, so both
 packages produce equal pass tables for the same permutation.
 
-The device half applies the passes.  Its three hand-written CUDA kernels
-(``csrc/benes.cu``) replace lis_tpu's Pallas kernels:
+The device half applies the passes.  Its four hand-written CUDA kernels
+(``csrc/lane_shuffle.cu``, ``csrc/benes.cu``) replace lis_tpu's Pallas
+kernels:
 
+- ``lane_shuffle`` (kernel #1) — the row-local lane gather of 128-lane
+  rows, any 4-, 8- or 16-byte element; it serves the CST select and the
+  passes whose digit is below 128;
 - ``benes_pass`` (kernel B) — one pass with d = 128 at any stride;
 - ``benes_pass_rowsum`` (kernel C) — the last pass fused with the ELL row
   sums of groups of Kp;
@@ -22,7 +26,9 @@ The device half applies the passes.  Its three hand-written CUDA kernels
 
 Each wrapper launches its kernel for CUDA tensors and runs its plain
 PyTorch version for CPU tensors; any other device raises.  Each counts
-its kernel launches in ``<wrapper>.launches``.
+its kernel launches in ``<wrapper>.launches``.  A complex vector goes
+through a plan as its real and imaginary planes, since B, C and D are
+linear and take real values only (lis_tpu ops/shuffle.py:693-698).
 """
 
 from __future__ import annotations
@@ -346,6 +352,7 @@ def apply_host(passes, v, M):
 # ---------------------------------------------------------------------------
 
 _FLOATS = (torch.float32, torch.float64)
+_ELEMS = _FLOATS + (torch.complex64, torch.complex128)
 
 
 def _on_cuda(x: torch.Tensor) -> bool:
@@ -358,11 +365,57 @@ def _on_cuda(x: torch.Tensor) -> bool:
     raise ValueError(f"no kernel or plain path for device {x.device}")
 
 
-def _pass_plain(x, idx, d, s):
+def _lane_shuffle_plain(x, idx, rep=1):
+    if rep > 1:
+        x = x.repeat_interleave(rep, dim=0)
+    return torch.gather(x, 1, idx.long())
+
+
+def lane_shuffle(x: torch.Tensor, idx: torch.Tensor, rep: int = 1):
+    """``out[r, l] = x[r // rep, idx[r, l]]``: x is (R/rep, 128), idx is
+    (R, 128) uint8, out is (R, 128); rep is a power of two dividing R.
+
+    Kernel #1 replaces lis_tpu ``_lane_shuffle32`` (ops/shuffle.py:350)
+    and the dtype-generic ``_lane_shuffle`` (:393): f32, f64, complex64
+    and complex128 move as whole elements.  ``rep`` folds the chunk
+    repeat of ``CSTMatrix._select`` into the kernel.  Bound on the H100:
+    bytes — per output slot 1 B of idx read and one element written, x
+    read once per source row.  One block stages 16 output rows' idx and
+    their source rows in shared memory (16-byte loads), gathers there and
+    stores coalesced."""
+    R = idx.shape[0]
+    if (rep < 1 or rep & (rep - 1) or R % rep
+            or tuple(x.shape) != (R // rep, 128) or idx.shape[1:] != (128,)):
+        raise ValueError(f"lane_shuffle: x {tuple(x.shape)}, idx "
+                         f"{tuple(idx.shape)}, rep {rep}")
+    if not _on_cuda(x):
+        return _lane_shuffle_plain(x, idx, rep)
+    _cuda.check(x, "x", _ELEMS)
+    _cuda.check(idx, "idx", torch.uint8)
+    out = torch.empty((R, 128), dtype=x.dtype, device=x.device)
+    if R == 0:
+        return out
+    _cuda.launch("lis_lane_shuffle", _cuda.DTYPE_CODE[x.dtype], x.data_ptr(),
+                 idx.data_ptr(), out.data_ptr(), R, rep, _cuda.stream())
+    lane_shuffle.launches += 1
+    return out
+
+
+lane_shuffle.launches = 0
+
+
+def _pass_rows(x, idx, d, s, shuffle):
+    """One pass as lis_tpu's legacy route (ops/shuffle.py:701-705) takes
+    it: view (pre, d, s), transpose to rows of 128 lanes, ``shuffle``
+    them by idx, transpose back."""
     pre = x.numel() // (d * s)
     t = x.view(pre, d, s).transpose(1, 2).reshape(-1, 128)
-    t = torch.gather(t, 1, idx.long())
+    t = shuffle(t, idx)
     return t.view(pre, s, d).transpose(1, 2).reshape(-1)
+
+
+def _pass_plain(x, idx, d, s):
+    return _pass_rows(x, idx, d, s, _lane_shuffle_plain)
 
 
 def benes_pass(x: torch.Tensor, idx: torch.Tensor, d: int, s: int):
@@ -374,15 +427,13 @@ def benes_pass(x: torch.Tensor, idx: torch.Tensor, d: int, s: int):
     f64.  The kernel moves (128 x 32)-slot tiles through shared memory:
     coalesced loads along w, the lane gather out of shared memory, then
     coalesced stores; it takes every power-of-two stride, s = 1 included.
-    Only d = 128 has a kernel (plans with a smaller first digit are a
-    later port)."""
+    A pass with d < 128 takes the legacy route instead: two transposing
+    copies around ``lane_shuffle`` (kernel #1)."""
     if not _on_cuda(x):
         return _pass_plain(x, idx, d, s)
     M = x.numel()
     if d != 128:
-        raise NotImplementedError(
-            f"benes_pass kernel takes d = 128 only, got d = {d} "
-            "(ROADMAP.md queue 2, kernel B)")
+        return _pass_rows(x, idx, d, s, lane_shuffle)
     _cuda.check(x, "x", _FLOATS)
     _cuda.check(idx, "idx", torch.uint8, M)
     if M % (128 * 32) or s & (s - 1) or M % (128 * s):
@@ -516,6 +567,9 @@ class ShufflePlan(TensorFields):
     def apply(self, v):
         if self.small is not None:
             return v.index_select(0, self.small)
+        if v.is_complex():
+            return torch.complex(self.apply(v.real.contiguous()),
+                                 self.apply(v.imag.contiguous()))
         out = v
         metas, idxs = self.meta, self.idxs
         run = self._run()
@@ -537,6 +591,9 @@ class ShufflePlan(TensorFields):
         where every hole slot carries a zero."""
         if self.small is not None:
             return v.index_select(0, self.small).view(-1, Kp).sum(1)
+        if v.is_complex():
+            return torch.complex(self.apply_rowsum(v.real.contiguous(), Kp),
+                                 self.apply_rowsum(v.imag.contiguous(), Kp))
         out = v
         metas, idxs = self.meta, self.idxs
         run = self._run()

@@ -66,6 +66,11 @@ def register_solver(name: str):
     return deco
 
 
+def loop_scalar(val, like):
+    """A 0-d loop scalar (iteration counter, flag) on ``like``'s device."""
+    return torch.tensor(val, device=like.device)
+
+
 def _inv_or_one(ref):
     zero = ref == 0.0
     return torch.where(zero, torch.ones_like(ref),

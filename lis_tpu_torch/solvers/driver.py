@@ -29,7 +29,10 @@ from lis_tpu_torch.precon.base import (PRECON_REGISTRY, NonePrecon,
 from lis_tpu_torch.precon import jacobi as _pjac          # noqa: F401
 from lis_tpu_torch.runtime.options import SolverOptions, STORAGE_NAMES
 from lis_tpu_torch.solvers.base import SOLVER_FNS, SolverSpec
+from lis_tpu_torch.solvers import bicg as _bicg           # noqa: F401
+from lis_tpu_torch.solvers import bicgstab as _bicgstab   # noqa: F401
 from lis_tpu_torch.solvers import cg as _cg               # noqa: F401
+from lis_tpu_torch.solvers import cocg as _cocg           # noqa: F401
 from lis_tpu_torch.utils.trace import traced
 
 _STORAGE_BY_ID = {i: n for n, i in STORAGE_NAMES.items()}
@@ -110,7 +113,10 @@ def _scale_operator(A, scale):
         nz = d != 0
         s = torch.where(nz, 1.0 / torch.where(nz, d, one), one)
         return A.scale_rows(s), s
-    pos = d > 0
+    # d > 0 in numpy's (lexicographic) order, which jnp follows for
+    # complex values; torch has no order on complex tensors
+    pos = (d.real > 0) | ((d.real == 0) & (d.imag > 0)) if d.is_complex() \
+        else d > 0
     nz = d != 0
     s = torch.where(pos, 1.0 / torch.sqrt(torch.where(pos, d, one)),
                     torch.where(nz, 1.0 / torch.sqrt(torch.abs(
@@ -122,6 +128,10 @@ def _convert_storage(A, opts):
     if opts.storage:
         return convert_matrix(A, _STORAGE_BY_ID[opts.storage])
     return A
+
+
+def _cast32(t: torch.Tensor) -> torch.Tensor:
+    return t.to(torch.float32) if t.dtype == torch.float64 else t
 
 
 def _as_vector(a, device):
@@ -192,8 +202,11 @@ def solve(A: SparseMatrix, b, x0=None, options=None, M=None,
     fn = SOLVER_FNS[opts.solver]
     t_i = C.wtime()
     if opts.precision == "single":
+        # like lis_tpu's _cast32: real float64 tensors drop to float32,
+        # complex ones stay as they are (TensorFields.to casts only real
+        # floating-point leaves)
         f32 = torch.float32
-        out = fn(A.to(dtype=f32), b.to(f32), x0.to(f32), M.to(dtype=f32),
+        out = fn(A.to(dtype=f32), _cast32(b), _cast32(x0), M.to(dtype=f32),
                  spec)
         out = out._replace(x=out.x.to(b.dtype))
     else:

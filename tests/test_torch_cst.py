@@ -199,8 +199,22 @@ def test_matvech_fallback_is_conjugate_transpose():
 
 
 def test_scaling_not_ported():
+    """CST scaling on a grid without a transpose grid: scale_symm and
+    scale_rows equal lis_tpu's bit for bit and apply D·A·D / D·A."""
     a = spd(1 << 14, 3)
-    T = TCST.from_csr_arrays(a.indptr, a.indices, a.data, a.shape,
-                             transpose=False)
-    with pytest.raises(NotImplementedError, match="queue 1 item 3"):
-        T.scale_symm(torch.ones(a.shape[0], dtype=torch.float64))
+    args = (a.indptr, a.indices, a.data, a.shape)
+    T = TCST.from_csr_arrays(*args, transpose=False)
+    J = JCST.from_csr_arrays(*args, transpose=False)
+    d = np.random.default_rng(10).uniform(0.5, 2.0, a.shape[0])
+    x = np.random.default_rng(11).standard_normal(a.shape[0])
+    for mode in ("symm", "rows"):
+        Ts = getattr(T, f"scale_{mode}")(torch.from_numpy(d))
+        Js = getattr(J, f"scale_{mode}")(jnp.asarray(d))
+        assert Ts.at is None
+        for name in ("val", "diag"):
+            np.testing.assert_array_equal(getattr(Ts, name).numpy(),
+                                          np.asarray(getattr(Js, name)))
+        D = sp.diags(d)
+        ref = D @ a @ D if mode == "symm" else D @ a
+        np.testing.assert_allclose(Ts.matvec(torch.from_numpy(x)).numpy(),
+                                   ref @ x, rtol=1e-12, atol=1e-12)

@@ -6,9 +6,11 @@ installed:
 
     python -m pytest tests/test_torch_gpu.py -q --noconftest -p no:cacheprovider
 
-Pure permutations must be bit-equal.  Row sums are compared to rtol 1e-12
-(f64) or 1e-5 (f32): the kernels sum in another order.  The CSR remainder
-of a CST matvec sums with atomics on the card, hence 1e-12 there too.
+Pure permutations (lane_shuffle in every dtype it takes, Benes passes)
+must be bit-equal.  Row sums are compared to rtol 1e-12 (f64) or 1e-5
+(f32): the kernels sum in another order.  The CSR remainder of a CST
+matvec sums with atomics on the card, hence 1e-12 there too, and a solve
+on the card may take one iteration more or less than on the CPU.
 """
 
 import numpy as np
@@ -16,6 +18,7 @@ import pytest
 import scipy.sparse as sp
 import torch
 
+import lis_tpu_torch
 from lis_tpu_torch.matrix.cst import CSTMatrix, cst_front
 from lis_tpu_torch.ops import shuffle as tsh
 
@@ -100,18 +103,28 @@ def test_cst_front(cuda, dtype, CB, RBc, beta):
     assert torch.equal(got.cpu(), want)
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("n,k", [(1 << 15, 5), (1 << 16, 8)])
-def test_cst_matvec(cuda, n, k):
+def _system(n, k, kind="spd"):
+    """a + aᵀ + 4k·I, a − 0.5·aᵀ + 4k·I ("nonsym") or a complex-symmetric
+    a + aᵀ + 4k·I ("csym"), a with k random columns per row."""
     rng = np.random.default_rng(0)
     rows = np.repeat(np.arange(n), k)
     cols = rng.integers(0, n, size=n * k)
-    a = sp.coo_matrix((rng.standard_normal(n * k), (rows, cols)),
-                      shape=(n, n)).tocsr()
-    a = (a + a.T + sp.eye(n) * (4 * k)).tocsr()
+    vals = rng.standard_normal(n * k)
+    if kind == "csym":
+        vals = vals + 1j * rng.standard_normal(n * k)
+    a = sp.coo_matrix((vals, (rows, cols)), shape=(n, n)).tocsr()
+    a = (a - 0.5 * a.T if kind == "nonsym" else a + a.T) + sp.eye(n) * (4 * k)
+    a = a.tocsr()
     a.sort_indices()
+    return a
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,k", [(1 << 15, 5), (1 << 16, 8)])
+def test_cst_matvec(cuda, n, k):
+    a = _system(n, k)
     T = CSTMatrix.from_csr_arrays(a.indptr, a.indices, a.data, a.shape)
-    x = torch.from_numpy(rng.standard_normal(n))
+    x = torch.from_numpy(np.random.default_rng(1).standard_normal(n))
     want = T.matvec(x)
     Tc = T.to(cuda)
     got = Tc.matvec(x.to(cuda)).cpu()
@@ -120,12 +133,84 @@ def test_cst_matvec(cuda, n, k):
                                rtol=1e-12, atol=1e-12)
 
 
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", DTYPES + [torch.complex64,
+                                            torch.complex128])
+@pytest.mark.parametrize("R,rep", [(4096, 1), (4096, 32), (1000, 1),
+                                   (40, 8)])
+def test_lane_shuffle(cuda, dtype, R, rep):
+    rng = np.random.default_rng(R + rep)
+    x = rng.standard_normal((R // rep, 128, 2))
+    x = torch.from_numpy(x[..., 0] + 1j * x[..., 1] if dtype.is_complex
+                         else x[..., 0]).to(dtype)
+    idx = torch.from_numpy(rng.integers(0, 128, size=(R, 128),
+                                        dtype=np.uint8))
+    want = tsh.lane_shuffle(x, idx, rep=rep)
+    before = tsh.lane_shuffle.launches
+    got = tsh.lane_shuffle(x.to(cuda), idx.to(cuda), rep=rep)
+    assert tsh.lane_shuffle.launches == before + 1
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d,s", [(2, 16384), (16, 128), (16, 1), (64, 8)])
+def test_benes_pass_small_digit(cuda, d, s):
+    rng = np.random.default_rng(d + s)
+    M = max(1 << 15, d * s * 2)
+    idx = _row_perms(rng, M)
+    x = torch.from_numpy(rng.standard_normal(M))
+    want = tsh.benes_pass(x, idx, d, s)
+    got = tsh.benes_pass(x.to(cuda), idx.to(cuda), d, s)
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,k", [(1 << 15, 5), (1 << 16, 8)])
+def test_complex_cst_matvec(cuda, n, k):
+    """The select (lane_shuffle), then B, C and D on two planes; matvech
+    through the transpose grid."""
+    a = _system(n, k, "csym")
+    T = CSTMatrix.from_csr_arrays(a.indptr, a.indices, a.data, a.shape)
+    rng = np.random.default_rng(2)
+    x = torch.from_numpy(rng.standard_normal(n) + 1j * rng.standard_normal(n))
+    Tc = T.to(cuda)
+    before = tsh.lane_shuffle.launches
+    got = Tc.matvec(x.to(cuda)).cpu()
+    assert tsh.lane_shuffle.launches > before
+    torch.testing.assert_close(got, T.matvec(x), rtol=1e-12, atol=1e-12)
+    torch.testing.assert_close(Tc.matvech(x.to(cuda)).cpu(), T.matvech(x),
+                               rtol=1e-12, atol=1e-12)
+
+
+@pytest.mark.gpu
+def test_scaled_prebuilt_cst_bicg(cuda):
+    """-scale 1 on a prebuilt CST scales the grid and its transpose grid
+    on the card (lane_shuffle), then BiCG walks A and Aᴴ."""
+    n = 1 << 15
+    a = _system(n, 5, "nonsym")
+    T = CSTMatrix.from_csr_arrays(a.indptr, a.indices, a.data, a.shape)
+    b = np.random.default_rng(3).standard_normal(n)
+    opts = "-i bicg -p jacobi -storage cst -scale 1 -tol 1e-10"
+    want = lis_tpu_torch.solve(T, b, options=opts)
+    before = tsh.lane_shuffle.launches
+    got = lis_tpu_torch.solve(T.to(cuda), b, options=opts)
+    assert tsh.lane_shuffle.launches > before
+    assert got.status == want.status == lis_tpu_torch.LIS_SUCCESS
+    assert abs(got.iters - want.iters) <= 1
+    x = got.x.cpu().numpy()
+    assert np.linalg.norm(a @ x - b) / np.linalg.norm(b) <= 1e-9
+
+
 def test_kernel_wrappers_need_cuda_for_kernels():
     """CPU tensors take the plain version and count no launch."""
-    before = (tsh.benes_pass.launches, cst_front.launches)
+    before = (tsh.benes_pass.launches, cst_front.launches,
+              tsh.lane_shuffle.launches)
     x = torch.zeros(1 << 15, dtype=torch.float64)
     idx = torch.zeros((1 << 8, 128), dtype=torch.uint8)
     tsh.benes_pass(x, idx, 128, 128)
+    tsh.benes_pass(x, idx, 16, 8)
+    tsh.lane_shuffle(x.view(-1, 128), idx)
     cst_front(torch.zeros(128, dtype=torch.float64), idx.view(-1)[:4096],
               torch.zeros(4096, dtype=torch.float64), 1, 4096)
-    assert (tsh.benes_pass.launches, cst_front.launches) == before
+    assert (tsh.benes_pass.launches, cst_front.launches,
+            tsh.lane_shuffle.launches) == before

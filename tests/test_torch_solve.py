@@ -86,7 +86,7 @@ def test_solve_matches_lis_tpu(grid, storage, solver, precon):
 
 @pytest.mark.parametrize("opts,match", [
     ("-i cg", "auto_storage"),
-    ("-i bicg -storage cst", "queue 1 item 6"),
+    ("-i gmres -storage cst", "queue 1 item 6"),
     ("-i cg -p ilu -storage cst", "preconditioner 'ilu'"),
     ("-i cg -storage cst -f quad", "queue 1 item 7"),
     ("-i cg -storage cst -f switch_df", "queue 1 item 7"),
