@@ -12,7 +12,13 @@ Phases (one or more lines each):
    shapes of the solves below: permutations bit-equal (lane_shuffle in
    f32, f64, complex64 and complex128; a benes_pass with d = 16 through
    lane_shuffle), row sums to rtol 1e-12 (f64) / 1e-5 (f32); f64 and f32
-   timed beside the plain version;
+   timed beside the plain version, beside the one PyTorch call that
+   computes the same function where there is one (torch.gather with a
+   prebuilt int64 index, for lane_shuffle and benes_pass), and beside
+   the bound: the bytes each must move over 3.35 TB/s, or its additions
+   and multiplications over the card's peak rate if that is more.
+   benes_small_run is also checked, untimed, for runs of 1, 2, 4 and 8
+   passes with Kp in {None, 2, 16, 32, 128} on 1 and on 133 tiles;
 3. CG + Jacobi over the CST SpMV: solve(A, ones, "-i cg -p jacobi
    -storage cst -tol 1e-10") for the locality-free SPD system
    a + aᵀ + 32·I, n = 2^20, 8 random columns per row, made from --seed;
@@ -36,6 +42,10 @@ Phases (one or more lines each):
    cocg at -f single, which must keep complex128 and is held against the
    CPU run at double; the complex CST matvec against its plain version
    to rel 1e-12, both timed.
+
+The matrices of phases 3 to 6 are built with no ``device`` argument, so
+they live on the default device, the card; each has a CPU copy for the
+CPU iteration count it is held against.
 
 Launch counts are set to 0 just before each solve of phases 3, 5 and 6
 and read just after; launches made to compare a kernel with its plain
@@ -95,6 +105,20 @@ def cuda_ms(fn, reps: int = 20, warm: int = 3) -> float:
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / reps
+
+
+# The card's peaks (NVIDIA H100 SXM data sheet): device memory rate, and
+# the arithmetic rate outside the tensor cores for each real type.
+HBM_BYTES_PER_S = 3.35e12
+FLOPS_PER_S = {"float32": 67e12, "float64": 33.5e12}
+
+
+def bound_ms(nbytes: int, flops: int, dtype) -> tuple[float, str]:
+    """The least time the card could take: (ms, "bytes" | "operations")."""
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = flops / FLOPS_PER_S[str(dtype)[6:]]
+    return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else \
+        "operations"
 
 
 def main() -> None:
@@ -157,13 +181,14 @@ def main() -> None:
     M = 1 << 25              # the slot count of the n = 2^20, Kp = 32 grid
     CB = (1 << 20) // 128
     mtag = f"M=2^{M.bit_length() - 1}"
-    results = {}             # kernel -> (max_abs_err, ms, plain_ms), f64
+    results = {}             # kernel -> dict of the f64 numbers
     results32 = {}          # the same at f32
 
     def check(name, dtype, shape, got, want, exact, timed=None):
         """Hold a kernel's output against its plain version's; with
-        ``timed`` = (kernel fn, plain fn) also time both (the slice's
-        shape: recorded per dtype)."""
+        ``timed`` = (kernel fn, plain fn, library fn or None, bytes moved,
+        additions and multiplications) also time them (the slice's shape:
+        recorded per dtype)."""
         wide = torch.complex128 if got.is_complex() else torch.float64
         err = (got.to(wide) - want.to(wide)).abs().max().item()
         if exact:
@@ -177,36 +202,64 @@ def main() -> None:
                 f"({'bit-equal' if exact else 'rtol'}) "
                 f"{'ok' if ok else 'MISMATCH'}")
         if timed is not None:
-            ms, plain_ms = cuda_ms(timed[0]), cuda_ms(timed[1])
+            kern, plain, library, nbytes, flops = timed
+            ms, plain_ms = cuda_ms(kern), cuda_ms(plain)
+            lib_ms = None if library is None else cuda_ms(library)
+            b_ms, b_by = bound_ms(nbytes, flops, dtype)
+            rec = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                   "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms}
             if dtype == torch.float64:
-                results[name] = (err, ms, plain_ms)
+                results[name] = rec
             elif dtype == torch.float32:
-                results32[name] = (err, ms, plain_ms)
-            line += f"; {ms:.4f} ms vs plain {plain_ms:.4f} ms"
+                results32[name] = rec
+            line += (f"; {ms:.4f} ms vs plain {plain_ms:.4f} ms, bound "
+                     f"{b_ms:.4f} ms ({b_by}, {100 * b_ms / ms:.0f} %), "
+                     f"library " + ("none" if lib_ms is None
+                                    else f"{lib_ms:.4f} ms"))
         print(line, flush=True)
         if not ok:
             fail(f"{name} {dtype} {shape} disagrees with its plain version")
+
+    def es(dtype):
+        return torch.empty((), dtype=dtype).element_size()
 
     R = M // 128
     for dtype in (torch.float64, torch.float32, torch.complex128,
                   torch.complex64):
         for rep in (1, 32):     # rep 32: the select of the Kp = 32 grid
             x, idx = randn(R // rep * 128, dtype).view(-1, 128), row_perms(M)
+            timed = None
+            if rep == 1 and not dtype.is_complex:
+                wide = idx.long()       # the library call's index, untimed
+                timed = (lambda: sh.lane_shuffle(x, idx, rep),
+                         lambda: sh._lane_shuffle_plain(x, idx, rep),
+                         lambda: torch.gather(x, 1, wide),
+                         M * (2 * es(dtype) + 1), 0)
             check("lane_shuffle", dtype, f"R=2^{R.bit_length() - 1} "
                   f"rep={rep}", sh.lane_shuffle(x, idx, rep),
-                  sh._lane_shuffle_plain(x, idx, rep), True,
-                  (lambda: sh.lane_shuffle(x, idx, rep),
-                   lambda: sh._lane_shuffle_plain(x, idx, rep))
-                  if rep == 1 and not dtype.is_complex else None)
+                  sh._lane_shuffle_plain(x, idx, rep), True, timed)
+            del timed
     for dtype in (torch.float64, torch.float32):
         for s in (1, 128, 16384):
             x, idx = randn(M, dtype), row_perms(M)
+            timed = None
+            if s == 16384:
+                # out[p, a, w] = x[p, idx[p s + w, a], w] as one gather
+                # along a of the (P, 128, s) view; the index is untimed
+                x3 = x.view(-1, 128, s)
+                i3 = idx.view(-1, s, 128).transpose(1, 2).long().contiguous()
+                if not torch.equal(torch.gather(x3, 1, i3).reshape(-1),
+                                   sh._pass_plain(x, idx, 128, s)):
+                    fail("benes_pass: the library gather disagrees")
+                timed = (lambda: sh.benes_pass(x, idx, 128, s),
+                         lambda: sh._pass_plain(x, idx, 128, s),
+                         lambda: torch.gather(x3, 1, i3),
+                         M * (2 * es(dtype) + 1), 0)
             check("benes_pass", dtype, f"{mtag} s={s}",
                   sh.benes_pass(x, idx, 128, s),
-                  sh._pass_plain(x, idx, 128, s), True,
-                  (lambda: sh.benes_pass(x, idx, 128, s),
-                   lambda: sh._pass_plain(x, idx, 128, s))
-                  if s == 16384 else None)
+                  sh._pass_plain(x, idx, 128, s), True, timed)
+            if timed is not None:
+                del timed, x3, i3
         d, s = 16, 1024         # a digit below 128: lane_shuffle's route
         x, idx = randn(M, dtype), row_perms(M, d)
         check("benes_pass", dtype, f"{mtag} d={d} s={s} (lane_shuffle)",
@@ -219,22 +272,39 @@ def main() -> None:
                   sh._pass_plain(x, idx, 128, s).view(-1, kp).sum(1), False,
                   (lambda: sh.benes_pass_rowsum(x, idx, s, kp),
                    lambda: sh._pass_plain(x, idx, 128, s).view(-1, kp)
-                   .sum(1)) if (s, kp) == (16384, 32) else None)
-        ss = [128, 1, 128]
-        x, idxs = randn(M, dtype), [row_perms(M) for _ in ss]
+                   .sum(1), None,
+                   M * (es(dtype) + 1) + M // kp * es(dtype),
+                   M - M // kp) if (s, kp) == (16384, 32) else None)
 
-        def run_plain(kp):
+        def run_plain(x, idxs, ss, kp):
             out = x
             for i, s in zip(idxs, ss):
                 out = sh._pass_plain(out, i, 128, s)
             return out if kp is None else out.view(-1, kp).sum(1)
 
-        for kp in (None, 16, 32, 128):
+        # the slice's run at its size, timed; then every run shape on one
+        # tile and on 133 tiles (a count that no grid divides), untimed
+        ss = [128, 1, 128]
+        x, idxs = randn(M, dtype), [row_perms(M) for _ in ss]
+        run = sh.RunTables(idxs, ss)
+        for kp in (None, 2, 16, 32, 128):
             check("benes_small_run", dtype, f"{mtag} s={ss} Kp={kp}",
-                  sh.benes_small_run(x, idxs, ss, Kp=kp), run_plain(kp),
-                  kp is None,
-                  (lambda: sh.benes_small_run(x, idxs, ss, Kp=kp),
-                   lambda: run_plain(kp)) if kp is None else None)
+                  sh.benes_small_run(x, run, Kp=kp),
+                  run_plain(x, idxs, ss, kp), kp is None,
+                  (lambda: sh.benes_small_run(x, run, Kp=kp),
+                   lambda: run_plain(x, idxs, ss, kp), None,
+                   M * (2 * es(dtype) + len(ss)), 0)
+                  if kp is None else None)
+        for Ms in (16384, 16384 * 133):
+            for ss in ([1], [128], [1, 128], [128, 1], [1, 128, 1, 128],
+                       [128, 1, 1, 128, 128, 1, 128, 1]):
+                xs, idxs = randn(Ms, dtype), [row_perms(Ms) for _ in ss]
+                run = sh.RunTables(idxs, ss)
+                for kp in (None, 2, 16, 32, 128):
+                    check("benes_small_run", dtype,
+                          f"M={Ms} s={ss} Kp={kp}",
+                          sh.benes_small_run(xs, run, Kp=kp),
+                          run_plain(xs, idxs, ss, kp), kp is None)
         for beta, rbc in ((256, 16), (4096, 1), (64, 32)):
             n_slot = CB * rbc * beta
             xp = randn(CB * 128, dtype)
@@ -245,12 +315,15 @@ def main() -> None:
                   cstm.cst_front(xp, lidx, val, rbc, beta),
                   cstm._front_plain(xp, lidx, val, rbc, beta), True,
                   (lambda: cstm.cst_front(xp, lidx, val, rbc, beta),
-                   lambda: cstm._front_plain(xp, lidx, val, rbc, beta))
-                  if (beta, rbc) == (4096, 1) else None)
-    for name, (e, ms, plain_ms) in results32.items():
+                   lambda: cstm._front_plain(xp, lidx, val, rbc, beta), None,
+                   n_slot * (2 * es(dtype) + 1) + CB * 128 * es(dtype),
+                   n_slot) if (beta, rbc) == (4096, 1) else None)
+    for name, r32 in results32.items():
         print(f"phase kernels: {name} float32 at the slice's shape: "
-              f"{ms:.4f} ms vs plain {plain_ms:.4f} ms", flush=True)
-    del x, idx, idxs, xp, lidx, val
+              f"{r32['ms']:.4f} ms vs plain {r32['plain_ms']:.4f} ms, "
+              f"bound {r32['bound_ms']:.4f} ms, library "
+              f"{r32['library_ms']}", flush=True)
+    del x, xs, idx, idxs, run, xp, lidx, val, wide
     torch.cuda.empty_cache()
 
     # ---- 3. the slice: CG + Jacobi over the CST SpMV -----------------------
@@ -285,9 +358,12 @@ def main() -> None:
     n, k = 1 << 20, 8
     t0 = time.perf_counter()
     a = system(n, k, args.seed)
-    A_cpu = lis_tpu_torch.CSRMatrix.from_csr_arrays(a.indptr, a.indices,
-                                                    a.data, a.shape)
-    A = A_cpu.to(dev)
+    csr = (a.indptr, a.indices, a.data, a.shape)
+    A = lis_tpu_torch.CSRMatrix.from_csr_arrays(*csr)   # the default device
+    A_cpu = lis_tpu_torch.CSRMatrix.from_csr_arrays(*csr, device="cpu")
+    if A.device.type != "cuda" or A_cpu.device.type != "cpu":
+        fail(f"a matrix built with no device lives on {A.device}, with "
+             f"device='cpu' on {A_cpu.device}")
     b = np.ones(n)
     print(f"phase slice: system n={n} nnz={a.nnz} built in "
           f"{time.perf_counter() - t0:.2f} s", flush=True)
@@ -329,9 +405,16 @@ def main() -> None:
         fail(f"-f single true residual {rs.true_resid:.3e}")
 
     # ---- 4. CST matvec: kernels against plain torch on the card ------------
-    C_cpu = cstm.CSTMatrix.from_csr_arrays(a.indptr, a.indices, a.data,
-                                           a.shape, transpose=False)
-    C = C_cpu.to(dev)
+    def cst_pair(a_sp, **kw):
+        """A CST of ``a_sp`` built with no device (so on the card), and
+        its CPU copy; one host build serves both."""
+        Cd = cstm.CSTMatrix.from_csr_arrays(a_sp.indptr, a_sp.indices,
+                                            a_sp.data, a_sp.shape, **kw)
+        if Cd.device.type != "cuda" or Cd.plan.device.type != "cuda":
+            fail(f"a CST built with no device lives on {Cd.device}")
+        return Cd, Cd.to("cpu")
+
+    C, C_cpu = cst_pair(a, transpose=False)
 
     def plain_matvec(C, xv):
         """C.matvec(xv) through the kernels' plain versions only."""
@@ -405,9 +488,7 @@ def main() -> None:
     # ---- 5. reuse: one prebuilt CST, scaled by each solve ------------------
     t0 = time.perf_counter()
     an = system(n, k, args.seed, "nonsym")
-    N_cpu = cstm.CSTMatrix.from_csr_arrays(an.indptr, an.indices, an.data,
-                                           an.shape)
-    N = N_cpu.to(dev)
+    N, N_cpu = cst_pair(an)
     print(f"phase reuse: nonsymmetric system nnz={an.nnz}, CST with its "
           f"transpose grid built once in {time.perf_counter() - t0:.2f} s "
           f"(phase 3 rebuilt per solve: {t_cold:.2f} s cold, "
@@ -434,9 +515,7 @@ def main() -> None:
     # ---- 6. complex: COCG / COCR over a complex CST -------------------------
     t0 = time.perf_counter()
     ac = system(n, k, args.seed, "csym")
-    Z_cpu = cstm.CSTMatrix.from_csr_arrays(ac.indptr, ac.indices, ac.data,
-                                           ac.shape, transpose=False)
-    Z = Z_cpu.to(dev)
+    Z, Z_cpu = cst_pair(ac, transpose=False)
     rng = np.random.default_rng(args.seed + 1)
     bc = rng.standard_normal(n) + 1j * rng.standard_normal(n)
     print(f"phase complex: complex-symmetric system nnz={ac.nnz}, CST built "
@@ -483,10 +562,9 @@ def main() -> None:
           flush=True)
     rows = []
     for name, (src, tpu) in where.items():
-        e, ms, plain_ms = results[name]
         rows.append({"name": name, "route": "cuda", "source": src,
                      "replaces": tpu, "launches": total[name],
-                     "max_abs_err": e, "ms": ms, "plain_ms": plain_ms})
+                     **results[name]})
     print(json.dumps({"kernels": rows}))
     print(smi_line)
     print(json.dumps({"ok": True, "device": {

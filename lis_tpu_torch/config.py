@@ -5,11 +5,20 @@ ids (the reference's include/lis.h:1052-1063, :252-284) so tooling that
 matches on them works against either package.  There is no precision
 switch: torch tensors carry their own dtype, and the solver driver keeps
 the dtype of the right-hand side.
+
+The default device is the card.  Every constructor that builds a matrix
+from host arrays takes ``device=None``, meaning ``default_device()``, which
+is ``cuda`` until ``set_default_device`` changes it.  Nothing asks
+``torch.cuda.is_available()`` to choose a device and nothing falls back to
+the CPU: on a machine without a card torch's own error surfaces, and a
+caller who wants the CPU says ``device="cpu"``.
 """
 
 from __future__ import annotations
 
 import time
+
+import torch
 
 # Status codes (values match the reference's include/lis.h).
 LIS_SUCCESS = 0
@@ -44,6 +53,25 @@ MATRIX_TYPE_NAMES = {
 }
 
 _cmd_args: list[str] = []
+
+_default_device = torch.device("cuda")
+
+
+def default_device() -> torch.device:
+    """The device a constructor builds on when it is given none."""
+    return _default_device
+
+
+def set_default_device(device) -> torch.device:
+    """Make ``device`` the default; returns the previous default."""
+    global _default_device
+    prev, _default_device = _default_device, torch.device(device)
+    return prev
+
+
+def resolve_device(device=None) -> torch.device:
+    """``device`` as a torch.device, the default for None."""
+    return _default_device if device is None else torch.device(device)
 
 
 def initialize(argv: list[str] | None = None) -> int:

@@ -2,9 +2,10 @@
 
 ``from_numpy_state(kind, arrays, statics)`` builds a ``CSRMatrix``,
 ``CSTMatrix`` (with its nested ``ShufflePlan``, ``rem`` and ``at``),
-``ShufflePlan`` or ``JacobiPrecon`` on the CPU from numpy arrays — for
-instance the leaves of the matching lis_tpu object — so one exact grid
-can be fed to both packages, independently of the port's own builder.
+``ShufflePlan`` or ``JacobiPrecon`` from numpy arrays — for instance the
+leaves of the matching lis_tpu object — so one exact grid can be fed to
+both packages, independently of the port's own grid construction.  The
+object lives on ``device`` (None: the default device, the card).
 
 ``arrays`` maps each tensor field to a numpy array (or, for a tuple
 field such as ``ShufflePlan.idxs``, a sequence of arrays); a nested
@@ -17,6 +18,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from lis_tpu_torch.config import resolve_device
 from lis_tpu_torch.matrix.csr import CSRMatrix
 from lis_tpu_torch.matrix.cst import CSTMatrix
 from lis_tpu_torch.ops.shuffle import ShufflePlan
@@ -35,13 +37,14 @@ def _field(value):
         return None
     if isinstance(value, tuple) and len(value) == 3 \
             and isinstance(value[0], str):
-        return from_numpy_state(*value)
+        return from_numpy_state(*value, device="cpu")
     if isinstance(value, (list, tuple)):
         return tuple(_tensor(a) for a in value)
     return _tensor(value)
 
 
-def from_numpy_state(kind: str, arrays: dict, statics: dict | None = None):
+def from_numpy_state(kind: str, arrays: dict, statics: dict | None = None,
+                     device=None):
     if kind not in _KINDS:
         raise ValueError(f"unknown kind {kind!r}; have {sorted(_KINDS)}")
     kw = {k: _field(a) for k, a in arrays.items()}
@@ -49,4 +52,4 @@ def from_numpy_state(kind: str, arrays: dict, statics: dict | None = None):
         statics = dict(statics or {})
         statics["meta"] = tuple(tuple(int(e) for e in m)
                                 for m in statics.get("meta", ()))
-    return _KINDS[kind](**kw, **(statics or {}))
+    return _KINDS[kind](**kw, **(statics or {})).to(resolve_device(device))

@@ -4,8 +4,9 @@ Port of ``lis_tpu/matrix/base.py``.  lis_tpu registers each format as a
 JAX pytree; here a format is a frozen dataclass whose non-static fields
 are torch tensors (or nested tensor dataclasses: a shuffle plan, a CSR
 remainder, a transpose grid) and whose static fields are Python ints.
-``.to(device, dtype)`` moves every tensor field — there is no implicit
-device choice anywhere in the package.
+``.to(device, dtype)`` moves every tensor field.  A constructor from host
+arrays builds on ``config.default_device()`` (the card) unless it is
+given a ``device``; everything else stays where its operands are.
 
 Each format implements ``matvec``/``matvech`` (reference: lis_matvec,
 src/matvec/lis_matvec.c:55,191) plus ``to_csr_arrays``/``from_csr_arrays``
@@ -49,11 +50,24 @@ class TensorFields:
 
     @property
     def device(self) -> torch.device:
-        for f in dataclasses.fields(self):
-            v = getattr(self, f.name)
+        """The device of the first tensor held (directly, in a tuple
+        field, or in a nested tensor dataclass)."""
+        def first(v):
             if isinstance(v, torch.Tensor):
                 return v.device
-        raise ValueError(f"{type(self).__name__} holds no tensor")
+            if isinstance(v, tuple):
+                return next((d for d in map(first, v) if d is not None),
+                            None)
+            if isinstance(v, TensorFields):
+                return next((d for f in dataclasses.fields(v)
+                             if (d := first(getattr(v, f.name))) is not None),
+                            None)
+            return None
+
+        dev = first(self)
+        if dev is None:
+            raise ValueError(f"{type(self).__name__} holds no tensor")
+        return dev
 
 
 def matrix_format(name: str):
@@ -111,7 +125,9 @@ class SparseMatrix(TensorFields):
         raise NotImplementedError
 
     @classmethod
-    def from_csr_arrays(cls, ptr, index, value, shape, **kw):
+    def from_csr_arrays(cls, ptr, index, value, shape, device=None, **kw):
+        """Build from host CSR arrays on ``device`` (None: the default
+        device, ``config.default_device()``)."""
         raise NotImplementedError
 
     def get_diagonal(self):
@@ -123,8 +139,9 @@ class SparseMatrix(TensorFields):
         """Same-format rebuild of host CSR arrays on this matrix's device."""
         from lis_tpu_torch.matrix.convert import convert_matrix
         from lis_tpu_torch.matrix.csr import CSRMatrix
-        out = CSRMatrix.from_csr_arrays(ptr, index, value, self.shape)
-        return convert_matrix(out, self.format_name).to(self.device)
+        out = CSRMatrix.from_csr_arrays(ptr, index, value, self.shape,
+                                        device="cpu")
+        return convert_matrix(out, self.format_name, device=self.device)
 
     def scale_rows(self, d):
         """Return a same-format matrix with rows scaled by vector d."""

@@ -2,15 +2,17 @@
 
 Port of ``lis_tpu/matrix/convert.py`` (reference lis_matrix_convert,
 src/matrix/lis_matrix_ops.c:128-326): conversion routes through canonical
-CSR arrays on the host, and the result lands on the device of the matrix
-converted.  Only ``csr`` and ``cst`` are ported so far; every other
-target raises and names the ROADMAP item that ports it.
+CSR arrays on the host, and the result lands on ``device`` (None: the
+default device, the card; ``solve()`` passes the device of its matrix).
+Only ``csr`` and ``cst`` are ported so far; every other target raises and
+names the ROADMAP item that ports it.
 """
 
 from __future__ import annotations
 
 import numpy as np
 
+from lis_tpu_torch.config import resolve_device
 from lis_tpu_torch.matrix.base import SparseMatrix, get_format
 from lis_tpu_torch.matrix import csr as _csr    # noqa: F401 (registers 'csr')
 from lis_tpu_torch.matrix import cst as _cst    # noqa: F401 (registers 'cst')
@@ -22,11 +24,14 @@ _ROADMAP = {
 }
 
 
-def convert_matrix(matrix: SparseMatrix, target: str, **kw) -> SparseMatrix:
-    """Convert ``matrix`` to the ``target`` format name (csr or cst)."""
+def convert_matrix(matrix: SparseMatrix, target: str, device=None,
+                   **kw) -> SparseMatrix:
+    """Convert ``matrix`` to the ``target`` format name (csr or cst); the
+    result lives on ``device`` (None: the default device)."""
     target = target.lower()
+    device = resolve_device(device)
     if matrix.format_name == target and not kw:
-        return matrix
+        return matrix if matrix.device == device else matrix.to(device)
     try:
         cls = get_format(target)
     except KeyError:
@@ -36,7 +41,7 @@ def convert_matrix(matrix: SparseMatrix, target: str, **kw) -> SparseMatrix:
             f"(ROADMAP.md {item}); have csr, cst") from None
     ptr, index, value = matrix.to_csr_arrays()
     return cls.from_csr_arrays(ptr, index, value, matrix.shape,
-                               **kw).to(matrix.device)
+                               device=device, **kw)
 
 
 def diag_profile(A):

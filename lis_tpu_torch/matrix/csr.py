@@ -16,6 +16,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from lis_tpu_torch.config import resolve_device
 from lis_tpu_torch.matrix.base import SparseMatrix, matrix_format, static, host
 
 
@@ -30,8 +31,10 @@ class CSRMatrix(SparseMatrix):
     nnz: int = static()
 
     @classmethod
-    def from_csr_arrays(cls, ptr, index, value, shape) -> "CSRMatrix":
-        """Build on the CPU from host arrays; ``.to(device)`` moves it."""
+    def from_csr_arrays(cls, ptr, index, value, shape,
+                        device=None) -> "CSRMatrix":
+        """Build from host arrays on ``device`` (None: the default device,
+        the card; ``"cpu"`` keeps it on the host)."""
         ptr = np.asarray(host(ptr), dtype=np.int32)
         index = np.asarray(host(index), dtype=np.int32)
         value = np.ascontiguousarray(host(value))
@@ -43,7 +46,7 @@ class CSRMatrix(SparseMatrix):
                   nrows=int(shape[0]), ncols=int(shape[1]),
                   nnz=int(len(value)))
         object.__setattr__(out, "_host_csr", (ptr, index, value))
-        return out
+        return out.to(resolve_device(device))
 
     def to(self, device=None, dtype=None):
         out = super().to(device, dtype)

@@ -37,6 +37,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from lis_tpu_torch.config import resolve_device
 from lis_tpu_torch.matrix.base import SparseMatrix, matrix_format, static, host
 from lis_tpu_torch.matrix.csr import csr_scaled
 from lis_tpu_torch.ops import _cuda
@@ -161,10 +162,20 @@ class CSTMatrix(SparseMatrix):
     @classmethod
     def from_csr_arrays(cls, ptr, index, value, shape,
                         transpose: bool = True, load: float = 0.72,
-                        Kp: int | None = None, n_pad: int | None = None):
-        """Build on the CPU from host CSR arrays (``.to(device)`` moves
-        it).  ``Kp``/``n_pad`` override the derived grid parameters;
-        ``transpose`` also builds the grid of A^T for ``matvech``."""
+                        Kp: int | None = None, n_pad: int | None = None,
+                        device=None):
+        """Build from host CSR arrays: the grid and its plan are made on
+        the host, then moved once to ``device`` (None: the default
+        device, the card).  ``Kp``/``n_pad`` override the derived grid
+        parameters; ``transpose`` also builds the grid of A^T for
+        ``matvech``."""
+        return cls._build_host(ptr, index, value, shape, transpose, load,
+                               Kp, n_pad).to(resolve_device(device))
+
+    @classmethod
+    def _build_host(cls, ptr, index, value, shape, transpose, load, Kp,
+                    n_pad):
+        """``from_csr_arrays`` with every tensor on the CPU."""
         import scipy.sparse as sp
         from lis_tpu_torch.matrix.csr import CSRMatrix
         ptr = np.asarray(host(ptr)).astype(np.int64)
@@ -214,7 +225,8 @@ class CSTMatrix(SparseMatrix):
         # hole slots (val = 0 at their sources) carry zeros to every
         # unreal destination and the row sums need no mask
         plan = plan_shuffle(perm, digits=block_digits(M, L),
-                            validate=False, exact_holes=True)
+                            validate=False, exact_holes=True,
+                            device="cpu")
 
         val = np.zeros(M, dtype=value.dtype)
         val[src] = v_
@@ -230,7 +242,7 @@ class CSTMatrix(SparseMatrix):
                                shape=shape).tocsr()
             rm.sort_indices()
             rem = CSRMatrix.from_csr_arrays(rm.indptr, rm.indices, rm.data,
-                                            shape)
+                                            shape, device="cpu")
 
         d = np.zeros(n, dtype=value.dtype)
         dm = rows == index
@@ -240,8 +252,8 @@ class CSTMatrix(SparseMatrix):
         if transpose:
             a = sp.csr_matrix((value, index, ptr), shape=shape).T.tocsr()
             a.sort_indices()
-            at = cls.from_csr_arrays(a.indptr, a.indices, a.data, (m, n),
-                                     transpose=False, load=load)
+            at = cls._build_host(a.indptr, a.indices, a.data, (m, n),
+                                 False, load, None, None)
         return cls(val=torch.from_numpy(val.reshape(-1, 128)),
                    lidx=torch.from_numpy(li.reshape(-1, 128)),
                    rowf=torch.from_numpy(rf), plan=plan,

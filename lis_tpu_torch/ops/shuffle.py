@@ -40,6 +40,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from lis_tpu_torch.config import resolve_device
 from lis_tpu_torch.matrix.base import TensorFields, static
 from lis_tpu_torch.ops import _cuda
 
@@ -479,48 +480,94 @@ def benes_pass_rowsum(x: torch.Tensor, idx: torch.Tensor, s: int, Kp: int):
 benes_pass_rowsum.launches = 0
 
 
-def benes_small_run(x: torch.Tensor, idxs, ss, Kp: int | None = None):
-    """A run of d = 128 passes with strides ``ss`` (each 1 or 128) applied
-    in one go, optionally followed by the row sums ``.view(-1, Kp).sum(1)``
-    (Kp <= 128, 128 % Kp == 0).  Every such pass permutes within aligned
-    16384-slot tiles T[a][w]: s = 1 gathers within row a, s = 128 within
-    column w.
+class RunTables:
+    """The idx tables and strides of one fused run, as ``benes_small_run``
+    takes them.  The tables are validated and the ctypes arrays of the C
+    entry made at the first launch and kept, so a plan that holds its
+    RunTables pays for them once; the tables are held here, which keeps
+    their pointers valid."""
+
+    __slots__ = ("idxs", "ss", "_c_args")
+
+    def __init__(self, idxs, ss):
+        self.idxs = tuple(idxs)
+        self.ss = tuple(int(s) for s in ss)
+        self._c_args = None
+        if any(s not in (1, 128) for s in self.ss):
+            raise ValueError(f"benes_small_run takes strides 1 and 128 "
+                             f"only, got {list(self.ss)}")
+        if len(self.idxs) != len(self.ss):
+            raise ValueError(f"benes_small_run: {len(self.idxs)} tables for "
+                             f"{len(self.ss)} strides")
+
+    def c_args(self, x: torch.Tensor):
+        """(idx pointer array, stride array, pass count) for a launch on
+        ``x``."""
+        M = x.numel()
+        if self._c_args is None:
+            n = len(self.ss)
+            if M % 16384 or M == 0 or not 1 <= n <= 8:
+                raise ValueError(f"benes_small_run: bad shape M={M}, "
+                                 f"{n} passes")
+            for idx in self.idxs:
+                _cuda.check(idx, "idx", torch.uint8, M)
+            # the kernel does not mask its lane ids (one read per run)
+            if max(int(idx.max()) for idx in self.idxs) >= 128:
+                raise ValueError("benes_small_run: idx holds a lane id "
+                                 ">= 128")
+            ptrs = (ctypes.c_void_p * n)(*[i.data_ptr() for i in self.idxs])
+            strides = (ctypes.c_int * n)(*self.ss)
+            # the casts hold references to the arrays they point into
+            self._c_args = (M, ctypes.cast(ptrs, ctypes.c_void_p),
+                            ctypes.cast(strides, ctypes.c_void_p), n)
+        if self._c_args[0] != M:
+            raise ValueError(f"benes_small_run: x has {M} slots, the "
+                             f"tables {self._c_args[0]}")
+        if self.idxs[0].device != x.device:
+            raise ValueError(f"benes_small_run: x on {x.device}, the tables "
+                             f"on {self.idxs[0].device}")
+        return self._c_args[1:]
+
+
+def benes_small_run(x: torch.Tensor, run: RunTables, Kp: int | None = None):
+    """A run of d = 128 passes with strides ``run.ss`` (each 1 or 128)
+    applied in one go, optionally followed by the row sums
+    ``.view(-1, Kp).sum(1)`` (Kp <= 128, 128 % Kp == 0).  Every such pass
+    permutes within aligned 16384-slot tiles T[a][w]: s = 1 gathers within
+    row a, s = 128 within column w.  ``run`` holds the idx tables and
+    their strides (a plan keeps one per run).
 
     Kernel D replaces lis_tpu ``_fused_small32`` (ops/shuffle.py:583).
     Bound on the H100: bytes — one read and one write of the array for the
-    whole run instead of one per pass.  One block holds one tile in
-    shared memory (132 KB at f64, so no second buffer): each pass gathers
-    in place, a warp owning a whole row or column and staging its 128
-    values in registers between a read and a write; the Kp row sum is a
-    plain reduction.  Strides other than 1 and 128 raise (lis_tpu's run
-    detector let 1 < s < 128 through, which its kernel mis-permutes)."""
-    ss = [int(s) for s in ss]
-    if any(s not in (1, 128) for s in ss):
-        raise ValueError(f"benes_small_run takes strides 1 and 128 only, "
-                         f"got {ss}")
+    whole run instead of one per pass, plus 1 B of idx per slot and pass.
+    A persistent grid of one block per SM walks the tiles.  A tile comes
+    into shared memory unpadded by bulk asynchronous copies (one buffer,
+    128 KB at f64, reloaded as soon as the last pass has read it, so the
+    load overlaps that pass's stores), and the idx
+    bytes of the next five passes wait in a shared-memory ring filled by
+    cp.async, so a pass touches no global memory.  Each pass gathers the
+    whole tile into registers, meets at one barrier and writes back; the
+    last pass stores its registers straight to global memory, or reduces
+    them to the Kp row sums by a pairwise tree over w (warp shuffles), an
+    order that differs from the plain version's.  Strides other than 1
+    and 128 raise (lis_tpu's run detector let 1 < s < 128 through, which
+    its kernel mis-permutes)."""
     if Kp is not None and (Kp > 128 or 128 % Kp):
         raise ValueError(f"benes_small_run: Kp = {Kp} must divide 128")
     if not _on_cuda(x):
         out = x
-        for idx, s in zip(idxs, ss):
+        for idx, s in zip(run.idxs, run.ss):
             out = _pass_plain(out, idx, 128, s)
         return out if Kp is None else out.view(-1, Kp).sum(1)
     M = x.numel()
     _cuda.check(x, "x", _FLOATS)
-    for idx in idxs:
-        _cuda.check(idx, "idx", torch.uint8, M)
-    if M % 16384 or not 1 <= len(ss) <= 8:
-        raise ValueError(f"benes_small_run: bad shape M={M}, "
-                         f"{len(ss)} passes")
+    ptrs, strides, n = run.c_args(x)
     out = torch.empty(M if Kp is None else M // Kp, dtype=x.dtype,
                       device=x.device)
-    ptrs = (ctypes.c_void_p * len(ss))(*[i.data_ptr() for i in idxs])
-    strides = (ctypes.c_int * len(ss))(*ss)
     lkp = -1 if Kp is None else Kp.bit_length() - 1
     _cuda.launch("lis_benes_small_run", _cuda.DTYPE_CODE[x.dtype],
-                 x.data_ptr(), ctypes.cast(ptrs, ctypes.c_void_p),
-                 ctypes.cast(strides, ctypes.c_void_p), len(ss),
-                 out.data_ptr(), M, lkp, _cuda.stream())
+                 x.data_ptr(), ptrs, strides, n, out.data_ptr(), M, lkp,
+                 _cuda.stream())
     benes_small_run.launches += 1
     return out
 
@@ -560,9 +607,21 @@ class ShufflePlan(TensorFields):
     small: object = None      # tiny plans: int64 gather order, or None
 
     def _run(self):
-        if self.M % 16384 or self.M < 16384:
-            return None
-        return _small_run(self.meta)
+        """(start, stop, RunTables) of the passes ``benes_small_run``
+        fuses, or None; made once per plan object."""
+        try:
+            return self._run_cache
+        except AttributeError:
+            pass
+        run = None
+        if self.M >= 16384 and self.M % 16384 == 0:
+            span = _small_run(self.meta)
+            if span is not None:
+                i, j = span
+                run = (i, j, RunTables(self.idxs[i:j],
+                                       [s for _, s in self.meta[i:j]]))
+        object.__setattr__(self, "_run_cache", run)
+        return run
 
     def apply(self, v):
         if self.small is not None:
@@ -576,8 +635,7 @@ class ShufflePlan(TensorFields):
         i = 0
         while i < len(metas):
             if run is not None and i == run[0]:
-                out = benes_small_run(out, idxs[i: run[1]],
-                                      [s for _, s in metas[i: run[1]]])
+                out = benes_small_run(out, run[2])
                 i = run[1]
                 continue
             (d, s), idx = metas[i], idxs[i]
@@ -602,10 +660,9 @@ class ShufflePlan(TensorFields):
         while i < len(metas):
             if run is not None and i == run[0]:
                 stop = run[1]
-                ss = [s for _, s in metas[i: stop]]
                 if stop == len(metas) and Kp <= 128 and 128 % Kp == 0:
-                    return benes_small_run(out, idxs[i: stop], ss, Kp=Kp)
-                out = benes_small_run(out, idxs[i: stop], ss)
+                    return benes_small_run(out, run[2], Kp=Kp)
+                out = benes_small_run(out, run[2])
                 i = stop
                 continue
             (d, s), idx = metas[i], idxs[i]
@@ -634,12 +691,22 @@ _PLAN_CACHE_MAX_BYTES = 1 << 30
 def plan_shuffle(perm: np.ndarray, M: int | None = None,
                  validate: bool = True, digits=None,
                  exact_holes: bool = False,
-                 skip_identity: bool = True) -> ShufflePlan:
-    """Compile a permutation into a ShufflePlan (tables on the CPU).
+                 skip_identity: bool = True, device=None) -> ShufflePlan:
+    """Compile a permutation into a ShufflePlan on ``device`` (None: the
+    default device, the card).  The routing runs on the host; the cache
+    keeps the host copy, which ``device="cpu"`` returns as it is.
 
     ``perm`` maps src slot -> dst slot; -1 entries are free, and dst slots
     not hit are free — both are completed into a full bijection.  ``M``
     (power of two >= len(perm)) pads the slot count."""
+    plan = _plan_host(perm, M, validate, digits, exact_holes,
+                      skip_identity)
+    dev = resolve_device(device)
+    return plan if dev.type == "cpu" else plan.to(dev)
+
+
+def _plan_host(perm, M, validate, digits, exact_holes,
+               skip_identity) -> ShufflePlan:
     perm = np.asarray(perm, dtype=np.int64)
     h = hashlib.blake2b(perm.tobytes(), digest_size=16)
     h.update(repr((M, tuple(digits) if digits else None, exact_holes,

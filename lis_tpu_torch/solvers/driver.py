@@ -8,8 +8,10 @@ residual history, true-residual recomputation (:910-924) and per-phase
 timing.
 
 The solve runs on the device that holds the matrix's tensors; ``b`` and
-``x0`` are moved there.  What lis_tpu does and this package does not yet
-raises ``NotImplementedError`` naming the ROADMAP.md item that ports it.
+``x0`` are moved there.  A matrix built by the port's constructors lives
+on the default device, the card, unless its caller asked for another.
+What lis_tpu does and this package does not yet raises
+``NotImplementedError`` naming the ROADMAP.md item that ports it.
 """
 
 from __future__ import annotations
@@ -126,7 +128,8 @@ def _scale_operator(A, scale):
 
 def _convert_storage(A, opts):
     if opts.storage:
-        return convert_matrix(A, _STORAGE_BY_ID[opts.storage])
+        return convert_matrix(A, _STORAGE_BY_ID[opts.storage],
+                              device=A.device)
     return A
 
 

@@ -71,7 +71,8 @@ def built(n, k):
         a = csym(n, k)
         args = (a.indptr, a.indices, a.data, a.shape)
         _BUILT[n, k] = (a, JCST.from_csr_arrays(*args),
-                        TCST.from_csr_arrays(*args), cvec(n, n + k))
+                        TCST.from_csr_arrays(*args, device="cpu"),
+                        cvec(n, n + k))
     return _BUILT[n, k]
 
 
@@ -85,7 +86,7 @@ def hermitian():
     h.sort_indices()
     args = (h.indptr, h.indices, h.data, h.shape)
     return (h, lis_tpu.CSRMatrix.from_csr_arrays(*args),
-            lis_tpu_torch.CSRMatrix.from_csr_arrays(*args),
+            lis_tpu_torch.CSRMatrix.from_csr_arrays(*args, device="cpu"),
             rng.randn(n) + 1j * rng.randn(n))
 
 
@@ -190,7 +191,7 @@ def test_scaled_complex_grid_through_from_numpy_state():
     a, J, T, b = built(*GRIDS[0])
     d = cvec(a.shape[0], 14)
     Js = J.scale_rows(jnp.asarray(d))
-    C = from_numpy_state(*to_state(Js))
+    C = from_numpy_state(*to_state(Js), device="cpu")
     assert C.val.dtype == torch.complex128 and C.at.val.dtype == C.val.dtype
     np.testing.assert_array_equal(C.at.val.numpy(), np.asarray(Js.at.val))
     x = cvec(a.shape[0], 15)

@@ -40,7 +40,8 @@ def grid(request):
     n, k = request.param
     a = spd(n, k)
     args = (a.indptr, a.indices, a.data, a.shape)
-    return a, JCST.from_csr_arrays(*args), TCST.from_csr_arrays(*args)
+    return (a, JCST.from_csr_arrays(*args),
+            TCST.from_csr_arrays(*args, device="cpu"))
 
 
 def to_state(obj):
@@ -149,7 +150,7 @@ def test_matvec_matches_lis_tpu_and_scipy(grid):
 def test_lis_tpu_grid_through_from_numpy_state(grid):
     """lis_tpu's own grid, carried over leaf by leaf, runs in the port."""
     a, J, T = grid
-    C = from_numpy_state(*to_state(J))
+    C = from_numpy_state(*to_state(J), device="cpu")
     assert isinstance(C, TCST) and isinstance(C.at, TCST)
     _assert_same_build(C, J)
     x = np.random.default_rng(4).standard_normal(a.shape[0])
@@ -186,14 +187,14 @@ def test_matvech_fallback_is_conjugate_transpose():
     a.sum_duplicates()
     a.sort_indices()
     T = TCST.from_csr_arrays(a.indptr, a.indices, a.data, a.shape,
-                             transpose=False)
+                             transpose=False, device="cpu")
     x = rng.standard_normal(n) + 1j * rng.standard_normal(n)
     np.testing.assert_allclose(T.matvech(torch.from_numpy(x)).numpy(),
                                a.conj().T @ x, rtol=1e-12, atol=1e-12)
     xr = rng.standard_normal(n)
     ar = a.real.tocsr()
     Tr = TCST.from_csr_arrays(ar.indptr, ar.indices, ar.data, ar.shape,
-                              transpose=False)
+                              transpose=False, device="cpu")
     np.testing.assert_allclose(Tr.matvech(torch.from_numpy(xr)).numpy(),
                                ar.T @ xr, rtol=1e-12, atol=1e-12)
 
@@ -203,7 +204,7 @@ def test_scaling_not_ported():
     scale_rows equal lis_tpu's bit for bit and apply D·A·D / D·A."""
     a = spd(1 << 14, 3)
     args = (a.indptr, a.indices, a.data, a.shape)
-    T = TCST.from_csr_arrays(*args, transpose=False)
+    T = TCST.from_csr_arrays(*args, transpose=False, device="cpu")
     J = JCST.from_csr_arrays(*args, transpose=False)
     d = np.random.default_rng(10).uniform(0.5, 2.0, a.shape[0])
     x = np.random.default_rng(11).standard_normal(a.shape[0])

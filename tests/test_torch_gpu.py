@@ -11,6 +11,9 @@ must be bit-equal.  Row sums are compared to rtol 1e-12 (f64) or 1e-5
 (f32): the kernels sum in another order.  The CSR remainder of a CST
 matvec sums with atomics on the card, hence 1e-12 there too, and a solve
 on the card may take one iteration more or less than on the CPU.
+
+A matrix built with no ``device`` argument lives on the card (the port's
+default device); the CPU side of each comparison asks for ``device="cpu"``.
 """
 
 import numpy as np
@@ -69,23 +72,59 @@ def test_benes_pass_rowsum(cuda, dtype, s, Kp):
                                atol=_rtol(dtype))
 
 
+# runs of 1, 2, 3, 4 and 8 passes; 1 tile, 4 tiles, and 133 tiles (more
+# than the grid's blocks, and a count that no grid divides)
+RUNS = [[128, 1, 128], [1], [128], [1, 128], [128, 1], [1, 128, 1, 128],
+        [128, 1, 1, 128, 128, 1, 128, 1]]
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("Kp", [None, 16, 32, 128])
-def test_benes_small_run(cuda, dtype, Kp):
+@pytest.mark.parametrize("Kp", [None, 2, 16, 32, 128])
+@pytest.mark.parametrize("ss", RUNS, ids=lambda ss: "-".join(map(str, ss)))
+@pytest.mark.parametrize("M", [16384, 1 << 16, 16384 * 133])
+def test_benes_small_run(cuda, dtype, Kp, ss, M):
     rng = np.random.default_rng(3)
-    M = 1 << 16
-    ss = [128, 1, 128]
     idx = [_row_perms(rng, M) for _ in ss]
     x = torch.from_numpy(rng.standard_normal(M)).to(dtype)
-    want = tsh.benes_small_run(x, idx, ss, Kp=Kp)
-    got = tsh.benes_small_run(x.to(cuda), [i.to(cuda) for i in idx], ss,
-                              Kp=Kp).cpu()
+    want = tsh.benes_small_run(x, tsh.RunTables(idx, ss), Kp=Kp)
+    before = tsh.benes_small_run.launches
+    run = tsh.RunTables([i.to(cuda) for i in idx], ss)
+    got = tsh.benes_small_run(x.to(cuda), run, Kp=Kp).cpu()
+    assert tsh.benes_small_run.launches == before + 1
     if Kp is None:
         assert torch.equal(got, want)
     else:
         torch.testing.assert_close(got, want, rtol=_rtol(dtype),
                                    atol=_rtol(dtype))
+
+
+@pytest.mark.gpu
+def test_benes_small_run_tables_are_reused(cuda):
+    """A RunTables serves many launches and both dtypes, and refuses an x
+    of another size, an x on another device than its tables, and a lane
+    id of 128 or more."""
+    rng = np.random.default_rng(4)
+    M, ss = 1 << 15, [1, 128]
+    idx = [_row_perms(rng, M) for _ in ss]
+    run = tsh.RunTables([i.to(cuda) for i in idx], ss)
+    host = tsh.RunTables(idx, ss)
+    for dtype in DTYPES:
+        x = torch.from_numpy(rng.standard_normal(M)).to(dtype)
+        for Kp in (None, 8):
+            want = tsh.benes_small_run(x, host, Kp=Kp)
+            got = tsh.benes_small_run(x.to(cuda), run, Kp=Kp).cpu()
+            torch.testing.assert_close(got, want, rtol=_rtol(dtype),
+                                       atol=_rtol(dtype))
+    with pytest.raises(ValueError, match="slots"):
+        tsh.benes_small_run(torch.zeros(1 << 14, device=cuda), run)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        tsh.benes_small_run(torch.zeros(M, device=cuda), host)
+    bad = [i.to(cuda) for i in idx]
+    bad[1] = bad[1] | 128
+    with pytest.raises(ValueError, match="lane id"):
+        tsh.benes_small_run(torch.zeros(M, device=cuda),
+                            tsh.RunTables(bad, ss))
 
 
 @pytest.mark.gpu
@@ -123,10 +162,11 @@ def _system(n, k, kind="spd"):
 @pytest.mark.parametrize("n,k", [(1 << 15, 5), (1 << 16, 8)])
 def test_cst_matvec(cuda, n, k):
     a = _system(n, k)
-    T = CSTMatrix.from_csr_arrays(a.indptr, a.indices, a.data, a.shape)
+    Tc = CSTMatrix.from_csr_arrays(a.indptr, a.indices, a.data, a.shape)
+    assert Tc.device.type == Tc.at.plan.device.type == "cuda"
+    T = Tc.to("cpu")
     x = torch.from_numpy(np.random.default_rng(1).standard_normal(n))
     want = T.matvec(x)
-    Tc = T.to(cuda)
     got = Tc.matvec(x.to(cuda)).cpu()
     torch.testing.assert_close(got, want, rtol=1e-12, atol=1e-12)
     torch.testing.assert_close(Tc.matvech(x.to(cuda)).cpu(), T.matvech(x),
@@ -170,10 +210,10 @@ def test_complex_cst_matvec(cuda, n, k):
     """The select (lane_shuffle), then B, C and D on two planes; matvech
     through the transpose grid."""
     a = _system(n, k, "csym")
-    T = CSTMatrix.from_csr_arrays(a.indptr, a.indices, a.data, a.shape)
+    Tc = CSTMatrix.from_csr_arrays(a.indptr, a.indices, a.data, a.shape)
+    T = Tc.to("cpu")
     rng = np.random.default_rng(2)
     x = torch.from_numpy(rng.standard_normal(n) + 1j * rng.standard_normal(n))
-    Tc = T.to(cuda)
     before = tsh.lane_shuffle.launches
     got = Tc.matvec(x.to(cuda)).cpu()
     assert tsh.lane_shuffle.launches > before
@@ -188,17 +228,35 @@ def test_scaled_prebuilt_cst_bicg(cuda):
     on the card (lane_shuffle), then BiCG walks A and Aᴴ."""
     n = 1 << 15
     a = _system(n, 5, "nonsym")
-    T = CSTMatrix.from_csr_arrays(a.indptr, a.indices, a.data, a.shape)
+    Tc = CSTMatrix.from_csr_arrays(a.indptr, a.indices, a.data, a.shape)
     b = np.random.default_rng(3).standard_normal(n)
     opts = "-i bicg -p jacobi -storage cst -scale 1 -tol 1e-10"
-    want = lis_tpu_torch.solve(T, b, options=opts)
+    want = lis_tpu_torch.solve(Tc.to("cpu"), b, options=opts)
+    assert want.x.device.type == "cpu"
     before = tsh.lane_shuffle.launches
-    got = lis_tpu_torch.solve(T.to(cuda), b, options=opts)
+    got = lis_tpu_torch.solve(Tc, b, options=opts)
+    assert got.x.is_cuda
     assert tsh.lane_shuffle.launches > before
     assert got.status == want.status == lis_tpu_torch.LIS_SUCCESS
     assert abs(got.iters - want.iters) <= 1
     x = got.x.cpu().numpy()
     assert np.linalg.norm(a @ x - b) / np.linalg.norm(b) <= 1e-9
+
+
+@pytest.mark.gpu
+def test_from_csr_arrays_then_solve_runs_on_the_card(cuda):
+    """The README's usage: no device anywhere, so the CSR input, the CST
+    that -storage cst converts it to, and the solve are all on the card."""
+    n = 1 << 15
+    a = _system(n, 5)
+    A = lis_tpu_torch.CSRMatrix.from_csr_arrays(a.indptr, a.indices, a.data,
+                                                a.shape)
+    assert A.device.type == "cuda"
+    before = tsh.benes_small_run.launches
+    r = lis_tpu_torch.solve(A, np.ones(n),
+                            options="-i cg -p jacobi -storage cst -tol 1e-10")
+    assert r.x.is_cuda and tsh.benes_small_run.launches > before
+    assert r.status == lis_tpu_torch.LIS_SUCCESS and r.true_resid <= 1e-9
 
 
 def test_kernel_wrappers_need_cuda_for_kernels():

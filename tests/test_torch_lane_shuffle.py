@@ -78,7 +78,8 @@ def test_plan_without_block_digits_matches_lis_tpu(M, first, dtype):
     legacy route; complex vectors go through as two planes."""
     perm = _perm(M, M // 2, seed=M)
     pj = jsh.plan_shuffle(perm, exact_holes=True, validate=False)
-    pt = tsh.plan_shuffle(perm, exact_holes=True, validate=False)
+    pt = tsh.plan_shuffle(perm, exact_holes=True, validate=False,
+                          device="cpu")
     assert pt.meta == pj.meta and pt.meta[0][0] == first
     v = np.zeros(M, dtype=dtype)
     v[perm >= 0] = _values(np.random.default_rng(2), M // 2, dtype)

@@ -57,7 +57,7 @@ def built(kind, n, k):
         args = (a.indptr, a.indices, a.data, a.shape)
         b = np.random.default_rng(n + k).standard_normal(n)
         _BUILT[kind, n, k] = (a, JCST.from_csr_arrays(*args),
-                              TCST.from_csr_arrays(*args), b)
+                              TCST.from_csr_arrays(*args, device="cpu"), b)
     return _BUILT[kind, n, k]
 
 

@@ -52,7 +52,7 @@ def test_plan_tables_equal(M, n_real, block, exact_holes, skip_identity):
     kw = dict(digits=digits, exact_holes=exact_holes,
               skip_identity=skip_identity)
     pj = jsh.plan_shuffle(perm, **kw)
-    pt = tsh.plan_shuffle(perm, **kw)
+    pt = tsh.plan_shuffle(perm, device="cpu", **kw)
     assert pt.meta == pj.meta and pt.M == pj.M
     assert len(pt.idxs) == len(pj.idxs)
     for it, ij in zip(pt.idxs, pj.idxs):
@@ -71,7 +71,7 @@ def test_digits_and_small_plans_match():
     assert tsh.block_digits(1 << 25, 1 << 21) == [16, 128, 128, 128]
     perm = _perm(1 << 12, 3000, seed=3)
     pj = jsh.plan_shuffle(perm)
-    pt = tsh.plan_shuffle(perm)
+    pt = tsh.plan_shuffle(perm, device="cpu")
     np.testing.assert_array_equal(pt.small.numpy(), np.asarray(pj.small))
     v = np.random.default_rng(0).standard_normal(1 << 12)
     np.testing.assert_array_equal(
@@ -103,15 +103,29 @@ def test_benes_pass_rowsum_plain_matches_apply_host(s, Kp):
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-13, atol=1e-13)
 
 
-@pytest.mark.parametrize("Kp", [None, 16, 32, 128])
-def test_benes_small_run_plain_matches_apply_host(Kp):
+# Runs of 1, 2, 4 and 8 passes, on three tiles (a count that is no power
+# of two) as well as two; the ids of the first cases are their Kp.
+_RUN8 = [128, 1, 1, 128, 128, 1, 128, 1]
+_RUNS = [([128, 1, 128], 1 << 15, "")] + [
+    (ss, 16384 * 3, "-".join(map(str, ss)) + "-")
+    for ss in ([1], [128], [1, 128], [128, 1], [1, 128, 1, 128], _RUN8)]
+
+
+def _run_cases(first, rest):
+    """The [128, 1, 128] run with each Kp of ``first``, then every other
+    run of _RUNS with each Kp of ``rest``."""
+    return [pytest.param(ss, M, Kp, id=f"{tag}{Kp}")
+            for ss, M, tag in _RUNS for Kp in (rest if tag else first)]
+
+
+@pytest.mark.parametrize("ss,M,Kp", _run_cases([None, 16, 32, 128],
+                                               [None, 2, 32, 128]))
+def test_benes_small_run_plain_matches_apply_host(ss, M, Kp):
     rng = np.random.default_rng(7)
-    M = 1 << 15
-    ss = [128, 1, 128]
     idx = [_row_perms(rng, M) for _ in ss]
     x = rng.standard_normal(M)
-    got = tsh.benes_small_run(torch.from_numpy(x),
-                              [torch.from_numpy(i) for i in idx], ss, Kp=Kp)
+    run = tsh.RunTables([torch.from_numpy(i) for i in idx], ss)
+    got = tsh.benes_small_run(torch.from_numpy(x), run, Kp=Kp)
     want = jsh.apply_host([(128, s, i) for s, i in zip(ss, idx)], x, M)
     if Kp is None:
         np.testing.assert_array_equal(got.numpy(), want)
@@ -121,22 +135,19 @@ def test_benes_small_run_plain_matches_apply_host(Kp):
                                    rtol=1e-13, atol=1e-13)
 
 
-@pytest.mark.parametrize("Kp", [None, 2, 128])
-def test_benes_small_run_plain_matches_pallas_interpret_f32(Kp):
+@pytest.mark.parametrize("ss,M,Kp", _run_cases([None, 2, 128], [None, 16]))
+def test_benes_small_run_plain_matches_pallas_interpret_f32(ss, M, Kp):
     """At f32 the plain run equals lis_tpu's _fused_small32 run in Pallas
     interpret mode (as tests/test_formats.py runs it); row sums to rtol
     1e-5, the f32 summation order differs."""
     rng = np.random.default_rng(9)
-    M = 1 << 15
-    ss = [128, 1, 128]
     idx = [_row_perms(rng, M) for _ in ss]
     x = rng.standard_normal(M).astype(np.float32)
     want = np.asarray(jsh._fused_small32(
         jnp.asarray(x), [jnp.asarray(i) for i in idx], ss, M, Kp=Kp,
         interpret=True))
-    got = tsh.benes_small_run(torch.from_numpy(x),
-                              [torch.from_numpy(i) for i in idx], ss,
-                              Kp=Kp).numpy()
+    run = tsh.RunTables([torch.from_numpy(i) for i in idx], ss)
+    got = tsh.benes_small_run(torch.from_numpy(x), run, Kp=Kp).numpy()
     if Kp is None:
         np.testing.assert_array_equal(got, want)
     else:
@@ -153,7 +164,7 @@ def test_plan_apply_matches_lis_tpu(M, block, Kp):
     kw = dict(digits=tsh.block_digits(M, block), exact_holes=True,
               validate=False)
     pj = jsh.plan_shuffle(perm, **kw)
-    pt = tsh.plan_shuffle(perm, **kw)
+    pt = tsh.plan_shuffle(perm, device="cpu", **kw)
     rng = np.random.default_rng(1)
     v = np.zeros(M)
     v[perm >= 0] = rng.standard_normal(n_real)      # holes carry zeros
@@ -174,10 +185,9 @@ def test_small_run_takes_only_strides_1_and_128():
     assert tsh._small_run(meta) is None
     assert tsh._small_run(((128, 16384), (128, 128), (128, 1), (128, 128),
                            (128, 16384))) == (1, 4)
-    x = torch.zeros(1 << 15)
     idx = torch.zeros((1 << 8, 128), dtype=torch.uint8)
     with pytest.raises(ValueError, match="strides 1 and 128"):
-        tsh.benes_small_run(x, [idx, idx], [128, 2])
+        tsh.RunTables([idx, idx], [128, 2])
 
 
 def test_plan_cache_key_includes_validate(monkeypatch):
@@ -194,9 +204,9 @@ def test_plan_cache_key_includes_validate(monkeypatch):
 
     monkeypatch.setattr(tsh, "_route", bad_route)
     perm = _perm(1 << 15, 20000, seed=5)
-    tsh.plan_shuffle(perm, validate=False)
+    tsh.plan_shuffle(perm, validate=False, device="cpu")
     with pytest.raises(AssertionError, match="wrong plan"):
-        tsh.plan_shuffle(perm, validate=True)
+        tsh.plan_shuffle(perm, validate=True, device="cpu")
 
 
 def test_plan_cache_bounded_by_bytes(monkeypatch):
@@ -204,18 +214,20 @@ def test_plan_cache_bounded_by_bytes(monkeypatch):
     plans of any size, ops/shuffle.py:801)."""
     monkeypatch.setattr(tsh, "_PLAN_CACHE", {})
     perms = [_perm(1 << 15, 20000, seed=s) for s in range(3)]
-    size = tsh.plan_shuffle(perms[0], validate=False).nbytes
+    size = tsh.plan_shuffle(perms[0], validate=False, device="cpu").nbytes
     tsh._PLAN_CACHE.clear()
     monkeypatch.setattr(tsh, "_PLAN_CACHE_MAX_BYTES", 2 * size + size // 2)
-    plans = [tsh.plan_shuffle(p, validate=False) for p in perms]
+    plans = [tsh.plan_shuffle(p, validate=False, device="cpu")
+             for p in perms]
     assert len(tsh._PLAN_CACHE) == 2
     assert sum(p.nbytes for p in tsh._PLAN_CACHE.values()) \
         <= tsh._PLAN_CACHE_MAX_BYTES
     assert plans[0] not in tsh._PLAN_CACHE.values()      # oldest evicted
-    assert tsh.plan_shuffle(perms[2], validate=False) is plans[2]
+    assert tsh.plan_shuffle(perms[2], validate=False,
+                            device="cpu") is plans[2]
     monkeypatch.setattr(tsh, "_PLAN_CACHE_MAX_BYTES", size // 2)
     tsh._PLAN_CACHE.clear()
-    tsh.plan_shuffle(perms[1], validate=False)
+    tsh.plan_shuffle(perms[1], validate=False, device="cpu")
     assert not tsh._PLAN_CACHE                 # larger than the budget
 
 

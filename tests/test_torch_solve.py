@@ -31,7 +31,8 @@ def system(n, k):
         args = (a.indptr, a.indices, a.data, a.shape)
         b = np.random.default_rng(n + k).standard_normal(n)
         _SYSTEMS[n, k] = (a, lis_tpu.CSRMatrix.from_csr_arrays(*args),
-                          lis_tpu_torch.CSRMatrix.from_csr_arrays(*args), b)
+                          lis_tpu_torch.CSRMatrix.from_csr_arrays(
+                              *args, device="cpu"), b)
     return _SYSTEMS[n, k]
 
 

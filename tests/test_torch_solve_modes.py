@@ -95,7 +95,8 @@ def test_jacobi_precon_and_from_numpy_state():
     a, J, T, b = system(1 << 15, 5)
     pj = jax_jacobi(J, None)
     pt = create_jacobi(T, None)
-    carried = from_numpy_state("jacobi", {"dinv": np.asarray(pj.dinv)})
+    carried = from_numpy_state("jacobi", {"dinv": np.asarray(pj.dinv)},
+                               device="cpu")
     np.testing.assert_array_equal(pt.dinv.numpy(), np.asarray(pj.dinv))
     r = torch.from_numpy(b)
     assert torch.equal(carried.psolve(r), pt.psolve(r))
