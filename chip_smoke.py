@@ -41,22 +41,59 @@ Phases (one or more lines each):
    in phase 5 with lane_shuffle launched at least once per iteration;
    cocg at -f single, which must keep complex128 and is held against the
    CPU run at double; the complex CST matvec against its plain version
-   to rel 1e-12, both timed.
+   to rel 1e-12, both timed;
+7. dia kernels: E (dia_spmv) and F (dia_spmvh) against their plain
+   versions on poisson3d27 96³ (884,736 rows, 27 diagonals) in f32, f64
+   and complex128, with a complex vector on the real diagonals, and on a
+   nonsymmetric banded matrix of 1,000,003 rows with offsets beyond n/2,
+   to rtol 1e-13 / 1e-5; the four kernels of the fused CG step (G) against
+   their plain versions from one state: p, x and r bit-equal, sums to rtol
+   1e-12 / 1e-5, the breakdown freeze and the no-op after the loop ended.
+   E, F and G are timed beside their plain versions and their bounds; E
+   also beside ``torch.sparse`` CSR @ x (built outside the timed region)
+   and the port's CSR gather matvec;
+8. main path, all with default routing (no -storage): (a) poisson2d
+   512x512 written to a MatrixMarket file and solved by
+   ``lis_tpu_torch.cli.lsolve.main``: exit 0, route dia; (b)
+   solve(poisson3d27 96³ CSR, ones, "-i cg -p jacobi -tol 1e-8"): route
+   dia, SUCCESS, true residual <= 1e-7, the CPU plain path's iteration
+   count ±1 (the dot products sum in another order), E launched once per
+   iteration plus once for the initial residual and G's kernels exactly
+   as often as the step calls them, so no call took a plain version; the
+   same at -f single (finite, SUCCESS, true residual <= 3e-4 and within
+   2x of the CPU's at -f single: float32 stalls near 1.5e-4 on this
+   system at any tolerance) and with bicg (E and F per iteration); the
+   step of torch operations timed on the same DIA beside the fused one,
+   and the fused one with the loop condition read every 16 steps; (c)
+   poisson3d27_dia 192³ (7,077,888 rows, 1.53 GB of diagonals) solved the same way and held to the iteration count ±1 of a
+   CG loop over the plain versions of E and G on the card, written out in
+   this script; (d) phase 3's locality-free matrix with no -storage: route
+   cst, kernels A-D launched, beside the wall of the same solve with
+   -auto_storage false (CSR); (e) a nonsymmetric matrix of 2^20 rows with
+   6 random columns per row within ±2000 of the diagonal: route css (torch
+   operations, no kernel), solved by bicgstab, bicg and bicg -scale 1 to
+   true residual <= 1e-9 (scipy too) in the CPU CSR solve's iterations ±1;
+   the CSS matvec, matvech (through the transpose and by the scatter) and
+   diagonal on the card against scipy to 1e-12.
 
-The matrices of phases 3 to 6 are built with no ``device`` argument, so
+Phases 1 to 8 all run at the sizes named here.  The matrices of phases 3
+to 6 are built with no ``device`` argument, so
 they live on the default device, the card; each has a CPU copy for the
 CPU iteration count it is held against.
 
-Launch counts are set to 0 just before each solve of phases 3, 5 and 6
+Launch counts are set to 0 just before each solve of phases 3, 5, 6 and 8
 and read just after; launches made to compare a kernel with its plain
-version are not counted.  It prints one JSON line of per-kernel results,
-then as its last line {"ok": true, "device": {...}}.  Any failure exits
+version are not counted.  It prints one JSON line of per-kernel results
+(each row's ``timing`` says how its ``ms`` was taken; where that is
+"queued", ``host_ms`` is the figure taken as ``plain_ms`` is), then as its
+last line {"ok": true, "device": {...}}.  Any failure exits
 non-zero before that line; so does a machine without CUDA.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
 import subprocess
@@ -90,15 +127,40 @@ def system(n: int, k: int, seed: int, kind: str = "spd"):
     return a
 
 
-def cuda_ms(fn, reps: int = 20, warm: int = 3) -> float:
+def windowed(n: int, w: int, seed: int):
+    """30·I plus 6 random columns per row within ±w of the diagonal,
+    nonsymmetric (scipy CSR): a pattern neither banded nor fit for the
+    CST grid, which the router sends to CSS."""
+    import scipy.sparse as sp
+    rng = np.random.default_rng(seed)
+    rows = np.repeat(np.arange(n), 6)
+    cols = np.clip(rows + rng.integers(-w, w, n * 6), 0, n - 1)
+    a = sp.coo_matrix((rng.standard_normal(n * 6), (rows, cols)),
+                      shape=(n, n)).tocsr()
+    a = (a + sp.eye(n) * 30).tocsr()
+    a.sort_indices()
+    return a
+
+
+def cuda_ms(fn, reps: int = 20, warm: int = 3, queued: bool = False) -> float:
     """Mean device time of fn() in ms over ``reps`` back-to-back calls,
-    measured with CUDA events after ``warm`` untimed calls."""
+    measured with CUDA events after ``warm`` untimed calls.  With
+    ``queued`` the calls are enqueued while the device is still busy with
+    two earlier products of 4096 x 4096 matrices (a few ms), so they run
+    back to back from the queue and the host's time to enqueue a launch
+    is not in the figure: for kernels of a few microseconds."""
     import torch
     for _ in range(warm):
         fn()
+    if queued and not hasattr(cuda_ms, "spin"):
+        cuda_ms.spin = torch.ones((4096, 4096), device="cuda")
+        cuda_ms.spun = torch.empty_like(cuda_ms.spin)
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     stop = torch.cuda.Event(enable_timing=True)
+    if queued:
+        for _ in range(2):
+            torch.mm(cuda_ms.spin, cuda_ms.spin, out=cuda_ms.spun)
     start.record()
     for _ in range(reps):
         fn()
@@ -133,8 +195,12 @@ def main() -> None:
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     try:
         import lis_tpu_torch
-        from lis_tpu_torch.matrix import cst as cstm
+        from lis_tpu_torch.cli import lsolve
+        from lis_tpu_torch.core import vector as v
+        from lis_tpu_torch.matrix import cst as cstm, dia as diam
         from lis_tpu_torch.ops import _cuda, shuffle as sh
+        from lis_tpu_torch.runtime.options import SolverOptions
+        from lis_tpu_torch.utils import testmat
     except ImportError as e:
         fail(f"lis_tpu_torch is not importable next to this script ({e})")
 
@@ -184,17 +250,25 @@ def main() -> None:
     results = {}             # kernel -> dict of the f64 numbers
     results32 = {}          # the same at f32
 
-    def check(name, dtype, shape, got, want, exact, timed=None):
+    def check(name, dtype, shape, got, want, exact, timed=None, rtol=None,
+              queued=False):
         """Hold a kernel's output against its plain version's; with
         ``timed`` = (kernel fn, plain fn, library fn or None, bytes moved,
         additions and multiplications) also time them (the slice's shape:
-        recorded per dtype)."""
+        recorded per dtype).  The record's ``timing`` says how ``ms`` and
+        ``library_ms`` were taken: "host", as ``plain_ms`` always is (the
+        host enqueues each call as the device runs), or, with ``queued``,
+        "queued" (from the device's queue, see cuda_ms); ``host_ms`` is
+        then the kernel's time taken as ``plain_ms`` is, the one to hold
+        against it."""
         wide = torch.complex128 if got.is_complex() else torch.float64
         err = (got.to(wide) - want.to(wide)).abs().max().item()
         if exact:
             ok = torch.equal(got, want)
         else:
-            rtol = 1e-12 if dtype == torch.float64 else 1e-5
+            if rtol is None:
+                rtol = 1e-12 if dtype in (torch.float64,
+                                          torch.complex128) else 1e-5
             scale = want.to(wide).abs().max().item()
             ok = err <= rtol * max(scale, 1.0)
         line = (f"phase kernels: {name} {str(dtype)[6:]} {shape}: "
@@ -203,11 +277,13 @@ def main() -> None:
                 f"{'ok' if ok else 'MISMATCH'}")
         if timed is not None:
             kern, plain, library, nbytes, flops = timed
-            ms, plain_ms = cuda_ms(kern), cuda_ms(plain)
-            lib_ms = None if library is None else cuda_ms(library)
+            ms, plain_ms = cuda_ms(kern, queued=queued), cuda_ms(plain)
+            lib_ms = None if library is None else cuda_ms(library,
+                                                          queued=queued)
             b_ms, b_by = bound_ms(nbytes, flops, dtype)
             rec = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                   "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms}
+                   "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
+                   "timing": "queued" if queued else "host"}
             if dtype == torch.float64:
                 results[name] = rec
             elif dtype == torch.float32:
@@ -216,6 +292,10 @@ def main() -> None:
                      f"{b_ms:.4f} ms ({b_by}, {100 * b_ms / ms:.0f} %), "
                      f"library " + ("none" if lib_ms is None
                                     else f"{lib_ms:.4f} ms"))
+            if queued:
+                rec["host_ms"] = cuda_ms(kern)
+                line += (f"; {rec['host_ms']:.4f} ms a call with the host "
+                         f"enqueueing each launch, as the plain version's")
         print(line, flush=True)
         if not ok:
             fail(f"{name} {dtype} {shape} disagrees with its plain version")
@@ -330,7 +410,10 @@ def main() -> None:
     kernels = {"lane_shuffle": sh.lane_shuffle, "cst_front": cstm.cst_front,
                "benes_pass": sh.benes_pass,
                "benes_pass_rowsum": sh.benes_pass_rowsum,
-               "benes_small_run": sh.benes_small_run}
+               "benes_small_run": sh.benes_small_run,
+               "dia_spmv": diam.dia_spmv, "dia_spmvh": diam.dia_spmvh,
+               "krylov_dot": v.krylov_dot, "cg_direction": v.cg_direction,
+               "cg_update": v.cg_update, "cg_finish": v.cg_finish}
     matvec_kernels = ("cst_front", "benes_pass", "benes_pass_rowsum",
                       "benes_small_run")
     total = dict.fromkeys(kernels, 0)     # launches over the counted solves
@@ -545,6 +628,502 @@ def main() -> None:
         fail(f"complex CST matvec kernels vs plain: relative error "
              f"{err:.3e}")
 
+
+    # ---- 7. dia kernels: E, F and G against their plain versions -----------
+    t0 = time.perf_counter()
+    A96 = testmat.poisson3d27(96, 96, 96)          # CSR on the card
+    D96 = lis_tpu_torch.convert_matrix(A96, "dia")
+    n96, nnd = D96.nrows, len(D96.offsets)
+    print(f"phase dia: poisson3d27 96^3: n={n96} nnz={A96.nnz} nnd={nnd} "
+          f"max|off|={max(map(abs, D96.offsets))}, CSR and DIA built in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    if D96.device.type != "cuda" or D96.off.dtype != torch.int64:
+        fail(f"a DIA built with no device lives on {D96.device}")
+    S96 = torch.sparse_csr_tensor(A96.ptr, A96.index, A96.value,
+                                  size=A96.shape)      # the library's operand
+
+    def dia_rtol(dtype):
+        return 1e-13 if dtype in (torch.float64, torch.complex128) else 1e-5
+
+    def dia_check(tag, D, x, timed_for=None):
+        """E and F on D and x against their plain versions."""
+        dt = torch.promote_types(D.value.dtype, x.dtype)
+        nbytes = (D.value.numel() * D.value.element_size()
+                  + 2 * D.nrows * x.element_size())
+        flops = 2 * D.value.numel()
+        for name, fn, plain in (
+                ("dia_spmv", lambda: D.matvec(x),
+                 lambda: diam._spmv_plain(D.value, D.offsets, x, D.ncols)),
+                ("dia_spmvh", lambda: D.matvech(x),
+                 lambda: diam._spmvh_plain(D.value, D.offsets, x, D.ncols))):
+            timed = None
+            if timed_for is not None:
+                library = timed_for[name]
+                timed = (fn, plain, library, nbytes, flops)
+            check(name, dt, tag, fn(), plain(), False, timed,
+                  rtol=dia_rtol(dt))
+
+    for dtype in (torch.float64, torch.float32, torch.complex128):
+        Dt = D96 if dtype == torch.float64 else dataclasses.replace(
+            D96, value=D96.value.to(dtype))
+        x = randn(n96, dtype)
+        lib = None
+        if dtype == torch.float64:
+            # A is symmetric, so the same CSR serves the library's A^H x
+            lib = {"dia_spmv": lambda: S96 @ x, "dia_spmvh": lambda: S96 @ x}
+            want = S96 @ x
+            err = ((D96.matvec(x) - want).abs().max()
+                   / want.abs().max()).item()
+            if err > 1e-13:
+                fail(f"torch.sparse CSR @ x disagrees with dia_spmv: "
+                     f"{err:.2e}")
+        elif dtype == torch.float32:
+            S32 = torch.sparse_csr_tensor(A96.ptr, A96.index,
+                                          A96.value.to(dtype), size=A96.shape)
+            lib = {"dia_spmv": lambda: S32 @ x, "dia_spmvh": lambda: S32 @ x}
+        dia_check(f"96^3 nnd={nnd}", Dt, x, lib)
+        if dtype == torch.complex128:
+            ms_z = cuda_ms(lambda: Dt.matvec(x))
+            print(f"phase dia: complex128 dia_spmv 96^3: {ms_z:.4f} ms",
+                  flush=True)
+    # real diagonals, complex vector: the result type is the vector's
+    dia_check("96^3 f64 x complex128", D96, randn(n96, torch.complex128))
+    x64 = randn(n96, torch.float64)
+    ms_csr96 = cuda_ms(lambda: A96.matvec(x64))
+    print(f"phase dia: the port's CSR gather matvec on the same operator: "
+          f"{ms_csr96:.4f} ms", flush=True)
+    nb_, offs_ = 1_000_003, (-600_000, -1001, -1, 0, 2, 997, 700_001)
+    for dtype in (torch.float64, torch.complex128, torch.float32):
+        val = randn(len(offs_) * nb_, dtype).view(len(offs_), nb_)
+        cols = (torch.arange(nb_, device=dev)[None, :]
+                + torch.tensor(offs_, device=dev)[:, None])
+        val = val * ((cols >= 0) & (cols < nb_))
+        B = diam.DIAMatrix.from_diagonals(
+            val, offs_, (nb_, nb_), nnz=int(torch.count_nonzero(val)))
+        dia_check(f"n={nb_} offsets={offs_}", B, randn(nb_, dtype))
+    del val, cols, B, S96
+    torch.cuda.empty_cache()
+
+    def new_ws(like, nrm1=False):
+        one = torch.ones((), dtype=like.dtype, device=dev)
+        return v.KrylovScalars(like, 10_000, 0.0, one * 0.5, one, nrm1=nrm1,
+                               running=-99, breakdown=2)
+
+    def ws_copy(ws, like):
+        w2 = new_ws(like, ws.nrm1)
+        for dst, src in ((w2.sc, ws.sc), (w2.ic, ws.ic),
+                         (w2.part, ws.part)):
+            dst.copy_(src)
+        return w2
+
+    def same_bits(what, got, want):
+        if not torch.equal(got, want):
+            err = (got - want).abs().max().item()
+            fail(f"fused CG step: {what} differs from its plain version "
+                 f"(max abs {err:.3e})")
+
+    for dtype in (torch.float64, torch.float32):
+        tag = f"n={n96}"
+        r, p, x, q, dinv = (randn(n96, dtype) for _ in range(5))
+        dinv = dinv.abs() + 0.5
+        eb = es(dtype)
+        # G1: the sums, kernel partials against the plain total
+        wk, wp = new_ws(r), new_ws(r)
+        v.krylov_dot(r, dinv, r, wk, v.P_RHO)
+        v._krylov_dot_plain(r, dinv, r, wp, v.P_RHO)
+        check("krylov_dot", dtype, tag + " <r, dinv r>",
+              wk.part[v.P_RHO].sum(), wp.part[v.P_RHO].sum(), False)
+        v.krylov_dot(p, q, None, wk, v.P_PQ)
+        v._krylov_dot_plain(p, q, None, wp, v.P_PQ)
+        check("krylov_dot", dtype, tag + " <p, q>", wk.part[v.P_PQ].sum(),
+              wp.part[v.P_PQ].sum(), False,
+              (lambda: v.krylov_dot(p, q, None, wk, v.P_PQ),
+               lambda: v._krylov_dot_plain(p, q, None, wp, v.P_PQ),
+               lambda: torch.dot(p, q), 2 * n96 * eb, 2 * n96), queued=True)
+        # G2 and G3 from one state (the plain sums): p, x, r bit for bit
+        for mode, z, d in (("jacobi", None, dinv), ("none", None, None),
+                           ("z", dinv * r, None)):
+            w1, w2 = ws_copy(wp, r), ws_copy(wp, r)
+            p1, p2 = p.clone(), p.clone()
+            v.cg_direction(p1, r, z, d, w1)
+            v._cg_direction_plain(p2, r, z, d, w2)
+            same_bits(f"cg_direction {mode} {dtype}", p1, p2)
+            same_bits("rho", w1.sc, w2.sc)
+        for nrm1 in (False, True):
+            wq = ws_copy(w2, r)
+            wq.nrm1 = nrm1
+            w1, w2_ = ws_copy(wq, r), ws_copy(wq, r)
+            w1.nrm1 = w2_.nrm1 = nrm1
+            x1, x2, r1, r2 = x.clone(), x.clone(), r.clone(), r.clone()
+            v.cg_update(x1, r1, p, q, dinv, w1, next_rho=True)
+            v._cg_update_plain(x2, r2, p, q, dinv, w2_, True)
+            same_bits(f"cg_update x {dtype}", x1, x2)
+            same_bits(f"cg_update r {dtype}", r1, r2)
+            check("cg_update", dtype, tag + f" sums nrm1={nrm1}",
+                  w1.part.sum(1), w2_.part.sum(1), False)
+            if not nrm1:        # what the timed rows below are held to
+                upd = (torch.cat([x1, r1, w1.part.sum(1)]),
+                       torch.cat([x2, r2, w2_.part.sum(1)]))
+            rh1 = torch.zeros(10_002, dtype=dtype, device=dev)
+            rh2 = rh1.clone()
+            w2_.part.copy_(w1.part)
+            v.cg_finish(w1, rh1)
+            v._cg_finish_plain(w2_, rh2)
+            check("cg_finish", dtype, tag + f" nrm1={nrm1}",
+                  torch.cat([w1.sc, rh1[:3]]), torch.cat([w2_.sc, rh2[:3]]),
+                  False)
+            if not nrm1:
+                fin = (torch.cat([w1.sc, rh1[:3]]),
+                       torch.cat([w2_.sc, rh2[:3]]))
+            if not torch.equal(w1.ic, w2_.ic) or int(w1.it) != 2:
+                fail(f"cg_finish: loop scalars {w1.ic.tolist()} vs "
+                     f"{w2_.ic.tolist()}")
+        # the breakdown freeze (p.q == 0), then a step after the end
+        wb = ws_copy(wp, r)
+        v.cg_direction(p.clone(), r, None, dinv, wb)
+        zq = torch.zeros_like(q)
+        v.krylov_dot(p, zq, None, wb, v.P_PQ)
+        x1, r1 = x.clone(), r.clone()
+        v.cg_update(x1, r1, p, zq, dinv, wb, next_rho=True)
+        v.cg_finish(wb, rh1)
+        if not (torch.equal(x1, x) and torch.equal(r1, r)
+                and int(wb.flag) == 2 and int(wb.live) == 0
+                and float(wb.nrm) == 1.0):
+            fail(f"fused CG step: breakdown did not freeze the state "
+                 f"(flag {int(wb.flag)}, live {int(wb.live)})")
+        v.krylov_dot(p, q, None, wb, v.P_PQ)
+        v.cg_update(x1, r1, p, q, dinv, wb, next_rho=True)
+        v.cg_finish(wb, rh1)
+        if not (torch.equal(x1, x) and int(wb.it) == 2):
+            fail("fused CG step: a step after the loop ended changed x")
+        print(f"phase dia: fused CG step {str(dtype)[6:]}: p, x, r bit-equal "
+              f"to the plain versions; breakdown freezes; dead step is a "
+              f"no-op", flush=True)
+        # G2, G3, G4 timed in a live state (Jacobi folded, as the main
+        # path); the error beside each time is kernel against plain version
+        # from the comparisons above: p; x, r and the three sums; the
+        # scalars and the history entry that cg_finish wrote
+        wt, wpl = ws_copy(wp, r), ws_copy(wp, r)
+        pt, xt, rt = p.clone(), x.clone(), r.clone()
+        check("cg_direction", dtype, tag, p1, p2, True,
+              (lambda: v.cg_direction(pt, r, None, dinv, wt),
+               lambda: v._cg_direction_plain(pt, r, None, dinv, wpl),
+               None, 4 * n96 * eb, 3 * n96), queued=True)
+        check("cg_update", dtype, tag, upd[0], upd[1], False,
+              (lambda: v.cg_update(xt, rt, p, q, dinv, wt, next_rho=True),
+               lambda: v._cg_update_plain(xt, rt, p, q, dinv, wpl, True),
+               None, 7 * n96 * eb, 9 * n96), queued=True)
+        check("cg_finish", dtype, tag, fin[0], fin[1], False,
+              (lambda: v.cg_finish(wt, rh1),
+               lambda: v._cg_finish_plain(wpl, rh2),
+               None, (wt.nb + 16) * eb, wt.nb), queued=True)
+    del r, p, x, q, dinv, pt, xt, rt, p1, p2, x1, x2, r1, r2, rh1, rh2, upd
+    torch.cuda.empty_cache()
+
+    # ---- 8. main path: default routing, lsolve, DIA, the fused step --------
+    import contextlib
+    import io
+    import tempfile
+
+    def route_of(A, opts):
+        return lis_tpu_torch.transform_operator(
+            A, SolverOptions.from_string(opts)).format_name
+
+    def need_exact(got, want, what):
+        for name, cnt in want.items():
+            if got[name] != cnt:
+                fail(f"{what}: {name} launched {got[name]} times, expected "
+                     f"exactly {cnt}: a call took another path")
+
+    # (a) a MatrixMarket file through the lsolve command line
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "poisson2d_512.mtx")
+        t0 = time.perf_counter()
+        P2 = testmat.poisson2d(512, 512)
+        lis_tpu_torch.write_matrix_market(path, P2)
+        t_write = time.perf_counter() - t0
+        argv = [path, "1", "-i", "cg", "-p", "jacobi", "-tol", "1e-8",
+                "-maxiter", "10000"]
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            rc_ls, got, wall = counted(lambda: lsolve.main(argv))
+        t0 = time.perf_counter()
+        Afile = lis_tpu_torch.lis_input(path)[0]
+        t_read = time.perf_counter() - t0
+    lines = out.getvalue().splitlines()
+    print(f"phase main: lsolve {' '.join(argv[1:])} on poisson2d 512x512 "
+          f"(n={P2.nrows}, file written in {t_write:.2f} s, read and parsed "
+          f"in {t_read:.2f} s): exit {rc_ls}, wall {wall:.2f} s, "
+          f"{len(lines)} lines printed, last: {lines[-2:]}; launches {got}",
+          flush=True)
+    route = route_of(Afile, "-i cg -p jacobi")
+    if rc_ls != 0 or route != "dia" or Afile.device.type != "cuda":
+        fail(f"lsolve: exit {rc_ls}, route {route}, device {Afile.device}")
+    if Afile.nnz != P2.nnz or not lines[-2].startswith("CG: number of"):
+        fail(f"lsolve: nnz {Afile.nnz} vs {P2.nnz}; report {lines[-2:]}")
+    it_ls = int(lines[-2].rsplit("=", 1)[1])
+    need_exact(got, {"dia_spmv": it_ls + 1, "krylov_dot": it_ls + 1,
+                     "cg_direction": it_ls, "cg_update": it_ls,
+                     "cg_finish": it_ls}, "lsolve")
+    del P2, Afile
+
+    # (b) 96^3 from CSR, default options
+    dia_e = results["dia_spmv"]["ms"]
+
+    def report_main(tag, res, wall, got, n, nnz, nnd, e_ms, esize=8):
+        per = 1e3 * res.itime / max(res.iters, 1)
+        csr_eq = (nnz * 12 + 2 * n * 8) / e_ms / 1e6
+        true = (nnd * n + 2 * n) * esize / e_ms / 1e6
+        print(f"phase main: {tag}: status {res.status} iters {res.iters} "
+              f"true_resid {res.true_resid:.3e} wall {wall:.3f} s (itime "
+              f"{res.itime:.4f} s, {per:.4f} ms/iter; dia_spmv "
+              f"{e_ms:.4f} ms = {100 * e_ms / per:.1f} % of it, "
+              f"{csr_eq:.1f} csr-equivalent GB/s, {true:.1f} GB/s of true "
+              f"traffic); launches {got}", flush=True)
+
+    b96 = np.ones(n96)
+    opts = "-i cg -p jacobi -tol 1e-8"
+    A96 = A96.to(dev)       # a new matrix object: no route is cached on it
+    r96, got, wall = counted(lambda: lis_tpu_torch.solve(A96, b96,
+                                                         options=opts))
+    report_main("96^3 CSR input, cold (routing and DIA build included)", r96,
+                wall, got, n96, A96.nnz, nnd, dia_e)
+    if route_of(A96, opts) != "dia":
+        fail(f"96^3: routed to {route_of(A96, opts)}")
+    if r96.status != lis_tpu_torch.LIS_SUCCESS or not r96.true_resid <= 1e-7:
+        fail(f"96^3: status {r96.status} true residual {r96.true_resid:.3e}")
+    need_exact(got, {"dia_spmv": r96.iters + 1, "dia_spmvh": 0,
+                     "krylov_dot": r96.iters + 1, "cg_direction": r96.iters,
+                     "cg_update": r96.iters, "cg_finish": r96.iters},
+               "96^3 cg")
+    r96w, got, wall = counted(lambda: lis_tpu_torch.solve(A96, b96,
+                                                          options=opts))
+    report_main("96^3 warm (route cached)", r96w, wall, got, n96, A96.nnz,
+                nnd, dia_e)
+    t0 = time.perf_counter()
+    rc96 = lis_tpu_torch.solve(D96.to("cpu"), b96, options=opts)
+    print(f"phase main: 96^3 on the CPU, plain versions: iters {rc96.iters} "
+          f"status {rc96.status} in {time.perf_counter() - t0:.2f} s",
+          flush=True)
+    if abs(rc96.iters - r96.iters) > 1 or rc96.status != r96.status:
+        fail(f"96^3: cuda iters {r96.iters} vs cpu {rc96.iters}")
+    err = (r96.x.cpu() - rc96.x).abs().max().item()
+    if err > 1e-6 * rc96.x.abs().max().item():
+        fail(f"96^3: x differs from the CPU plain path by {err:.3e}")
+    rs, got, wall = counted(lambda: lis_tpu_torch.solve(
+        A96, b96, options=opts + " -f single"))
+    report_main("96^3 -f single", rs, wall, got, n96, A96.nnz, nnd,
+                results32["dia_spmv"]["ms"], esize=4)
+    t0 = time.perf_counter()
+    rsc = lis_tpu_torch.solve(D96.to("cpu"), b96, options=opts + " -f single")
+    print(f"phase main: 96^3 -f single on the CPU, plain versions: iters "
+          f"{rsc.iters} true_resid {rsc.true_resid:.3e} in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    # float32 cannot reach 1e-4 here: from -tol 1e-4 to 1e-8 the true
+    # residual of this system stops at about 1.5e-4 (rounding times the
+    # condition number), on the CPU as on the card.  So the card is held
+    # to twice that floor, and to twice the CPU's own
+    if not (torch.isfinite(rs.x).all() and rs.status == rsc.status == 0
+            and rs.true_resid <= 3e-4
+            and rs.true_resid <= 2 * rsc.true_resid):
+        fail(f"96^3 -f single: true residual {rs.true_resid:.3e} (cpu "
+             f"{rsc.true_resid:.3e}), status {rs.status}")
+    need_exact(got, {"dia_spmv": rs.iters + 1, "cg_update": rs.iters},
+               "96^3 -f single")
+    rb, got, wall = counted(lambda: lis_tpu_torch.solve(
+        A96, b96, options="-i bicg -p jacobi -tol 1e-8"))
+    report_main("96^3 bicg (E and F per iteration, torch-ops step)", rb, wall,
+                got, n96, A96.nnz, nnd, dia_e)
+    if rb.status != lis_tpu_torch.LIS_SUCCESS or not rb.true_resid <= 1e-7:
+        fail(f"96^3 bicg: status {rb.status} resid {rb.true_resid:.3e}")
+    need_launches(got, ("dia_spmv", "dia_spmvh"), rb.iters, "96^3 bicg")
+
+    from lis_tpu_torch.precon.jacobi import create_jacobi
+    from lis_tpu_torch.solvers import cg as cgm
+    from lis_tpu_torch.solvers.base import (SolverSpec, init_residual,
+                                            new_rhistory)
+
+    def step_ms(step, D, every=1, reps=3):
+        """CG + Jacobi to -tol 1e-8 on D, b = ones, through one of the two
+        steps of solvers/cg.py as ``cg`` calls them, the host reading the
+        loop condition every ``every`` steps: (iterations, [wall ms per
+        iteration of ``reps`` solves after a warm-up])."""
+        bv = torch.ones(D.nrows, dtype=torch.float64, device=dev)
+        Mj = create_jacobi(D, None)
+        spec = SolverSpec(solver="cg", tol=1e-8, maxiter=2000,
+                          check_every=every)
+        ms = []
+        for _ in range(reps + 1):
+            x0 = torch.zeros_like(bv)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            r0, bnrm_inv, tol_eff, nrm0 = init_residual(D, bv, x0, spec)
+            rh = new_rhistory(spec, nrm0, bv.dtype)
+            out = step(D, bv, x0, Mj, spec, r0, bnrm_inv, tol_eff, nrm0, rh)
+            iters = int(out.iters)
+            torch.cuda.synchronize()
+            ms.append(1e3 * (time.perf_counter() - t0) / iters)
+        return iters, [round(m, 4) for m in ms[1:]]
+
+    def report_steps(tag, D, want_iters):
+        rows = [("fused", cgm.cg_fused, 1), ("torch operations",
+                cgm.cg_torch_ops, 1), ("fused, condition read every 16 "
+                "steps", cgm.cg_fused, 16)]
+        text = []
+        for name, step, every in rows:
+            iters, ms = step_ms(step, D, every)
+            if abs(iters - want_iters) > 1:
+                fail(f"{tag} {name} step: iters {iters} vs {want_iters}")
+            text.append(f"{name} {ms} ({iters} it)")
+        print(f"phase main: {tag} CG + Jacobi on the DIA, wall ms/iter of 3 "
+              f"solves: " + "; ".join(text), flush=True)
+
+    report_steps("96^3", D96, r96.iters)
+    del A96, D96, r96, r96w, rs, rb
+    torch.cuda.empty_cache()
+
+    # (c) 192^3 built directly in DIA form on the card
+    t0 = time.perf_counter()
+    D192 = testmat.poisson3d27_dia(192, 192, 192)
+    torch.cuda.synchronize()
+    n192 = D192.nrows
+    print(f"phase main: poisson3d27_dia 192^3: n={n192} nnz={D192.nnz} "
+          f"diagonals {D192.value.numel() * 8 / 1e9:.2f} GB on "
+          f"{D192.device}, built in {time.perf_counter() - t0:.2f} s",
+          flush=True)
+    x192 = randn(n192, torch.float64)
+    e192 = cuda_ms(lambda: D192.matvec(x192), reps=10)
+    b_ms, _ = bound_ms((nnd + 2) * n192 * 8, 2 * nnd * n192, torch.float64)
+    err = ((D192.matvec(x192) - diam._spmv_plain(
+        D192.value, D192.offsets, x192, n192)).abs().max()
+        / x192.abs().max()).item()
+    print(f"phase main: dia_spmv 192^3: {e192:.4f} ms, bound {b_ms:.4f} ms "
+          f"({100 * b_ms / e192:.0f} %); against its plain version "
+          f"{err:.2e}", flush=True)
+    if err > 1e-11:
+        fail(f"dia_spmv 192^3 disagrees with its plain version: {err:.2e}")
+    b192 = torch.ones(n192, dtype=torch.float64, device=dev)
+    r192, got, wall = counted(lambda: lis_tpu_torch.solve(D192, b192,
+                                                          options=opts))
+    report_main("192^3 DIA input", r192, wall, got, n192, D192.nnz, nnd, e192)
+    if r192.status != lis_tpu_torch.LIS_SUCCESS or not r192.true_resid <= 1e-7:
+        fail(f"192^3: status {r192.status} resid {r192.true_resid:.3e}")
+    # the initial and the true residual are both on the DIA here
+    need_exact(got, {"dia_spmv": r192.iters + 2, "krylov_dot": r192.iters + 1,
+                     "cg_direction": r192.iters, "cg_update": r192.iters,
+                     "cg_finish": r192.iters}, "192^3 cg")
+
+    def plain_cg(D, b, tol, maxiter):
+        """CG + Jacobi over the plain versions of E and G, on D's device:
+        the oracle of the 192^3 solve (x0 = 0, nrm2_r)."""
+        def mv(u):
+            return diam._spmv_plain(D.value, D.offsets, u, D.ncols)
+        d = D.get_diagonal()
+        dinv = 1.0 / d
+        x, r, p = torch.zeros_like(b), b.clone(), torch.zeros_like(b)
+        nrm0 = torch.sqrt(torch.dot(r, r))
+        ws = v.KrylovScalars(b, maxiter, tol, 1.0 / nrm0,
+                             torch.ones_like(nrm0), nrm1=False, running=-99,
+                             breakdown=2)
+        rh = torch.zeros(maxiter + 2, dtype=b.dtype, device=b.device)
+        v._krylov_dot_plain(r, dinv, r, ws, v.P_RHO)
+        while int(ws.live):
+            v._cg_direction_plain(p, r, None, dinv, ws)
+            q = mv(p)
+            v._krylov_dot_plain(p, q, None, ws, v.P_PQ)
+            v._cg_update_plain(x, r, p, q, dinv, ws, True)
+            v._cg_finish_plain(ws, rh)
+        return x, int(ws.it) - 1
+
+    before = {name: f.launches for name, f in kernels.items()}
+    t0 = time.perf_counter()
+    xo, it_o = plain_cg(D192, b192, 1e-8, 1000)
+    torch.cuda.synchronize()
+    t_o = time.perf_counter() - t0
+    if before != {name: f.launches for name, f in kernels.items()}:
+        fail("the plain-version oracle launched a kernel")
+    err = ((r192.x - xo).abs().max() / xo.abs().max()).item()
+    print(f"phase main: 192^3 oracle over the plain versions on the card: "
+          f"iters {it_o} in {t_o:.2f} s ({1e3 * t_o / it_o:.3f} ms/iter); x "
+          f"differs by {err:.2e} relative", flush=True)
+    if abs(it_o - r192.iters) > 1 or err > 1e-6:
+        fail(f"192^3: iters {r192.iters} vs the oracle's {it_o}, x {err:.2e}")
+    report_steps("192^3", D192, r192.iters)
+    del D192, x192, b192, r192, xo
+    torch.cuda.empty_cache()
+
+    # (d) the locality-free matrix of phase 3 with no -storage
+    opts = "-i cg -p jacobi -tol 1e-10"
+    rr, got, wall_cst = counted(lambda: lis_tpu_torch.solve(A, b,
+                                                            options=opts))
+    route = route_of(A, opts)
+    rcsr, got_csr, wall_csr = counted(lambda: lis_tpu_torch.solve(
+        A, b, options=opts + " -auto_storage false"))
+    print(f"phase main: locality-free n={n}, default routing: route {route}, "
+          f"status {rr.status} iters {rr.iters} true_resid "
+          f"{rr.true_resid:.3e}, wall {wall_cst:.2f} s (itime "
+          f"{rr.itime:.4f} s); the same with -auto_storage false (CSR): "
+          f"iters {rcsr.iters} wall {wall_csr:.3f} s (itime "
+          f"{rcsr.itime:.4f} s); launches {got}", flush=True)
+    if route != "cst" or rr.status != lis_tpu_torch.LIS_SUCCESS \
+            or not rr.true_resid <= 1e-9 or abs(rr.iters - rc.iters) > 1:
+        fail(f"routed locality-free solve: route {route} status {rr.status} "
+             f"iters {rr.iters} (cpu {rc.iters}) resid {rr.true_resid:.3e}")
+    if lis_tpu_torch.auto_storage(A, need_at=False).at is not None:
+        fail("cg routed to a CST with a transpose grid")
+    need_launches(got, matvec_kernels, rr.iters, "routed cst")
+    need_exact(got, {"cg_update": rr.iters}, "routed cst")
+    need_exact(got_csr, {"cg_update": rcsr.iters, "cst_front": 0},
+               "-auto_storage false")
+
+    # (e) a matrix that the router sends to CSS, its last format
+    del A, A_cpu
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    aw = windowed(n, 2000, args.seed)
+    csr = (aw.indptr, aw.indices, aw.data, aw.shape)
+    Aw = lis_tpu_torch.CSRMatrix.from_csr_arrays(*csr)
+    Aw_cpu = lis_tpu_torch.CSRMatrix.from_csr_arrays(*csr, device="cpu")
+    print(f"phase main: windowed nonsymmetric n={n} nnz={aw.nnz} built in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    for opts in ("-i bicgstab -p jacobi -tol 1e-10",
+                 "-i bicg -p jacobi -tol 1e-10",
+                 "-i bicg -p jacobi -tol 1e-10 -scale 1"):
+        rw, got, wall = counted(lambda: lis_tpu_torch.solve(Aw, b,
+                                                            options=opts))
+        route = route_of(Aw, opts)
+        rwc = lis_tpu_torch.solve(Aw_cpu, b,
+                                  options=opts + " -auto_storage false")
+        xw = rw.x.cpu().numpy()
+        sres = np.linalg.norm(aw @ xw - b) / np.linalg.norm(b)
+        print(f"phase main: windowed, {opts}: route {route}, status "
+              f"{rw.status} iters {rw.iters} (CSR on the CPU {rwc.iters}) "
+              f"true_resid {rw.true_resid:.3e} (scipy {sres:.3e}), wall "
+              f"{wall:.2f} s (itime {rw.itime:.4f} s)", flush=True)
+        if route != "css" or rw.status != lis_tpu_torch.LIS_SUCCESS \
+                or not rw.true_resid <= 1e-9 or not sres <= 1e-9 \
+                or abs(rw.iters - rwc.iters) > 1:
+            fail(f"routed css solve ({opts}): route {route} status "
+                 f"{rw.status} iters {rw.iters} (cpu {rwc.iters}) resid "
+                 f"{rw.true_resid:.3e} / {sres:.3e}")
+    Sw = lis_tpu_torch.auto_storage(Aw)      # the cached route
+    xw = randn(n, torch.float64)
+    xh = xw.cpu().numpy()
+    for name, got, want in (("matvec", Sw.matvec(xw), aw @ xh),
+                            ("matvech", Sw.matvech(xw), aw.T @ xh),
+                            ("matvech by the scatter", dataclasses.replace(
+                                Sw, at=None).matvech(xw), aw.T @ xh),
+                            ("diagonal", Sw.get_diagonal(), aw.diagonal())):
+        err = np.abs(got.cpu().numpy() - want).max() / np.abs(want).max()
+        print(f"phase main: css {name} on the card against scipy: "
+              f"{err:.2e} relative", flush=True)
+        if not err <= 1e-12:
+            fail(f"css {name} on the card disagrees with scipy")
+    print(f"phase main: css matvec {cuda_ms(lambda: Sw.matvec(xw)):.4f} ms "
+          f"(torch operations, blowup {Sw.fill_blowup:.2f}); the CSR gather "
+          f"matvec on the same matrix {cuda_ms(lambda: Aw.matvec(xw)):.4f} "
+          f"ms", flush=True)
+
     # ---- results -----------------------------------------------------------
     where = {
         "lane_shuffle": ("lis_tpu_torch/csrc/lane_shuffle.cu",
@@ -557,6 +1136,19 @@ def main() -> None:
                               "lis_tpu/ops/shuffle.py:509"),
         "benes_small_run": ("lis_tpu_torch/csrc/benes.cu",
                             "lis_tpu/ops/shuffle.py:583"),
+        # lis_tpu has no Pallas kernel for these: the lines are the loops
+        # it leaves to XLA's fusion
+        "dia_spmv": ("lis_tpu_torch/csrc/dia.cu", "lis_tpu/matrix/dia.py:119"),
+        "dia_spmvh": ("lis_tpu_torch/csrc/dia.cu",
+                      "lis_tpu/matrix/dia.py:136"),
+        "krylov_dot": ("lis_tpu_torch/csrc/krylov.cu",
+                       "lis_tpu/solvers/cg.py:36"),
+        "cg_direction": ("lis_tpu_torch/csrc/krylov.cu",
+                         "lis_tpu/solvers/cg.py:38"),
+        "cg_update": ("lis_tpu_torch/csrc/krylov.cu",
+                      "lis_tpu/solvers/cg.py:43"),
+        "cg_finish": ("lis_tpu_torch/csrc/krylov.cu",
+                      "lis_tpu/solvers/cg.py:45"),
     }
     print(f"phase results: launches over the counted solves {total}",
           flush=True)

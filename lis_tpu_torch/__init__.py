@@ -9,8 +9,12 @@ lives on the default device, the card (``device="cpu"`` or
 matrix lives.  Every Pallas kernel on a ported path is a hand-written
 CUDA kernel for Hopper (``csrc/``), built with nvcc at first use.
 
-Ported so far: the CG/CR + Jacobi solve over CSR and the locality-free
-CST SpMV (``-storage cst``), at ``-f double`` and ``-f single``.
+Ported so far: ``solve()`` with cg, cr, bicg, bicr, bicgstab, bicrstab,
+cocg and cocr, Jacobi or no preconditioner, ``-f double`` and ``-f
+single``, over CSR, DIA, HDI, CSS and CST, routed by ``auto_storage`` as
+in lis_tpu (banded → DIA) unless ``-storage`` says otherwise; ASCII
+MatrixMarket I/O; the ``lsolve`` and ``hpcg`` command lines
+(``python -m lis_tpu_torch.cli.lsolve``).
 """
 
 from lis_tpu_torch.config import (
@@ -23,21 +27,32 @@ from lis_tpu_torch.config import (
     LIS_ERR_NOT_IMPLEMENTED,
     LIS_ERR_FILE_IO,
     wtime,
+    initialize,
     default_device,
     set_default_device,
 )
 from lis_tpu_torch.runtime.options import SolverOptions
 from lis_tpu_torch.matrix.csr import CSRMatrix
 from lis_tpu_torch.matrix.cst import CSTMatrix
+from lis_tpu_torch.matrix.dia import DIAMatrix
+from lis_tpu_torch.matrix.hybrid import HybridMatrix
+from lis_tpu_torch.matrix.css import CSSMatrix
 from lis_tpu_torch.matrix.convert import convert_matrix
-from lis_tpu_torch.solvers.driver import solve, SolveResult
+from lis_tpu_torch.solvers.driver import (solve, SolveResult, auto_storage,
+                                          transform_operator)
+from lis_tpu_torch.io import (read_matrix_market, write_matrix_market,
+                              read_vector_mm, lis_input, lis_input_vector,
+                              lis_output)
 
 __version__ = "0.1.0"
 
 __all__ = [
     "LIS_SUCCESS", "LIS_FAILS", "LIS_ILL_OPTION", "LIS_BREAKDOWN",
     "LIS_OUT_OF_MEMORY", "LIS_MAXITER", "LIS_ERR_NOT_IMPLEMENTED",
-    "LIS_ERR_FILE_IO", "wtime", "default_device", "set_default_device",
-    "SolverOptions", "CSRMatrix", "CSTMatrix", "convert_matrix",
-    "solve", "SolveResult",
+    "LIS_ERR_FILE_IO", "wtime", "initialize", "default_device",
+    "set_default_device", "SolverOptions", "CSRMatrix", "CSTMatrix",
+    "DIAMatrix", "HybridMatrix", "CSSMatrix", "convert_matrix", "solve",
+    "SolveResult", "auto_storage", "transform_operator",
+    "read_matrix_market", "write_matrix_market", "read_vector_mm",
+    "lis_input", "lis_input_vector", "lis_output",
 ]

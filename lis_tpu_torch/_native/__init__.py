@@ -1,8 +1,9 @@
 """Host C++ routing helpers, loaded with ctypes.
 
-Port of ``lis_tpu/_native/__init__.py`` for the three functions the Benes
-shuffle routing needs (``euler_split``, ``greedy_color``, ``pass_idx``).
-There is one copy of the C++ source: ``lis_tpu/_native/lis_native.cpp``
+Port of ``lis_tpu/_native/__init__.py`` for the functions the port uses so
+far: the three of the Benes shuffle routing (``euler_split``,
+``greedy_color``, ``pass_idx``) and the MatrixMarket coordinate parser
+(``mm_parse_coords``).  There is one copy of the C++ source: ``lis_tpu/_native/lis_native.cpp``
 is read by path (never imported — importing ``lis_tpu`` pulls in JAX) and
 compiled with g++ into ``build/lis_tpu_torch/`` at the repository root on
 first use, and again whenever the source is newer than the library.
@@ -71,6 +72,10 @@ def _load():
     lib.pass_idx.argtypes = [ctypes.c_int64, i64p, i64p, ctypes.c_int64,
                              ctypes.c_int64, ctypes.c_int64, ctypes.c_int,
                              i32p]
+    lib.mm_parse_coords.restype = ctypes.c_int64
+    lib.mm_parse_coords.argtypes = [ctypes.c_char_p, ctypes.c_int64,
+                                    ctypes.c_int64, ctypes.c_int32, i32p,
+                                    i32p, ctypes.POINTER(ctypes.c_double)]
     _lib = lib
     return lib
 
@@ -125,3 +130,22 @@ def pass_idx(pos_before, pos_after, d: int, s: int, M: int,
     rc = lib.pass_idx(len(pb), _i64p(pb), _i64p(pa), d, s, M,
                       1 if exact_holes else 0, _i32p(idx))
     return idx.reshape(M // 128, 128) if rc == 0 else None
+
+
+def mm_parse_coords(path: str, skip_lines: int, nnz: int, pattern: bool):
+    """Parse ``nnz`` coordinate lines of a MatrixMarket file after
+    ``skip_lines`` header lines: (rows, cols, vals) with 0-based int32
+    indices and float64 values (ones for a pattern file), or None without
+    the native library or when the file holds fewer well-formed lines."""
+    lib = _load()
+    if lib is None:
+        return None
+    rows = np.empty(nnz, dtype=np.int32)
+    cols = np.empty(nnz, dtype=np.int32)
+    vals = np.empty(nnz, dtype=np.float64)
+    got = lib.mm_parse_coords(
+        path.encode(), skip_lines, nnz, 1 if pattern else 0, _i32p(rows),
+        _i32p(cols), vals.ctypes.data_as(ctypes.POINTER(ctypes.c_double)))
+    if got != nnz:
+        return None
+    return rows, cols, vals

@@ -4,8 +4,8 @@ Port of ``lis_tpu/matrix/convert.py`` (reference lis_matrix_convert,
 src/matrix/lis_matrix_ops.c:128-326): conversion routes through canonical
 CSR arrays on the host, and the result lands on ``device`` (None: the
 default device, the card; ``solve()`` passes the device of its matrix).
-Only ``csr`` and ``cst`` are ported so far; every other target raises and
-names the ROADMAP item that ports it.
+``csr``, ``dia``, ``hdi``, ``css`` and ``cst`` are ported; every other
+target raises and names the ROADMAP item that ports it.
 """
 
 from __future__ import annotations
@@ -16,18 +16,16 @@ from lis_tpu_torch.config import resolve_device
 from lis_tpu_torch.matrix.base import SparseMatrix, get_format
 from lis_tpu_torch.matrix import csr as _csr    # noqa: F401 (registers 'csr')
 from lis_tpu_torch.matrix import cst as _cst    # noqa: F401 (registers 'cst')
-
-# where each lis_tpu format lands in ROADMAP.md's queue 1
-_ROADMAP = {
-    "dia": "queue 1 item 2 (DIA and auto_storage)",
-    "css": "queue 1 item 3 (kernel #1, CST scaling and CSS)",
-}
+from lis_tpu_torch.matrix import dia as _dia    # noqa: F401 (registers 'dia')
+from lis_tpu_torch.matrix import hybrid as _hdi  # noqa: F401 (registers 'hdi')
+from lis_tpu_torch.matrix import css as _css    # noqa: F401 (registers 'css')
 
 
 def convert_matrix(matrix: SparseMatrix, target: str, device=None,
                    **kw) -> SparseMatrix:
-    """Convert ``matrix`` to the ``target`` format name (csr or cst); the
-    result lives on ``device`` (None: the default device)."""
+    """Convert ``matrix`` to the ``target`` format name (csr, dia, hdi,
+    css or cst); the result lives on ``device`` (None: the default
+    device)."""
     target = target.lower()
     device = resolve_device(device)
     if matrix.format_name == target and not kw:
@@ -35,10 +33,10 @@ def convert_matrix(matrix: SparseMatrix, target: str, device=None,
     try:
         cls = get_format(target)
     except KeyError:
-        item = _ROADMAP.get(target, "queue 1 item 8 (remaining formats)")
         raise NotImplementedError(
             f"storage format {target!r} is not ported to lis_tpu_torch yet "
-            f"(ROADMAP.md {item}); have csr, cst") from None
+            f"(ROADMAP.md queue 1 item 8 (remaining formats)); have "
+            f"csr, dia, hdi, css, cst") from None
     ptr, index, value = matrix.to_csr_arrays()
     return cls.from_csr_arrays(ptr, index, value, matrix.shape,
                                device=device, **kw)

@@ -42,6 +42,13 @@ _SIGNATURES = {
     "lis_benes_pass_rowsum": [_INT, _P, _P, _P, _I64, _I64, _I64, _P],
     "lis_benes_small_run": [_INT, _P, _P, _P, _INT, _P, _I64, _INT, _P],
     "lis_lane_shuffle": [_INT, _P, _P, _P, _I64, _I64, _P],
+    "lis_dia_spmv": [_INT, _INT, _P, _P, _P, _P, _I64, _I64, _I64, _P],
+    "lis_dia_spmvh": [_INT, _INT, _P, _P, _P, _P, _I64, _I64, _I64, _P],
+    "lis_krylov_dot": [_INT, _P, _P, _P, _I64, _P, _INT, _P, _P],
+    "lis_cg_direction": [_INT, _P, _P, _P, _P, _I64, _P, _INT, _P, _P, _P],
+    "lis_cg_update": [_INT, _P, _P, _P, _P, _P, _I64, _P, _P, _P, _INT, _P,
+                      _P, _INT, _P],
+    "lis_cg_finish": [_INT, _P, _INT, _P, _P, _P, _INT, _P],
 }
 
 _lib = None
@@ -143,13 +150,16 @@ def stream() -> int:
     return torch.cuda.current_stream().cuda_stream
 
 
-# the complex codes serve lane_shuffle only, which moves whole elements
+# the complex codes serve lane_shuffle, which moves whole elements, and the
+# DIA products
 DTYPE_CODE = {torch.float32: 0, torch.float64: 1, torch.complex64: 2,
               torch.complex128: 3}
 
 
-def check(t: torch.Tensor, name: str, dtype=None, numel=None) -> None:
-    """Validate a kernel operand: CUDA, contiguous, dtype, size, aligned."""
+def check(t: torch.Tensor, name: str, dtype=None, numel=None,
+          aligned: bool = True) -> None:
+    """Validate a kernel operand: CUDA, contiguous, dtype, size and, for
+    the kernels that load 16 B vectors, ``aligned``."""
     if not t.is_cuda:
         raise ValueError(f"{name}: expected a CUDA tensor, got {t.device}")
     if not t.is_contiguous():
@@ -163,5 +173,5 @@ def check(t: torch.Tensor, name: str, dtype=None, numel=None) -> None:
                          f"(expected {dtype})")
     if numel is not None and t.numel() != numel:
         raise ValueError(f"{name}: {t.numel()} elements, expected {numel}")
-    if t.data_ptr() % 16:          # the kernels load 16 B vectors
+    if aligned and t.data_ptr() % 16:
         raise ValueError(f"{name}: data pointer not 16-byte aligned")

@@ -121,7 +121,8 @@ def record(rh, it, nrm):
     return rh.index_put((it.view(1),), nrm.view(1).to(rh.dtype))
 
 
-def krylov_loop(spec: SolverSpec, tol_eff, state: dict, step) -> dict:
+def krylov_loop(spec: SolverSpec, tol_eff, state: dict, step,
+                live=None) -> dict:
     """Run ``step`` while it <= maxiter, nrm > tol_eff and flag == RUNNING
     (the exit structure of every reference solver's for-loop).
 
@@ -129,10 +130,14 @@ def krylov_loop(spec: SolverSpec, tol_eff, state: dict, step) -> dict:
     ``rh``; ``step(state) -> state`` performs one iteration.  With more
     than one step between host reads, each new state is merged under the
     loop condition of the old one, so a state that has left the loop stays
-    as it was."""
-    def live(s):
-        return ((s["it"] <= spec.maxiter) & (s["nrm"] > tol_eff)
-                & (s["flag"] == RUNNING))
+    as it was.  ``live(state)`` replaces the loop condition for a step
+    that keeps it on the device itself (the fused CG step, which also
+    freezes its own state)."""
+    frozen_by_step = live is not None
+    if live is None:
+        def live(s):
+            return ((s["it"] <= spec.maxiter) & (s["nrm"] > tol_eff)
+                    & (s["flag"] == RUNNING))
 
     every = 1 if spec.live_print else max(1, spec.check_every)
     for n in range(spec.maxiter):
@@ -142,7 +147,7 @@ def krylov_loop(spec: SolverSpec, tol_eff, state: dict, step) -> dict:
         new = step(state)
         # between two host reads a step may run past the loop condition;
         # with a read before every step it cannot, and needs no merge
-        state = new if every == 1 else {
+        state = new if every == 1 or frozen_by_step else {
             k: torch.where(on, new[k], state[k]) for k in state}
         if spec.live_print:
             print(f"iteration: {int(state['it']) - 1:5d}  relative residual"

@@ -10,7 +10,10 @@ timing.
 The solve runs on the device that holds the matrix's tensors; ``b`` and
 ``x0`` are moved there.  A matrix built by the port's constructors lives
 on the default device, the card, unless its caller asked for another.
-What lis_tpu does and this package does not yet raises
+With no ``-storage`` the operator is routed by ``auto_storage`` (banded →
+DIA, quasi-banded → HDI, locality-free → CST or CSS), as in lis_tpu.
+What lis_tpu does and this package does not yet (the BES format, the
+other solvers, preconditioners and precision modes) raises
 ``NotImplementedError`` naming the ROADMAP.md item that ports it.
 """
 
@@ -25,7 +28,10 @@ import torch
 from lis_tpu_torch import config as C
 from lis_tpu_torch.core import vector as v
 from lis_tpu_torch.matrix.base import SparseMatrix
-from lis_tpu_torch.matrix.convert import convert_matrix
+from lis_tpu_torch.matrix.convert import convert_matrix, is_banded
+from lis_tpu_torch.matrix.css import CSSMatrix
+from lis_tpu_torch.matrix.cst import CSTMatrix
+from lis_tpu_torch.matrix.hybrid import HybridMatrix
 from lis_tpu_torch.precon.base import (PRECON_REGISTRY, NonePrecon,
                                        create_precon)
 from lis_tpu_torch.precon import jacobi as _pjac          # noqa: F401
@@ -38,6 +44,82 @@ from lis_tpu_torch.solvers import cocg as _cocg           # noqa: F401
 from lis_tpu_torch.utils.trace import traced
 
 _STORAGE_BY_ID = {i: n for n, i in STORAGE_NAMES.items()}
+
+# The router's throughput estimates, kept from lis_tpu for parity of the
+# decision: they are lis_tpu's estimates of csr-equivalent GB/s at fill
+# blowup 1 on a TPU (BES slabs, CST grid), and the margin by which CST must
+# beat BES to pay for its host build.  Whether they hold on the H100 is
+# for the port's bench to decide (ROADMAP.md).
+_BES_RATE = 750.0
+_CST_RATE = 150.0
+_CST_MARGIN = 1.5
+
+
+def auto_storage(A, need_at: bool = True):
+    """Default storage routing, lis_tpu's decision order and thresholds:
+
+    1. banded (at most 512 diagonals padding the nnz by at most 4x) → DIA,
+       whose SpMV streams the diagonals with no gather;
+    2. quasi-banded (dominant diagonals cover >= 75 % of the nnz) → HDI,
+       DIA plus a CSR remainder;
+    3. general sparsity → the CST lane-shuffle grid when its profile fits
+       (fill blowup <= 6 and remainder <= 2 % of the nnz, doubling Kp up
+       to 256 while the natural grid spills), with a transpose grid only
+       for solvers that apply Aᴴ every iteration (``need_at``);
+    4. else CSS when its profile fits (blowup <= 4, remainder <= 5 %);
+    5. else A as it is.
+
+    lis_tpu weighs CST against BES (dense sliding slabs) at step 3 by an
+    estimated rate.  BES is not ported yet (ROADMAP.md queue 1 item 8), so
+    its candidate is absent (rate 0): where lis_tpu picks BES this router
+    picks CST, CSS or A itself.  The answers agree; the format does not.
+
+    The result is cached on the matrix object (``_auto_dia``), so repeated
+    solves of one matrix skip the host analysis and the conversion; a
+    cached CST without a transpose grid is rebuilt with one the first
+    time ``need_at`` asks.  Unless -auto_storage false or an explicit
+    -storage is given, ``solve()`` routes every operator through here."""
+    if A.format_name in ("dia", "hdi"):
+        return A
+    cached = getattr(A, "_auto_dia", None)
+    if cached is not None and not (need_at and isinstance(cached, CSTMatrix)
+                                   and cached.at is None):
+        return cached if cached is not False else A
+    device = A.device
+    out = None
+    if is_banded(A):
+        out = convert_matrix(A, "dia", device=device)
+    else:
+        ptr, idx, val = A.to_csr_arrays()
+        out = HybridMatrix.try_split(ptr, idx, val, A.shape, device=device)
+        if out is None:
+            bes_rate = 0.0      # with BES: _BES_RATE / its fill blowup
+            cst_rate, cst_kp = 0.0, None
+            # Kp escalation: if the natural grid spills (band-concentrated
+            # columns overflow the fine bucket grid), doubling Kp coarsens
+            # the buckets at a fill cost that the rate estimate charges for
+            Kp = CSTMatrix._pick_kp(len(val) / max(A.shape[0], 1))
+            while Kp <= 256:
+                blowup, rem_frac = CSTMatrix.profile(ptr, idx, A.shape, Kp=Kp)
+                if blowup > 6.0:
+                    break
+                if rem_frac <= 0.02:
+                    cst_rate, cst_kp = _CST_RATE / max(blowup, 1.0), Kp
+                    break
+                Kp *= 2
+            if cst_rate > _CST_MARGIN * bes_rate and cst_rate > 0.0:
+                out = CSTMatrix.from_csr_arrays(ptr, idx, val, A.shape,
+                                                Kp=cst_kp, transpose=need_at,
+                                                device=device)
+        if out is None:
+            blowup, rem_frac = CSSMatrix.profile(idx, A.shape[1])
+            if blowup <= 4.0 and rem_frac <= 0.05:
+                out = CSSMatrix.from_csr_arrays(ptr, idx, val, A.shape,
+                                                device=device)
+        if out is None:
+            out = False
+    object.__setattr__(A, "_auto_dia", out)
+    return out if out is not False else A
 
 
 @dataclass
@@ -82,10 +164,6 @@ def _check_ported(opts: SolverOptions) -> None:
         raise _not_ported("-use_at", "queue 1 item 8")
     if opts.adds:
         raise _not_ported("-adds (additive Schwarz)", "queue 1 item 9")
-    if not opts.storage and opts.auto_storage:
-        raise _not_ported(
-            "auto_storage (DIA/HDI/BES/CST routing); pass -storage or "
-            "-auto_storage false", "queue 1 item 2")
 
 
 def _make_spec(opts: SolverOptions) -> SolverSpec:
@@ -130,7 +208,19 @@ def _convert_storage(A, opts):
     if opts.storage:
         return convert_matrix(A, _STORAGE_BY_ID[opts.storage],
                               device=A.device)
+    if opts.auto_storage:
+        # solvers applying A^H every iteration need the CST transpose
+        # grid; everything else uses it at most once per solve and rides
+        # the scatter fallback
+        return auto_storage(A, need_at=opts.solver in ("bicg", "bicr"))
     return A
+
+
+def transform_operator(A, opts):
+    """The operator solve() hands the Krylov loop: effective scaling, then
+    storage conversion or routing.  Its ``format_name`` is the route."""
+    A, _ = _scale_operator(A, _effective_scale(opts))
+    return _convert_storage(A, opts)
 
 
 def _cast32(t: torch.Tensor) -> torch.Tensor:

@@ -272,3 +272,366 @@ def test_kernel_wrappers_need_cuda_for_kernels():
               torch.zeros(4096, dtype=torch.float64), 1, 4096)
     assert (tsh.benes_pass.launches, cst_front.launches,
             tsh.lane_shuffle.launches) == before
+
+
+# ---- kernels E and F (DIA products) and G (the fused CG step) ---------------
+
+ALL_DTYPES = DTYPES + [torch.complex64, torch.complex128]
+
+
+def _randn(rng, shape, dtype):
+    a = rng.standard_normal(shape)
+    if dtype.is_complex:
+        a = a + 1j * rng.standard_normal(shape)
+    return torch.from_numpy(a).to(dtype)
+
+
+def _banded(rng, n, offsets, dtype, ncols=None):
+    """A DIAMatrix on the CPU with random diagonals at ``offsets``, zeros
+    where a diagonal leaves the matrix."""
+    from lis_tpu_torch.matrix.dia import DIAMatrix
+    ncols = n if ncols is None else ncols
+    val = _randn(rng, (len(offsets), n), dtype)
+    cols = torch.arange(n)[None, :] + torch.tensor(offsets)[:, None]
+    val = val * ((cols >= 0) & (cols < ncols))
+    return DIAMatrix.from_diagonals(val, offsets, (n, ncols),
+                                    nnz=int(torch.count_nonzero(val)))
+
+
+def _tol(dtype):
+    return 1e-13 if dtype in (torch.float64, torch.complex128) else 1e-5
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("vdtype,xdtype", [(d, d) for d in ALL_DTYPES] + [
+    (torch.float32, torch.complex64), (torch.float64, torch.complex128),
+    (torch.complex128, torch.float64), (torch.float32, torch.float64)],
+    ids=lambda d: str(d)[6:])
+@pytest.mark.parametrize("n,offsets", [
+    (1, (0,)), (33, (-32, -1, 0, 1, 32)), (1001, (-1000, -501, -3, 0, 7, 600)),
+    (70001, tuple(range(-13, 14))), (4099, tuple(range(-256, 256)))],
+    ids=lambda v: str(v) if isinstance(v, int) else f"nnd{len(v)}")
+def test_dia_spmv_and_spmvh(cuda, vdtype, xdtype, n, offsets):
+    """E and F against their plain versions: odd n, one diagonal, 512
+    diagonals, offsets beyond n/2 and up to n − 1, every dtype pair the
+    kernels take directly and two that cast the diagonals."""
+    from lis_tpu_torch.matrix import dia
+    rng = np.random.default_rng(n)
+    A = _banded(rng, n, offsets, vdtype)
+    x = _randn(rng, n, xdtype)
+    Ac, xc = A.to(cuda), x.to(cuda)
+    tol = max(_tol(vdtype), _tol(xdtype))
+    for fn, name in ((dia.dia_spmv, "matvec"), (dia.dia_spmvh, "matvech")):
+        want = getattr(A, name)(x)
+        before = fn.launches
+        got = getattr(Ac, name)(xc)
+        assert fn.launches == before + 1
+        assert got.dtype == want.dtype and got.is_cuda
+        torch.testing.assert_close(got.cpu(), want, rtol=tol,
+                                   atol=tol * float(want.abs().max()))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ALL_DTYPES, ids=lambda d: str(d)[6:])
+def test_dia_rectangular(cuda, dtype):
+    """A rectangular DIA: E guards against ncols, matvech takes the plain
+    scatter on the card."""
+    rng = np.random.default_rng(5)
+    for n, m in ((300, 517), (517, 300)):
+        A = _banded(rng, n, (-250, -2, 0, 1, 40, 299), dtype, ncols=m)
+        x, y = _randn(rng, m, dtype), _randn(rng, n, dtype)
+        Ac = A.to(cuda)
+        tol = _tol(dtype)
+        torch.testing.assert_close(Ac.matvec(x.to(cuda)).cpu(), A.matvec(x),
+                                   rtol=tol, atol=tol * 10)
+        torch.testing.assert_close(Ac.matvech(y.to(cuda)).cpu(),
+                                   A.matvech(y), rtol=tol, atol=tol * 10)
+
+
+def _cg_case(rng, n, dtype, device, nrm1=False, zero_pq=False):
+    """A KrylovScalars and vectors as CG has them in mid-solve."""
+    from lis_tpu_torch.core import vector as v
+    r, p, x, dinv = (_randn(rng, n, dtype).to(device) for _ in range(4))
+    q = torch.zeros_like(p) if zero_pq else _randn(rng, n, dtype).to(device)
+    one = torch.ones((), dtype=dtype, device=device)
+    ws = v.KrylovScalars(r, 50, 1e-10, one * 0.25, one * 3.0, nrm1=nrm1,
+                         running=-99, breakdown=2)
+    rh = torch.full((52,), float("nan"), dtype=dtype, device=device)
+    return ws, rh, x, r, p, q, dinv
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", DTYPES, ids=lambda d: str(d)[6:])
+@pytest.mark.parametrize("n", [1, 255, 70001, 300007])
+@pytest.mark.parametrize("mode", ["jacobi", "none", "z", "nrm1", "breakdown"])
+def test_fused_cg_step(cuda, dtype, n, mode):
+    """One fused CG step, kernels G on the card against their plain
+    versions on the CPU, from equal inputs: sums to rtol 1e-12 / 1e-5,
+    then x, r and p to a few ulp (the scalars differ by the summation
+    order), the loop scalars, and the breakdown freeze."""
+    from lis_tpu_torch.core import vector as v
+    rtol = 1e-12 if dtype == torch.float64 else 1e-5
+    out = {}
+    for device in ("cpu", cuda):
+        rng = np.random.default_rng(n)
+        ws, rh, x, r, p, q, dinv = _cg_case(
+            rng, n, dtype, device, nrm1=mode == "nrm1",
+            zero_pq=mode == "breakdown")
+        x0, r0 = x.clone(), r.clone()
+        fns = (v.krylov_dot, v.cg_direction, v.cg_update, v.cg_finish)
+        before = [f.launches for f in fns]
+        folded = mode != "z"
+        d = dinv if mode in ("jacobi", "nrm1", "breakdown") else None
+        z = None if folded else dinv * r
+        if d is not None:
+            v.krylov_dot(r, d, r, ws, v.P_RHO)
+        else:
+            v.krylov_dot(r, r if z is None else z, None, ws, v.P_RHO)
+        v.cg_direction(p, r, z, d, ws)
+        if mode != "breakdown":
+            q = q + p                       # a q that depends on the new p
+        v.krylov_dot(p, q, None, ws, v.P_PQ)
+        v.cg_update(x, r, p, q, d, ws, next_rho=folded)
+        v.cg_finish(ws, rh)
+        counts = [f.launches - b for f, b in zip(fns, before)]
+        assert counts == ([0] * 4 if device == "cpu" else [2, 1, 1, 1])
+        if mode == "breakdown":
+            assert torch.equal(x, x0) and torch.equal(r, r0)
+            assert int(ws.flag) == 2 and int(ws.live) == 0
+            assert float(ws.nrm) == 3.0
+        else:
+            assert int(ws.flag) == -99 and int(ws.live) == 1
+        assert int(ws.it) == 2
+        # a step after the loop has ended changes nothing
+        if mode == "breakdown":
+            xs = x.clone()
+            v.cg_update(x, r, p, q + 1, d, ws, next_rho=folded)
+            v.cg_finish(ws, rh)
+            assert torch.equal(x, xs) and int(ws.it) == 2
+        out[str(device)] = [t.cpu() for t in (
+            x, r, p, ws.sc[:4], ws.part.sum(1), rh[1:2])]
+    for got, want in zip(out[str(cuda)], out["cpu"]):
+        torch.testing.assert_close(got, want, rtol=rtol,
+                                   atol=rtol * float(want.abs().max()))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("opts", [
+    "-i cg -p jacobi -tol 1e-10", "-i cg -p none -tol 1e-10",
+    "-i cg -p jacobi -tol 1e-6 -f single", "-i cg -p jacobi -scale 2",
+    "-i cg -p jacobi -conv_cond nrm1_b -tol_w 1e-10 -tol 0",
+    "-i bicg -p jacobi -tol 1e-10", "-i cr -p jacobi -tol 1e-10"])
+def test_default_routed_solve_on_the_card(cuda, opts):
+    """solve() with no -storage: a banded CSR input on the card is routed
+    to DIA and iterated through kernel E (bicg: F too) and, for cg, the
+    fused step; iteration counts are the CPU plain path's ±1."""
+    from lis_tpu_torch.core import vector as v
+    from lis_tpu_torch.matrix import dia
+    from lis_tpu_torch.solvers.driver import transform_operator
+    from lis_tpu_torch.utils.testmat import poisson3d27
+    A = poisson3d27(17, 19, 23)
+    assert A.device.type == "cuda"
+    A_cpu = poisson3d27(17, 19, 23, device="cpu")
+    b = np.random.default_rng(9).standard_normal(A.nrows)
+    want = lis_tpu_torch.solve(A_cpu, b, options=opts)
+    fns = (dia.dia_spmv, dia.dia_spmvh, v.krylov_dot, v.cg_direction,
+           v.cg_update, v.cg_finish)
+    before = [f.launches for f in fns]
+    got = lis_tpu_torch.solve(A, b, options=opts)
+    e, f, g1, g2, g3, g4 = (fn.launches - b0 for fn, b0 in zip(fns, before))
+    assert transform_operator(A, got.options).format_name == "dia" \
+        or "-scale" in opts
+    assert got.x.is_cuda and got.status == want.status == 0
+    assert abs(got.iters - want.iters) <= 1
+    single = "-f single" in opts
+    torch.testing.assert_close(got.x.cpu(), want.x,
+                               rtol=1e-3 if single else 1e-7,
+                               atol=1e-4 if single else 1e-9)
+    if "-i cg" in opts:
+        # one E per iteration and one for the initial residual (the true
+        # residual is taken on the CSR input)
+        assert e == got.iters + 1
+        assert (g1, g2, g3, g4) == (got.iters + 1,) + (got.iters,) * 3
+    elif "-i bicg" in opts:
+        assert e >= got.iters and f >= got.iters and g2 == 0
+    else:
+        assert e >= got.iters and g2 == 0
+
+
+@pytest.mark.gpu
+def test_fused_cg_with_a_general_preconditioner_and_other_operators(cuda):
+    """The fused step takes z from any M.psolve, and serves CSR and HDI
+    operators as well as DIA."""
+    import dataclasses
+    from lis_tpu_torch.core import vector as v
+    from lis_tpu_torch.matrix.base import TensorFields
+    from lis_tpu_torch.utils.testmat import poisson2d
+
+    @dataclasses.dataclass(frozen=True, eq=False)
+    class Scaled(TensorFields):
+        w: torch.Tensor
+
+        def psolve(self, r):
+            return self.w * r
+
+    A_cpu = poisson2d(40, 31, device="cpu")
+    b = np.random.default_rng(1).standard_normal(A_cpu.nrows)
+    w = torch.from_numpy(np.random.default_rng(2).uniform(0.2, 0.3,
+                                                          A_cpu.nrows))
+    for storage in ("-auto_storage false", "-storage hdi", "-storage dia"):
+        opts = f"-i cg -tol 1e-10 {storage}"
+        want = lis_tpu_torch.solve(A_cpu, b, options=opts, M=Scaled(w))
+        before = v.krylov_dot.launches
+        got = lis_tpu_torch.solve(A_cpu.to(cuda), b, options=opts,
+                                  M=Scaled(w.to(cuda)))
+        assert v.krylov_dot.launches == before + 2 * got.iters
+        assert got.status == want.status == 0
+        assert abs(got.iters - want.iters) <= 1
+        torch.testing.assert_close(got.x.cpu(), want.x, rtol=1e-7, atol=1e-9)
+
+
+def test_dia_and_fused_wrappers_take_the_plain_version_on_the_cpu():
+    """CPU tensors count no launch."""
+    from lis_tpu_torch.core import vector as v
+    from lis_tpu_torch.matrix import dia
+    fns = (dia.dia_spmv, dia.dia_spmvh, v.krylov_dot, v.cg_direction,
+           v.cg_update, v.cg_finish)
+    before = [f.launches for f in fns]
+    A = _banded(np.random.default_rng(0), 50, (-3, 0, 2), torch.float64)
+    A = A.to("cpu")
+    x = torch.ones(50, dtype=torch.float64)
+    A.matvec(x), A.matvech(x)
+    ws, rh, x, r, p, q, dinv = _cg_case(np.random.default_rng(0), 50,
+                                        torch.float64, "cpu")
+    v.krylov_dot(r, dinv, r, ws, v.P_RHO)
+    v.cg_direction(p, r, None, dinv, ws)
+    v.krylov_dot(p, q, None, ws, v.P_PQ)
+    v.cg_update(x, r, p, q, dinv, ws, next_rho=True)
+    v.cg_finish(ws, rh)
+    assert [f.launches for f in fns] == before
+
+
+# ---- the router's other branches on the card: CSS, HDI, CSR ----------------
+
+def _windowed(n=1 << 15, w=2000):
+    """6 random columns per row within ±w of the diagonal, nonsymmetric,
+    diagonally dominant: the router's CSS case."""
+    rng = np.random.default_rng(0)
+    rows = np.repeat(np.arange(n), 6)
+    cols = np.clip(rows + rng.integers(-w, w, n * 6), 0, n - 1)
+    a = sp.coo_matrix((rng.standard_normal(n * 6), (rows, cols)),
+                      shape=(n, n)).tocsr()
+    return (a + sp.eye(n) * 30).tocsr()
+
+
+def _quasi_banded(n=400, stragglers=30):
+    """A tridiagonal matrix plus a few entries off the band (HDI)."""
+    rng = np.random.default_rng(0)
+    a = sp.diags([-1.0, 4.0, -1.0], [-1, 0, 1], shape=(n, n)).tolil()
+    for _ in range(stragglers):
+        i, j = rng.integers(0, n, 2)
+        a[i, j] = rng.standard_normal()
+    return a.tocsr()
+
+
+def _power_law(n=3000, seed=0, cplx=False):
+    """Hub columns attract most entries: CSS spills them to its CSR
+    remainder, and the router leaves the matrix as it is."""
+    rng = np.random.default_rng(seed)
+    rows = np.repeat(np.arange(n), 6)
+    cols = np.minimum((rng.pareto(1.2, n * 6) * 40).astype(np.int64), n - 1)
+    vals = rng.standard_normal(n * 6)
+    if cplx:
+        vals = vals + 1j * rng.standard_normal(n * 6)
+    a = sp.coo_matrix((vals, (rows, cols)), shape=(n, n)).tocsr()
+    a = (a + sp.eye(n) * 8).tocsr()
+    a.sum_duplicates()
+    return a
+
+
+ROUTED = {"windowed": (_windowed, "css"), "quasi_banded": (_quasi_banded,
+                                                           "hdi"),
+          "power_law": (_power_law, "csr")}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("solver", ["bicgstab", "bicg"])
+@pytest.mark.parametrize("name", list(ROUTED))
+def test_routed_css_hdi_csr_on_the_card(cuda, name, solver):
+    """A CSR input on the card through the router's branches after DIA:
+    the routed operator's matvec and matvech against scipy, and a solve
+    against the same solve on the CPU."""
+    from lis_tpu_torch.solvers.driver import transform_operator
+    make, route = ROUTED[name]
+    a = make()
+    a.sort_indices()
+    csr = (a.indptr, a.indices, a.data, a.shape)
+    A = lis_tpu_torch.CSRMatrix.from_csr_arrays(*csr)
+    A_cpu = lis_tpu_torch.CSRMatrix.from_csr_arrays(*csr, device="cpu")
+    n = a.shape[0]
+    b = np.random.default_rng(7).standard_normal(n)
+    opts = f"-i {solver} -p jacobi -tol 1e-10"
+    want = lis_tpu_torch.solve(A_cpu, b, options=opts)
+    got = lis_tpu_torch.solve(A, b, options=opts)
+    T = transform_operator(A, got.options)
+    assert T.format_name == route and T.device.type == "cuda"
+    x = np.random.default_rng(8).standard_normal(n)
+    xc = torch.from_numpy(x).to(cuda)
+    np.testing.assert_allclose(T.matvec(xc).cpu().numpy(), a @ x,
+                               rtol=1e-12, atol=1e-12)
+    np.testing.assert_allclose(T.matvech(xc).cpu().numpy(), a.T @ x,
+                               rtol=1e-12, atol=1e-12)
+    assert got.x.is_cuda and got.status == want.status == 0
+    assert abs(got.iters - want.iters) <= 1
+    torch.testing.assert_close(got.x.cpu(), want.x, rtol=1e-7, atol=1e-9)
+
+
+CSS_ON_CARD = {
+    "windowed": lambda: _windowed(1 << 13, 500),
+    "power_law": _power_law,
+    "power_law_complex": lambda: _power_law(seed=5, cplx=True),
+    "rectangular": lambda: sp.random(700, 1000, density=0.01, format="csr",
+                                     random_state=np.random.default_rng(6)),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("transpose", [True, False], ids=["at", "scatter"])
+@pytest.mark.parametrize("name", list(CSS_ON_CARD))
+def test_css_on_the_card(cuda, name, transpose):
+    """CSSMatrix on the card against its CPU copy and scipy: matvec,
+    matvech through the transpose and by the scatter fallback, the
+    diagonal, row and symmetric scaling, a complex vector on real values
+    (the int32 ``rowf`` feeds index_add_ and index_select there)."""
+    from lis_tpu_torch.matrix.css import CSSMatrix
+    a = CSS_ON_CARD[name]().tocsr()
+    a.sort_indices()
+    S = CSSMatrix.from_csr_arrays(a.indptr, a.indices, a.data, a.shape,
+                                  transpose=transpose)
+    assert S.device.type == "cuda" and (S.at is not None) == transpose
+    assert S.rem is not None and S.rem.device.type == "cuda"
+    S_cpu = S.to("cpu")
+    n, m = a.shape
+    rng = np.random.default_rng(3)
+    x, y = rng.standard_normal(m), rng.standard_normal(n)
+    z = x + 1j * rng.standard_normal(m)
+
+    def close(got, want):
+        np.testing.assert_allclose(got.cpu().numpy(), want, rtol=1e-12,
+                                   atol=1e-12 * max(np.abs(want).max(), 1))
+
+    def dev(v):
+        return torch.from_numpy(v).to(cuda)
+
+    close(S.matvec(dev(x)), a @ x)
+    close(S.matvec(dev(z)), a @ z)
+    close(S.matvech(dev(y)), a.conj().T @ y)
+    close(S.matvec(dev(x)), S_cpu.matvec(torch.from_numpy(x)).numpy())
+    if n == m:
+        close(S.get_diagonal(), a.diagonal())
+        d = rng.uniform(0.5, 2.0, n)
+        R, Y = S.scale_rows(dev(d)), S.scale_symm(dev(d))
+        close(R.matvec(dev(x)), d * (a @ x))
+        close(R.matvech(dev(y)), a.conj().T @ (d * y))
+        close(Y.matvec(dev(x)), d * (a @ (d * x)))
+        close(Y.matvech(dev(y)), d * (a.conj().T @ (d * y)))

@@ -86,14 +86,14 @@ def test_solve_matches_lis_tpu(grid, storage, solver, precon):
 
 
 @pytest.mark.parametrize("opts,match", [
-    ("-i cg", "auto_storage"),
+    ("-i cg -p ssor", "preconditioner 'ssor'"),
     ("-i gmres -storage cst", "queue 1 item 6"),
     ("-i cg -p ilu -storage cst", "preconditioner 'ilu'"),
     ("-i cg -storage cst -f quad", "queue 1 item 7"),
     ("-i cg -storage cst -f switch_df", "queue 1 item 7"),
     ("-i cg -storage cst -reorder rcm", "reorder"),
     ("-i cg -storage cst -use_at true", "use_at"),
-    ("-i cg -storage dia", "queue 1 item 2"),
+    ("-i cg -storage ell", "queue 1 item 8"),
     ("-i cg -storage bes", "queue 1 item 8"),
 ])
 def test_not_ported_paths_raise(opts, match):
