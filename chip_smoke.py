@@ -22,10 +22,9 @@ Phases (one or more lines each):
 3. CG + Jacobi over the CST SpMV: solve(A, ones, "-i cg -p jacobi
    -storage cst -tol 1e-10") for the locality-free SPD system
    a + aᵀ + 32·I, n = 2^20, 8 random columns per row, made from --seed;
-   SUCCESS with true residual <= 1e-9, the iteration count of the port's
-   plain path on the CPU (±1: the CSR remainder sums with atomics on the
-   card), and kernels A-D launched at least once per iteration; then once
-   more at -f single.  Each solve rebuilds the CST on the host;
+   SUCCESS with true residual <= 1e-9 and kernels A-D launched at least
+   once per iteration; then once more at -f single.  Each solve rebuilds
+   the CST on the host.  The CPU oracle runs at n = 2^17 (see below);
 4. the CST matvec, kernels against plain torch on the card, in
    csr-equivalent GB/s = (nnz·12 + 2n·8) / t;
 5. reuse: one CST of the nonsymmetric a − 0.5·aᵀ + 32·I (phase 3's
@@ -33,13 +32,13 @@ Phases (one or more lines each):
    "-storage cst -scale 1 -p jacobi -tol 1e-10" by bicg, bicr, bicgstab
    and bicrstab, which scale the grid itself (lane_shuffle); then
    "-i cg -p jacobi -storage cst -scale 1" on phase 4's prebuilt SPD CST
-   (scale_symm).  Each: SUCCESS, true residual <= 1e-9 (scipy too), the
-   iteration count of the same CST on the CPU ±1, lane_shuffle launched;
+   (scale_symm).  Each: SUCCESS, true residual <= 1e-9 (scipy too),
+   lane_shuffle launched, the oracle at n = 2^17;
    BiCG and BiCR launch kernels A-D at least once per iteration;
 6. complex: the complex-symmetric a + aᵀ + 32·I with complex128 values on
    the same pattern, one CST; cocg and cocr with -p jacobi, checked as
    in phase 5 with lane_shuffle launched at least once per iteration;
-   cocg at -f single, which must keep complex128 and is held against the
+   cocg at -f single, which must keep complex128 and whose oracle is the
    CPU run at double; the complex CST matvec against its plain version
    to rel 1e-12, both timed;
 7. dia kernels: E (dia_spmv) and F (dia_spmvh) against their plain
@@ -76,13 +75,42 @@ Phases (one or more lines each):
    the CSS matvec, matvech (through the transpose and by the scatter) and
    diagonal on the card against scipy to 1e-12.
 
-Phases 1 to 8 all run at the sizes named here.  The matrices of phases 3
-to 6 are built with no ``device`` argument, so
-they live on the default device, the card; each has a CPU copy for the
-CPU iteration count it is held against.
+9. preconditioned, the hpcg configuration: (a) kernels H (dia_relax) and
+   I (dia_relaxh) on the strict triangles of poisson3d27_dia 96³ (13
+   diagonals each) and K (trisolve_levels) on the level plan of its
+   (D + L) (666 levels of at most 2304 rows), each against its plain
+   version in f64, f32 and complex128 to rtol 1e-13 / 1e-5 (real H and I
+   also checked bit for bit in their start and no-term forms), timed
+   beside the plain version, the bound and the library call (torch.sparse
+   CSR @ y for the sweep's product; torch.triangular_solve on a sparse CSR
+   for K, where this torch takes it); (b) ``cli.hpcg.main(["96", "96",
+   "96"])`` with its defaults (-i cg -p ssor -adds true): exit 0, route
+   dia, SUCCESS, true residual <= 1e-7, H launched exactly 9 times per
+   iteration and E, G as the fused step calls them (so no sweep took a
+   plain version), and the CPU run's iteration count ±1; (c) the same at
+   192³ (poisson3d27_dia, 1.53 GB of diagonals), held to the iteration
+   count ±1 of a CG + SSOR + additive Schwarz loop over the plain versions
+   of E, G and H on the card, written out in this script; (d) cg -p ilu on
+   the 96³ CSR, routed to DIA (ILU(0) by the native factor on the host,
+   timed), H 4 times per iteration, the CPU's count ±1; (e) gmres
+   -restart 30 -p ssor on the same operator, bicg -p ssor on a
+   nonsymmetric 96³ DIA (I launched), and on poisson3d27 64³ CSR the
+   level-scheduled -i cg -p ssor -auto_storage false (K twice per
+   iteration) and -i sor -tol 1e-8 (DIA, ω = 1.9: the level plan, K once
+   per iteration), each held to the CPU's count ±1.  Every solve prints
+   its ms/iter beside one psolve's and one matvec's time on the card.
 
-Launch counts are set to 0 just before each solve of phases 3, 5, 6 and 8
-and read just after; launches made to compare a kernel with its plain
+Phases 1 to 9 all run at the sizes named here.  The matrices of phases 3
+to 6 are built with no ``device`` argument, so they live on the default
+device, the card.  Their CPU oracles (the port's plain path on the CPU,
+whose Benes passes take up to a minute a solve at n = 2^20) run at
+n = 2^17 on systems of the same kinds: each solve is made there on the
+card and on the CPU, and the iteration counts must agree ±1 (the CSR
+remainder sums with atomics on the card); the card's solves at n = 2^20
+keep every other check.
+
+Launch counts are set to 0 just before each solve of phases 3, 5, 6, 8
+and 9 and read just after; launches made to compare a kernel with its plain
 version are not counted.  It prints one JSON line of per-kernel results
 (each row's ``timing`` says how its ``ms`` was taken; where that is
 "queued", ``host_ms`` is the figure taken as ``plain_ms`` is), then as its
@@ -93,12 +121,16 @@ non-zero before that line; so does a machine without CUDA.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
+import io
 import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
+import types
 
 import numpy as np
 
@@ -189,6 +221,12 @@ def main() -> None:
     args = ap.parse_args()
 
     import torch
+    t_start = time.perf_counter()
+
+    def stamp(what):
+        print(f"phase time: {what} starts at "
+              f"{time.perf_counter() - t_start:.1f} s", flush=True)
+
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke needs a "
              "CUDA device")
@@ -199,6 +237,7 @@ def main() -> None:
         from lis_tpu_torch.core import vector as v
         from lis_tpu_torch.matrix import cst as cstm, dia as diam
         from lis_tpu_torch.ops import _cuda, shuffle as sh
+        from lis_tpu_torch.ops import trisolve as tsm
         from lis_tpu_torch.runtime.options import SolverOptions
         from lis_tpu_torch.utils import testmat
     except ImportError as e:
@@ -244,6 +283,7 @@ def main() -> None:
         return (torch.argsort(r, dim=2) + base).view(-1, 128).to(torch.uint8)
 
     # ---- 2. kernels against their plain versions ---------------------------
+    stamp("phase 2")
     M = 1 << 25              # the slot count of the n = 2^20, Kp = 32 grid
     CB = (1 << 20) // 128
     mtag = f"M=2^{M.bit_length() - 1}"
@@ -303,6 +343,55 @@ def main() -> None:
     def es(dtype):
         return torch.empty((), dtype=dtype).element_size()
 
+    # ---- launch counts over the counted solves of phases 3, 5, 6, 8, 9 ------
+    kernels = {"lane_shuffle": sh.lane_shuffle, "cst_front": cstm.cst_front,
+               "benes_pass": sh.benes_pass,
+               "benes_pass_rowsum": sh.benes_pass_rowsum,
+               "benes_small_run": sh.benes_small_run,
+               "dia_spmv": diam.dia_spmv, "dia_spmvh": diam.dia_spmvh,
+               "krylov_dot": v.krylov_dot, "cg_direction": v.cg_direction,
+               "cg_update": v.cg_update, "cg_finish": v.cg_finish,
+               "dia_relax": diam.dia_relax, "dia_relaxh": diam.dia_relaxh,
+               "trisolve": tsm.trisolve}
+    matvec_kernels = ("cst_front", "benes_pass", "benes_pass_rowsum",
+                      "benes_small_run")
+    total = dict.fromkeys(kernels, 0)     # launches over the counted solves
+
+    def counted(fn):
+        """fn() with every launch count set to 0 just before it and read
+        just after: (result, launches, wall s)."""
+        for f in kernels.values():
+            f.launches = 0
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got = {name: f.launches for name, f in kernels.items()}
+        for name, cnt in got.items():
+            total[name] += cnt
+        return out, got, wall
+
+    def need_launches(got, names, least, what):
+        for name in names:
+            if got[name] < least:
+                fail(f"{what}: {name} launched {got[name]} times, "
+                     f"expected at least {least}")
+
+    def route_of(A, opts):
+        return lis_tpu_torch.transform_operator(
+            A, SolverOptions.from_string(opts)).format_name
+
+    def need_exact(got, want, what):
+        for name, cnt in want.items():
+            if got[name] != cnt:
+                fail(f"{what}: {name} launched {got[name]} times, expected "
+                     f"exactly {cnt}: a call took another path")
+
+    S = types.SimpleNamespace(
+        dev=dev, kernels=kernels, check=check, counted=counted, stamp=stamp,
+        need_launches=need_launches,
+        need_exact=need_exact, route_of=route_of, randn=randn, es=es,
+        results=results, results32=results32, grids=(96, 192, 64))
     R = M // 128
     for dtype in (torch.float64, torch.float32, torch.complex128,
                   torch.complex64):
@@ -407,37 +496,7 @@ def main() -> None:
     torch.cuda.empty_cache()
 
     # ---- 3. the slice: CG + Jacobi over the CST SpMV -----------------------
-    kernels = {"lane_shuffle": sh.lane_shuffle, "cst_front": cstm.cst_front,
-               "benes_pass": sh.benes_pass,
-               "benes_pass_rowsum": sh.benes_pass_rowsum,
-               "benes_small_run": sh.benes_small_run,
-               "dia_spmv": diam.dia_spmv, "dia_spmvh": diam.dia_spmvh,
-               "krylov_dot": v.krylov_dot, "cg_direction": v.cg_direction,
-               "cg_update": v.cg_update, "cg_finish": v.cg_finish}
-    matvec_kernels = ("cst_front", "benes_pass", "benes_pass_rowsum",
-                      "benes_small_run")
-    total = dict.fromkeys(kernels, 0)     # launches over the counted solves
-
-    def counted(fn):
-        """fn() with every launch count set to 0 just before it and read
-        just after: (result, launches, wall s)."""
-        for f in kernels.values():
-            f.launches = 0
-        t0 = time.perf_counter()
-        out = fn()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        got = {name: f.launches for name, f in kernels.items()}
-        for name, cnt in got.items():
-            total[name] += cnt
-        return out, got, wall
-
-    def need_launches(got, names, least, what):
-        for name in names:
-            if got[name] < least:
-                fail(f"{what}: {name} launched {got[name]} times, "
-                     f"expected at least {least}")
-
+    stamp("phase 3")
     n, k = 1 << 20, 8
     t0 = time.perf_counter()
     a = system(n, k, args.seed)
@@ -475,11 +534,24 @@ def main() -> None:
     r2 = lis_tpu_torch.solve(A, b, options=opts)
     t_warm = time.perf_counter() - t0
     report("cuda f64 warm", r2, t_warm)
+    it_cst = r.iters
+    # the CPU's plain CST passes take minutes at n = 2^20, so the CPU
+    # oracle of phases 3, 5 and 6 runs at n = 2^17, on systems of the same
+    # kinds, each solved on the card and on the CPU
+    ns = 1 << 17
+    a_s = system(ns, k, args.seed)
+    b_s = np.ones(ns)
+    csr_s = (a_s.indptr, a_s.indices, a_s.data, a_s.shape)
     t0 = time.perf_counter()
-    rc = lis_tpu_torch.solve(A_cpu, b, options=opts)
-    report("cpu f64 plain path", rc, time.perf_counter() - t0)
-    if abs(rc.iters - r.iters) > 1 or rc.status != r.status:
-        fail(f"cuda iters {r.iters} vs cpu iters {rc.iters}")
+    r_s = lis_tpu_torch.solve(lis_tpu_torch.CSRMatrix.from_csr_arrays(
+        *csr_s), b_s, options=opts)
+    rc = lis_tpu_torch.solve(lis_tpu_torch.CSRMatrix.from_csr_arrays(
+        *csr_s, device="cpu"), b_s, options=opts)
+    report(f"n=2^17 oracle, cuda {r_s.iters} iterations; cpu f64 plain "
+           f"path", rc, time.perf_counter() - t0)
+    if abs(rc.iters - r_s.iters) > 1 or rc.status != r_s.status \
+            or r_s.status != lis_tpu_torch.LIS_SUCCESS:
+        fail(f"n=2^17: cuda iters {r_s.iters} vs cpu iters {rc.iters}")
     t0 = time.perf_counter()
     rs = lis_tpu_torch.solve(A, b, options=opts + " -f single")
     report("cuda -f single", rs, time.perf_counter() - t0)
@@ -488,6 +560,7 @@ def main() -> None:
         fail(f"-f single true residual {rs.true_resid:.3e}")
 
     # ---- 4. CST matvec: kernels against plain torch on the card ------------
+    stamp("phase 4")
     def cst_pair(a_sp, **kw):
         """A CST of ``a_sp`` built with no device (so on the card), and
         its CPU copy; one host build serves both."""
@@ -497,7 +570,8 @@ def main() -> None:
             fail(f"a CST built with no device lives on {Cd.device}")
         return Cd, Cd.to("cpu")
 
-    C, C_cpu = cst_pair(a, transpose=False)
+    C, _ = cst_pair(a, transpose=False)
+    C_s = cst_pair(a_s, transpose=False) + (b_s,)     # the oracle's
 
     def plain_matvec(C, xv):
         """C.matvec(xv) through the kernels' plain versions only."""
@@ -535,43 +609,52 @@ def main() -> None:
     if err > 1e-12:
         fail(f"CST matvec kernels vs plain: relative error {err:.3e}")
 
-    def solve_checked(tag, Ad, Ac, a_sp, b, opts, per_iter, once,
+    def solve_checked(tag, Ad, a_sp, b, opts, per_iter, once, small,
                       rc=None):
-        """One counted solve on the card and the same prebuilt operator
-        on the CPU (or the CPU result ``rc`` of an equivalent solve):
-        SUCCESS, true residual <= 1e-9 (the port's and scipy's),
-        iterations equal ±1, and the kernels in ``per_iter`` launched at
-        least once per iteration, those in ``once`` at least once.
-        Returns (result, wall s, CPU result)."""
+        """One counted solve on the card (n = 2^20): SUCCESS, true
+        residual <= 1e-9 (the port's and scipy's), the kernels in
+        ``per_iter`` launched at least once per iteration, those in
+        ``once`` at least once.  The oracle runs on ``small`` = (card
+        operator, its CPU copy, b) at n = 2^17: the card's
+        iterations equal the CPU's ±1 (or those of the CPU result ``rc``
+        of an equivalent solve).  Returns (result, wall s, CPU result)."""
         r, got, wall = counted(
             lambda: lis_tpu_torch.solve(Ad, b, options=opts))
+        Sd, Sc, s_b = small
+        r_s = lis_tpu_torch.solve(Sd, s_b, options=opts)
         t0 = time.perf_counter()
         if rc is None:
-            rc = lis_tpu_torch.solve(Ac, b, options=opts)
+            rc = lis_tpu_torch.solve(Sc, s_b, options=opts)
         wall_cpu = time.perf_counter() - t0
         x = r.x.cpu().numpy()
         res_scipy = np.linalg.norm(a_sp @ x - b) / np.linalg.norm(b)
         print(f"phase {tag}: {opts}: status {r.status} iters {r.iters} "
-              f"(cpu {rc.iters}) true_resid {r.true_resid:.3e} "
-              f"(scipy {res_scipy:.3e}) x {r.x.dtype}; solve {wall:.4f} s "
-              f"(itime {r.itime:.4f} s, "
-              f"{1e3 * r.itime / max(r.iters, 1):.4f} ms/iter; "
-              f"cpu {wall_cpu:.2f} s); launches {got}", flush=True)
-        if r.status != lis_tpu_torch.LIS_SUCCESS or rc.status != r.status:
-            fail(f"{tag} {opts}: status {r.status} (cpu {rc.status})")
+              f"true_resid {r.true_resid:.3e} (scipy {res_scipy:.3e}) x "
+              f"{r.x.dtype}; solve {wall:.4f} s (itime {r.itime:.4f} s, "
+              f"{1e3 * r.itime / max(r.iters, 1):.4f} ms/iter); n=2^17 "
+              f"oracle: cuda {r_s.iters} it, cpu {rc.iters} it in "
+              f"{wall_cpu:.2f} s; launches {got}", flush=True)
+        if r.status != lis_tpu_torch.LIS_SUCCESS or rc.status != r_s.status \
+                or r_s.status != lis_tpu_torch.LIS_SUCCESS:
+            fail(f"{tag} {opts}: status {r.status} (n=2^17: cuda "
+                 f"{r_s.status}, cpu {rc.status})")
         if not (r.true_resid <= 1e-9 and res_scipy <= 1e-9):
             fail(f"{tag} {opts}: true residual {r.true_resid:.3e} / "
                  f"{res_scipy:.3e} > 1e-9")
-        if abs(rc.iters - r.iters) > 1:
-            fail(f"{tag} {opts}: cuda iters {r.iters} vs cpu {rc.iters}")
+        if abs(rc.iters - r_s.iters) > 1:
+            fail(f"{tag} {opts}: n=2^17 cuda iters {r_s.iters} vs cpu "
+                 f"{rc.iters}")
         need_launches(got, per_iter, r.iters, f"{tag} {opts}")
         need_launches(got, once, 1, f"{tag} {opts}")
         return r, wall, rc
 
     # ---- 5. reuse: one prebuilt CST, scaled by each solve ------------------
+    stamp("phase 5")
     t0 = time.perf_counter()
     an = system(n, k, args.seed, "nonsym")
-    N, N_cpu = cst_pair(an)
+    N, _ = cst_pair(an)
+    an_s = system(ns, k, args.seed, "nonsym")
+    N_s = cst_pair(an_s) + (b_s,)
     print(f"phase reuse: nonsymmetric system nnz={an.nnz}, CST with its "
           f"transpose grid built once in {time.perf_counter() - t0:.2f} s "
           f"(phase 3 rebuilt per solve: {t_cold:.2f} s cold, "
@@ -579,28 +662,32 @@ def main() -> None:
     walls = []
     for solver in ("bicg", "bicr", "bicgstab", "bicrstab"):
         _, wall, _ = solve_checked(
-            "reuse", N, N_cpu, an, b,
+            "reuse", N, an, b,
             f"-i {solver} -p jacobi -storage cst -scale 1 -tol 1e-10",
             matvec_kernels if solver in ("bicg", "bicr") else (),
-            ("lane_shuffle",) + matvec_kernels)
+            ("lane_shuffle",) + matvec_kernels, N_s)
         walls.append(wall)
     _, wall, _ = solve_checked(
-        "reuse", C, C_cpu, a, b,
+        "reuse", C, a, b,
         "-i cg -p jacobi -storage cst -scale 1 -tol 1e-10",
-        matvec_kernels, ("lane_shuffle",))
+        matvec_kernels, ("lane_shuffle",), C_s)
     walls.append(wall)
     print(f"phase reuse: per-solve wall {min(walls):.4f}-{max(walls):.4f} s "
           f"on the prebuilt CST, against {t_warm:.2f} s for phase 3's warm "
           f"solve that rebuilds it", flush=True)
-    del N, N_cpu
+    del N, N_s
     torch.cuda.empty_cache()
 
     # ---- 6. complex: COCG / COCR over a complex CST -------------------------
+    stamp("phase 6")
     t0 = time.perf_counter()
     ac = system(n, k, args.seed, "csym")
-    Z, Z_cpu = cst_pair(ac, transpose=False)
+    Z, _ = cst_pair(ac, transpose=False)
     rng = np.random.default_rng(args.seed + 1)
     bc = rng.standard_normal(n) + 1j * rng.standard_normal(n)
+    ac_s = system(ns, k, args.seed, "csym")
+    Z_s = cst_pair(ac_s, transpose=False) + (
+        rng.standard_normal(ns) + 1j * rng.standard_normal(ns),)
     print(f"phase complex: complex-symmetric system nnz={ac.nnz}, CST built "
           f"once in {time.perf_counter() - t0:.2f} s", flush=True)
     cpu = {}
@@ -611,8 +698,8 @@ def main() -> None:
         # -f single leaves complex128 as it is, so it is held against
         # the CPU run at double
         r, _, cpu[solver] = solve_checked(
-            "complex", Z, Z_cpu, ac, bc, opts,
-            ("lane_shuffle",) + matvec_kernels[1:], (), cpu.get(solver))
+            "complex", Z, ac, bc, opts,
+            ("lane_shuffle",) + matvec_kernels[1:], (), Z_s, cpu.get(solver))
         if r.x.dtype != torch.complex128:
             fail(f"complex {opts}: x is {r.x.dtype}")
     zv = randn(n, torch.complex128)
@@ -630,6 +717,7 @@ def main() -> None:
 
 
     # ---- 7. dia kernels: E, F and G against their plain versions -----------
+    stamp("phase 7")
     t0 = time.perf_counter()
     A96 = testmat.poisson3d27(96, 96, 96)          # CSR on the card
     D96 = lis_tpu_torch.convert_matrix(A96, "dia")
@@ -821,20 +909,7 @@ def main() -> None:
     torch.cuda.empty_cache()
 
     # ---- 8. main path: default routing, lsolve, DIA, the fused step --------
-    import contextlib
-    import io
-    import tempfile
-
-    def route_of(A, opts):
-        return lis_tpu_torch.transform_operator(
-            A, SolverOptions.from_string(opts)).format_name
-
-    def need_exact(got, want, what):
-        for name, cnt in want.items():
-            if got[name] != cnt:
-                fail(f"{what}: {name} launched {got[name]} times, expected "
-                     f"exactly {cnt}: a call took another path")
-
+    stamp("phase 8")
     # (a) a MatrixMarket file through the lsolve command line
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, "poisson2d_512.mtx")
@@ -1066,9 +1141,11 @@ def main() -> None:
           f"iters {rcsr.iters} wall {wall_csr:.3f} s (itime "
           f"{rcsr.itime:.4f} s); launches {got}", flush=True)
     if route != "cst" or rr.status != lis_tpu_torch.LIS_SUCCESS \
-            or not rr.true_resid <= 1e-9 or abs(rr.iters - rc.iters) > 1:
+            or not rr.true_resid <= 1e-9 or abs(rr.iters - it_cst) > 1 \
+            or abs(rr.iters - rcsr.iters) > 1:
         fail(f"routed locality-free solve: route {route} status {rr.status} "
-             f"iters {rr.iters} (cpu {rc.iters}) resid {rr.true_resid:.3e}")
+             f"iters {rr.iters} (phase 3's -storage cst {it_cst}, CSR "
+             f"{rcsr.iters}) resid {rr.true_resid:.3e}")
     if lis_tpu_torch.auto_storage(A, need_at=False).at is not None:
         fail("cg routed to a CST with a transpose grid")
     need_launches(got, matvec_kernels, rr.iters, "routed cst")
@@ -1124,39 +1201,454 @@ def main() -> None:
           f"matvec on the same matrix {cuda_ms(lambda: Aw.matvec(xw)):.4f} "
           f"ms", flush=True)
 
-    # ---- results -----------------------------------------------------------
-    where = {
-        "lane_shuffle": ("lis_tpu_torch/csrc/lane_shuffle.cu",
-                         "lis_tpu/ops/shuffle.py:350"),
-        "cst_front": ("lis_tpu_torch/csrc/cst_front.cu",
-                      "lis_tpu/matrix/cst.py:259"),
-        "benes_pass": ("lis_tpu_torch/csrc/benes.cu",
-                       "lis_tpu/ops/shuffle.py:419"),
-        "benes_pass_rowsum": ("lis_tpu_torch/csrc/benes.cu",
-                              "lis_tpu/ops/shuffle.py:509"),
-        "benes_small_run": ("lis_tpu_torch/csrc/benes.cu",
-                            "lis_tpu/ops/shuffle.py:583"),
-        # lis_tpu has no Pallas kernel for these: the lines are the loops
-        # it leaves to XLA's fusion
-        "dia_spmv": ("lis_tpu_torch/csrc/dia.cu", "lis_tpu/matrix/dia.py:119"),
-        "dia_spmvh": ("lis_tpu_torch/csrc/dia.cu",
-                      "lis_tpu/matrix/dia.py:136"),
-        "krylov_dot": ("lis_tpu_torch/csrc/krylov.cu",
-                       "lis_tpu/solvers/cg.py:36"),
-        "cg_direction": ("lis_tpu_torch/csrc/krylov.cu",
-                         "lis_tpu/solvers/cg.py:38"),
-        "cg_update": ("lis_tpu_torch/csrc/krylov.cu",
-                      "lis_tpu/solvers/cg.py:43"),
-        "cg_finish": ("lis_tpu_torch/csrc/krylov.cu",
-                      "lis_tpu/solvers/cg.py:45"),
-    }
+    # ---- 9. preconditioned: H, I, K and the hpcg configuration -------------
+    stamp("phase 9")
+    phase_preconditioned(S)
+    report_results(S, smi_line, total)
+
+def phase_preconditioned(S):
+    """Phase 9: kernels H, I and K against their plain versions, then the
+    hpcg configuration and the level-scheduled path (see the docstring)."""
+    import torch
+    import lis_tpu_torch
+    from lis_tpu_torch.cli import hpcg
+    from lis_tpu_torch.core import vector as v
+    from lis_tpu_torch.matrix import dia as diam
+    from lis_tpu_torch.ops import trisolve as tsm
+    from lis_tpu_torch.precon import ads as pads, ilu as pilu, ssor as pssor
+    from lis_tpu_torch.runtime.options import SolverOptions
+    from lis_tpu_torch.utils import testmat
+    import scipy.sparse as sp
+
+    dev, check, randn, es = S.dev, S.check, S.randn, S.es
+    g96, g192, g64 = S.grids
+
+    def tag(msg):
+        print(f"phase precon: {msg}", flush=True)
+
+    # ---- (a) H, I and K on the 96^3 operator's triangles and plans --------
+    t0 = time.perf_counter()
+    P = testmat.poisson3d27_dia(g96, g96, g96)
+    n = P.nrows
+    L, U, d = pssor._split_dia(P)
+    if L.value.data_ptr() != P.value.data_ptr():
+        fail("the strict-lower triangle of a sorted DIA is not a view")
+    p_h, i_h, v_h = P.to_csr_arrays()
+    a_h = sp.csr_matrix((v_h, i_h, p_h), shape=(n, n))
+    low_h = sp.tril(a_h, -1).tocsr()
+    up_t = sp.triu(a_h, 1).T.tocsr()            # the CSR of Uᴴ (real)
+    for m in (low_h, up_t):
+        m.sort_indices()
+    tag(f"poisson3d27_dia 96^3: n={n}, triangles of {len(L.offsets)} and "
+        f"{len(U.offsets)} diagonals, host CSR of the triangles in "
+        f"{time.perf_counter() - t0:.2f} s")
+
+    def sparse_csr(m, dtype):
+        return torch.sparse_csr_tensor(
+            torch.from_numpy(m.indptr.astype(np.int64)).to(dev),
+            torch.from_numpy(m.indices.astype(np.int64)).to(dev),
+            torch.from_numpy(m.data).to(dev, dtype), size=m.shape,
+            check_invariants=False)
+
+    rtol = {torch.float64: 1e-13, torch.float32: 1e-5,
+            torch.complex128: 1e-13}
+    for dtype in (torch.float64, torch.float32, torch.complex128):
+        if dtype.is_complex:
+            # complex diagonals: a random phase on every entry
+            ph = torch.exp(1j * randn(L.value.numel() + U.value.numel(),
+                                      torch.float64))
+            Lt = dataclasses.replace(L, value=(L.value * ph[:L.value.numel()]
+                                               .view(L.value.shape)))
+            Ut = dataclasses.replace(U, value=(U.value * ph[L.value.numel():]
+                                               .view(U.value.shape)))
+        else:
+            Lt = dataclasses.replace(L, value=L.value.to(dtype))
+            Ut = dataclasses.replace(U, value=U.value.to(dtype))
+        r, y, w, rs = (randn(n, dtype) for _ in range(4))
+        eb = es(dtype)
+        nnd = Lt.value.shape[0]
+        nbytes = (nnd + 4) * n * eb        # T, rhs, y, w in; out
+        flops = (2 * nnd + 2) * n
+        lib_h = lib_i = None
+        if not dtype.is_complex:
+            Lcsr, Uhcsr = sparse_csr(low_h, dtype), sparse_csr(up_t, dtype)
+            lib_h, lib_i = (lambda: Lcsr @ y), (lambda: Uhcsr @ y)
+        for name, fn, trans, T, kw in (
+                ("dia_relax", diam.dia_relax, False, Lt, dict(w=w)),
+                ("dia_relaxh", diam.dia_relaxh, True, Ut, dict(s=w))):
+            def plain(T=T, kw=kw, trans=trans):
+                return diam._relax_plain(T.value, T.offsets, r, y,
+                                         kw.get("s"), kw.get("w"), None,
+                                         False, trans)
+            check(name, dtype, f"96^3 nnd={nnd}", fn(T, r, y, **kw), plain(),
+                  False, None if dtype.is_complex else (
+                      lambda T=T, kw=kw, fn=fn: fn(T, r, y, **kw), plain,
+                      lib_h if name == "dia_relax" else lib_i, nbytes, flops),
+                  rtol=rtol[dtype])
+            # the start vector in place and the rhs scale (the backward
+            # series of SSOR), and the start alone
+            check(name, dtype, f"96^3 start rs",
+                  fn(T, r, w=w, rs=rs, start=True),
+                  diam._relax_plain(T.value, T.offsets, r, None, None, w, rs,
+                                    True, trans), False, rtol=rtol[dtype])
+            check(name, dtype, f"96^3 no term", fn(T, r, w=w),
+                  r * w, dtype != torch.complex128, rtol=rtol[dtype])
+        del Lt, Ut
+    # K: the GS plan of the 96^3 operator, (D + L) x = b
+    t0 = time.perf_counter()
+    plan = tsm.make_plan(low_h.indptr, low_h.indices, low_h.data,
+                         1.0 / a_h.diagonal(), lower=True, device=dev)
+    torch.cuda.synchronize()
+    nlev, max_rows = plan.rows.shape
+    max_nnz = plan.cols.shape[2]
+    tag(f"level plan of (D + L) at 96^3: nlev {nlev}, max_rows {max_rows}, "
+        f"max_nnz {max_nnz}, built in {time.perf_counter() - t0:.2f} s")
+    full_h = (low_h + sp.diags(a_h.diagonal())).tocsr()
+    full_h.sort_indices()
+    for dtype in (torch.float64, torch.float32, torch.complex128):
+        if dtype.is_complex:
+            ph = torch.exp(1j * randn(plan.vals.numel(), torch.float64))
+            pl = tsm.TriSolvePlan(rows=plan.rows, cols=plan.cols,
+                                  vals=plan.vals * ph.view(plan.vals.shape),
+                                  dinv=plan.dinv.to(dtype), n=n)
+        else:
+            pl = plan.to(dtype=dtype)
+        b = randn(n, dtype)
+        eb = es(dtype)
+        # the bound counts the unpadded triangle (row and column indices,
+        # values, b, dinv and x once); the padded plan's bytes are a side
+        # figure
+        nbytes = n * 4 + low_h.nnz * (4 + eb) + 3 * n * eb
+        padded = (pl.rows.numel() * 4 + pl.cols.numel() * (4 + eb)
+                  + 3 * n * eb)
+        flops = 2 * low_h.nnz + 2 * n
+        lib = None
+        if not dtype.is_complex:
+            Acsr = sparse_csr(full_h, dtype)
+            bcol = b.view(-1, 1)
+            try:
+                xl = torch.triangular_solve(bcol, Acsr, upper=False).solution
+                err = ((xl.view(-1) - tsm.trisolve(pl, b)).abs().max()
+                       / xl.abs().max()).item()
+                tag(f"torch.triangular_solve (sparse CSR) {str(dtype)[6:]}: "
+                    f"against K {err:.2e}")
+                lib = lambda: torch.triangular_solve(bcol, Acsr, upper=False)
+            except (RuntimeError, NotImplementedError, TypeError,
+                    ValueError) as e:
+                tag(f"no library call for K at {str(dtype)[6:]}: "
+                    f"torch.triangular_solve refuses a sparse CSR "
+                    f"({str(e).splitlines()[0][:120]})")
+        check("trisolve", dtype, f"96^3 nlev={nlev}", tsm.trisolve(pl, b),
+              tsm._trisolve_plain(pl, b), False,
+              None if dtype.is_complex else (
+                  lambda: tsm.trisolve(pl, b),
+                  lambda: tsm._trisolve_plain(pl, b), lib, nbytes, flops),
+              rtol=rtol[dtype])
+        if dtype == torch.float64:
+            p_ms, _ = bound_ms(padded, flops, dtype)
+            k_ms = S.results["trisolve"]["ms"]
+            tag(f"K f64: {k_ms:.4f} ms = {1e3 * k_ms / nlev:.2f} us per "
+                f"level; bound of the unpadded triangle "
+                f"{S.results['trisolve']['bound_ms']:.4f} ms "
+                f"({100 * S.results['trisolve']['bound_ms'] / k_ms:.1f} %), "
+                f"of the padded plan {p_ms:.4f} ms")
+    del plan, pl, P, L, U, a_h, low_h, up_t, full_h
+    torch.cuda.empty_cache()
+
+    # ---- helpers for the solves -------------------------------------------
+    orig_solve = lis_tpu_torch.solve
+    seen = []
+
+    def recording(*a, **k):
+        res = orig_solve(*a, **k)
+        seen.append((a[0], k.get("options"), res))
+        return res
+
+    def run_hpcg(argv, device=None):
+        """hpcg.main(argv) with its printout captured; also the operator,
+        the options and the SolveResult of its solve."""
+        out = io.StringIO()
+        seen.clear()
+        lis_tpu_torch.solve = recording
+        try:
+            with contextlib.redirect_stdout(out):
+                rc = hpcg.main(argv, device=device)
+        finally:
+            lis_tpu_torch.solve = orig_solve
+        A, opts, res = seen[-1]
+        return rc, A, opts, res, out.getvalue()
+
+    def shares(tag_, res, wall, got, M, Aop):
+        """ms/iter of a solve beside one psolve's and one matvec's time on
+        the card (each enqueued by the host, as in the solve)."""
+        per = 1e3 * res.itime / max(res.iters, 1)
+        rv = randn(Aop.nrows, torch.float64)
+        ps = cuda_ms(lambda: M.psolve(rv), reps=10)
+        mv = cuda_ms(lambda: Aop.matvec(rv), reps=10)
+        tag(f"{tag_}: status {res.status} iters {res.iters} true_resid "
+            f"{res.true_resid:.3e} wall {wall:.3f} s (ptime {res.ptime:.3f} "
+            f"s, itime {res.itime:.4f} s, {per:.4f} ms/iter; psolve "
+            f"{ps:.4f} ms = {100 * ps / per:.1f} %, matvec {mv:.4f} ms = "
+            f"{100 * mv / per:.1f} %); launches {got}")
+        return per
+
+    def same_count(what, got_iters, want_iters):
+        if abs(got_iters - want_iters) > 1:
+            fail(f"{what}: cuda iters {got_iters} vs cpu {want_iters}")
+
+    def hpcg_precon(Aop, opts):
+        o = SolverOptions.from_string(opts)
+        return pads.wrap_additive_schwarz(Aop, pssor.create_ssor(Aop, o), o)
+
+    # ---- (b) the hpcg default at 96^3: CSR -> router -> DIA ---------------
+    S.stamp("phase 9b")
+    for run in ("first run", "second run"):
+        (rc, A, o, r, text), got, wall = S.counted(
+            lambda: run_hpcg([str(g96)] * 3))
+        route = S.route_of(A, o)
+        Dr = lis_tpu_torch.auto_storage(A)
+        it = r.iters
+        shares(f"hpcg 96^3 default (-i cg -p ssor -adds true), {run} (wall: "
+               f"CSR build, routing and solve)", r, wall, got,
+               hpcg_precon(Dr, o), Dr)
+        if rc != 0 or route != "dia" or r.status != 0 \
+                or not r.true_resid <= 1e-7:
+            fail(f"hpcg 96^3: exit {rc}, route {route}, status {r.status}, "
+                 f"true residual {r.true_resid:.3e}")
+        # every sweep launched H: 9 per psolve (SSOR: 2 + 2; ADDS: 2 SSOR
+        # and the residual), one psolve per iteration; nothing took K or I
+        S.need_exact(got, {"dia_relax": 9 * it, "dia_relaxh": 0,
+                           "trisolve": 0, "dia_spmv": it + 1,
+                           "krylov_dot": 2 * it, "cg_direction": it,
+                           "cg_update": it, "cg_finish": it}, "hpcg 96^3")
+    tag(f"hpcg 96^3 report: {text.splitlines()[:4]}")
+    t0 = time.perf_counter()
+    rc_c, _, _, r_c, _ = run_hpcg([str(g96)] * 3, device="cpu")
+    tag(f"hpcg 96^3 on the CPU, plain versions: exit {rc_c} iters "
+        f"{r_c.iters} in {time.perf_counter() - t0:.2f} s")
+    same_count("hpcg 96^3", it, r_c.iters)
+    err = (r.x.cpu() - r_c.x).abs().max().item()
+    if err > 1e-6 * r_c.x.abs().max().item():
+        fail(f"hpcg 96^3: x differs from the CPU plain path by {err:.3e}")
+    del A, Dr, r, r_c
+    torch.cuda.empty_cache()
+
+    # ---- (c) the hpcg default at 192^3 (built in DIA on the card) ---------
+    S.stamp("phase 9c")
+    (rc, A, o, r, text), got, wall = S.counted(
+        lambda: run_hpcg([str(g192)] * 3))
+    it = r.iters
+    shares("hpcg 192^3 default", r, wall, got, hpcg_precon(A, o), A)
+    if rc != 0 or A.format_name != "dia" or r.status != 0 \
+            or not r.true_resid <= 1e-7:
+        fail(f"hpcg 192^3: exit {rc}, format {A.format_name}, status "
+             f"{r.status}, true residual {r.true_resid:.3e}")
+    # b = A·ones, the initial and the true residual all on the DIA here
+    S.need_exact(got, {"dia_relax": 9 * it, "dia_spmv": it + 3,
+                       "trisolve": 0, "cg_update": it}, "hpcg 192^3")
+
+    def plain_hpcg(D, b, tol, maxiter):
+        """CG + SSOR + additive Schwarz over the plain versions of E, G
+        and H on D's device, in the order of the port's fused CG step:
+        the oracle of the 192^3 solve (x0 = 0, nrm2_r)."""
+        Lp, Up, dd = pssor._split_dia(D)
+        wd = pssor._inv_where(dd, 1.0)
+        dtil = torch.where(wd != 0, 1.0 / wd, torch.ones_like(wd))
+
+        def sweep(T, rhs, y=None, w=None, rs=None, start=False):
+            return diam._relax_plain(T.value, T.offsets, rhs, y, None, w, rs,
+                                     start, False)
+
+        def ssor(q):
+            y = sweep(Lp, q, w=wd, start=True)
+            y = sweep(Lp, q, y, w=wd)
+            z = sweep(Up, y, w=wd, rs=dtil, start=True)
+            return sweep(Up, y, z, w=wd, rs=dtil)
+
+        def psolve(q):
+            xq = ssor(q)
+            return xq + ssor(sweep(D, q, xq))
+
+        x, rr, p = torch.zeros_like(b), b.clone(), torch.zeros_like(b)
+        nrm0 = torch.sqrt(torch.dot(rr, rr))
+        ws = v.KrylovScalars(b, maxiter, tol, 1.0 / nrm0,
+                             torch.ones_like(nrm0), nrm1=False, running=-99,
+                             breakdown=2)
+        rh = torch.zeros(maxiter + 2, dtype=b.dtype, device=b.device)
+        while int(ws.live):
+            z = psolve(rr)
+            v._krylov_dot_plain(rr, z, None, ws, v.P_RHO)
+            v._cg_direction_plain(p, rr, z, None, ws)
+            q = diam._spmv_plain(D.value, D.offsets, p, D.ncols)
+            v._krylov_dot_plain(p, q, None, ws, v.P_PQ)
+            v._cg_update_plain(x, rr, p, q, None, ws, False)
+            v._cg_finish_plain(ws, rh)
+        return x, int(ws.it) - 1
+
+    b192 = diam._spmv_plain(A.value, A.offsets, torch.ones(
+        A.nrows, dtype=torch.float64, device=dev), A.ncols)
+    before = {name: f.launches for name, f in S.kernels.items()}
+    t0 = time.perf_counter()
+    xo, it_o = plain_hpcg(A, b192, 1e-12, 1000)
+    torch.cuda.synchronize()
+    t_o = time.perf_counter() - t0
+    if before != {name: f.launches for name, f in S.kernels.items()}:
+        fail("the plain-version oracle launched a kernel")
+    err = ((r.x - xo).abs().max() / xo.abs().max()).item()
+    tag(f"hpcg 192^3 oracle over the plain versions on the card: iters "
+        f"{it_o} in {t_o:.2f} s ({1e3 * t_o / max(it_o, 1):.3f} ms/iter); x "
+        f"differs by {err:.2e} relative")
+    if abs(it_o - it) > 1 or err > 1e-6:
+        fail(f"hpcg 192^3: iters {it} vs the oracle's {it_o}, x {err:.2e}")
+    del A, r, xo, b192
+    torch.cuda.empty_cache()
+
+    # ---- (d) CG + ILU(0) at 96^3, routed to DIA ---------------------------
+    S.stamp("phase 9d")
+    t0 = time.perf_counter()
+    A96 = testmat.poisson3d27(g96, g96, g96)
+    A96c = A96.to("cpu")
+    b96 = np.ones(A96.nrows)
+    tag(f"poisson3d27 96^3 CSR built in {time.perf_counter() - t0:.2f} s")
+    opts = "-i cg -p ilu"
+    r, got, wall = S.counted(lambda: lis_tpu_torch.solve(A96, b96,
+                                                         options=opts))
+    Dr = lis_tpu_torch.auto_storage(A96)
+    it = r.iters
+    t0 = time.perf_counter()
+    Milu = pilu.create_iluk(Dr, SolverOptions.from_string(opts))
+    torch.cuda.synchronize()
+    tag(f"ILU(0) of the 96^3 DIA (native ilu0_dia on a host copy, upload): "
+        f"{time.perf_counter() - t0:.3f} s; {type(Milu).__name__}")
+    shares("cg -p ilu 96^3", r, wall, got, Milu, Dr)
+    if S.route_of(A96, opts) != "dia" or r.status != 0 \
+            or not r.true_resid <= 1e-7:
+        fail(f"cg -p ilu 96^3: status {r.status} resid {r.true_resid:.3e}")
+    S.need_exact(got, {"dia_relax": 4 * it, "dia_spmv": it + 1,
+                       "trisolve": 0}, "cg -p ilu 96^3")
+    t0 = time.perf_counter()
+    r_c = lis_tpu_torch.solve(A96c, b96, options=opts)
+    tag(f"cg -p ilu 96^3 on the CPU: iters {r_c.iters} in "
+        f"{time.perf_counter() - t0:.2f} s")
+    same_count("cg -p ilu 96^3", it, r_c.iters)
+    del Milu
+
+    # ---- (e) the level-scheduled path, I, and GMRES -----------------------
+    S.stamp("phase 9e")
+    opts = "-i gmres -restart 30 -p ssor"
+    r, got, wall = S.counted(lambda: lis_tpu_torch.solve(A96, b96,
+                                                         options=opts))
+    shares("gmres -restart 30 -p ssor 96^3", r, wall, got,
+           pssor.create_ssor(Dr, SolverOptions.from_string(opts)), Dr)
+    if r.status != 0 or not r.true_resid <= 1e-7:
+        fail(f"gmres 96^3: status {r.status} resid {r.true_resid:.3e}")
+    S.need_exact(got, {"dia_relax": 4 * r.iters + 4 * -(-r.iters // 30),
+                       "trisolve": 0}, "gmres 96^3")
+    t0 = time.perf_counter()
+    r_c = lis_tpu_torch.solve(A96c, b96, options=opts)
+    tag(f"gmres 96^3 on the CPU: iters {r_c.iters} in "
+        f"{time.perf_counter() - t0:.2f} s")
+    same_count("gmres 96^3", r.iters, r_c.iters)
+
+    # a nonsymmetric banded matrix: the 96^3 stencil with its lower
+    # diagonals times 0.7, its upper ones times 1.3 and 28 on the diagonal
+    Dn = Dr.to(dev)
+    scale = torch.tensor([0.7 if o < 0 else (1.3 if o > 0 else 28 / 26)
+                          for o in Dn.offsets], dtype=torch.float64,
+                         device=dev)
+    Dn = dataclasses.replace(Dn, value=Dn.value * scale[:, None])
+    opts = "-i bicg -p ssor"
+    r, got, wall = S.counted(lambda: lis_tpu_torch.solve(Dn, b96,
+                                                         options=opts))
+    shares("bicg -p ssor, nonsymmetric 96^3 DIA", r, wall, got,
+           pssor.create_ssor(Dn, SolverOptions.from_string(opts)), Dn)
+    if r.status != 0 or not r.true_resid <= 1e-7:
+        fail(f"bicg -p ssor: status {r.status} resid {r.true_resid:.3e}")
+    S.need_launches(got, ("dia_relax", "dia_relaxh"), 4 * r.iters,
+                    "bicg -p ssor")
+    r_c = lis_tpu_torch.solve(Dn.to("cpu"), b96, options=opts)
+    same_count("bicg -p ssor", r.iters, r_c.iters)
+    del A96, A96c, Dr, Dn
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    A64 = testmat.poisson3d27(g64, g64, g64)
+    A64c = A64.to("cpu")
+    b64 = np.ones(A64.nrows)
+    tag(f"poisson3d27 64^3 CSR built in {time.perf_counter() - t0:.2f} s")
+    for opts, want in (("-i cg -p ssor -auto_storage false", 2),
+                       ("-i sor -tol 1e-8", 1)):
+        r, got, wall = S.counted(lambda: lis_tpu_torch.solve(A64, b64,
+                                                             options=opts))
+        route = S.route_of(A64, opts)
+        it = r.iters
+        if "ssor" in opts:
+            t0 = time.perf_counter()
+            M = pssor.create_ssor(A64, SolverOptions.from_string(opts))
+            torch.cuda.synchronize()
+            tag(f"level-scheduled SSOR of the 64^3 CSR: four plans in "
+                f"{time.perf_counter() - t0:.2f} s, nlev {M.fwd.nlev} / "
+                f"{M.bwd.nlev}, max_rows {M.fwd.rows.shape[1]}")
+            shares(f"{opts} 64^3 (route {route})", r, wall, got, M, A64)
+        else:
+            tag(f"{opts} 64^3 (route {route}): status {r.status} iters {it} "
+                f"true_resid {r.true_resid:.3e} wall {wall:.3f} s "
+                f"({1e3 * r.itime / max(it, 1):.4f} ms/iter); launches {got}")
+        if r.status != 0 or not r.true_resid <= (1e-7 if "cg" in opts
+                                                 else 1e-6):
+            fail(f"{opts} 64^3: status {r.status} resid {r.true_resid:.3e}")
+        S.need_exact(got, {"trisolve": want * it, "dia_relax": 0},
+                     f"{opts} 64^3")
+        t0 = time.perf_counter()
+        r_c = lis_tpu_torch.solve(A64c, b64, options=opts)
+        tag(f"{opts} 64^3 on the CPU: iters {r_c.iters} in "
+            f"{time.perf_counter() - t0:.2f} s")
+        same_count(f"{opts} 64^3", it, r_c.iters)
+    del A64, A64c
+    torch.cuda.empty_cache()
+
+
+# the repo file of each kernel's source, and the lis_tpu code it replaces: a
+# Pallas kernel (#1, A-D) or, for E-K, the loop that lis_tpu leaves to XLA
+WHERE = {
+    "lane_shuffle": ("lis_tpu_torch/csrc/lane_shuffle.cu",
+                     "lis_tpu/ops/shuffle.py:350"),
+    "cst_front": ("lis_tpu_torch/csrc/cst_front.cu",
+                  "lis_tpu/matrix/cst.py:259"),
+    "benes_pass": ("lis_tpu_torch/csrc/benes.cu",
+                   "lis_tpu/ops/shuffle.py:419"),
+    "benes_pass_rowsum": ("lis_tpu_torch/csrc/benes.cu",
+                          "lis_tpu/ops/shuffle.py:509"),
+    "benes_small_run": ("lis_tpu_torch/csrc/benes.cu",
+                        "lis_tpu/ops/shuffle.py:583"),
+    "dia_spmv": ("lis_tpu_torch/csrc/dia.cu", "lis_tpu/matrix/dia.py:119"),
+    "dia_spmvh": ("lis_tpu_torch/csrc/dia.cu", "lis_tpu/matrix/dia.py:136"),
+    "krylov_dot": ("lis_tpu_torch/csrc/krylov.cu",
+                   "lis_tpu/solvers/cg.py:36"),
+    "cg_direction": ("lis_tpu_torch/csrc/krylov.cu",
+                     "lis_tpu/solvers/cg.py:38"),
+    "cg_update": ("lis_tpu_torch/csrc/krylov.cu", "lis_tpu/solvers/cg.py:43"),
+    "cg_finish": ("lis_tpu_torch/csrc/krylov.cu", "lis_tpu/solvers/cg.py:45"),
+    "dia_relax": ("lis_tpu_torch/csrc/dia_relax.cu",
+                  "lis_tpu/precon/ssor.py:60"),
+    "dia_relaxh": ("lis_tpu_torch/csrc/dia_relax.cu",
+                   "lis_tpu/precon/ssor.py:75"),
+    "trisolve": ("lis_tpu_torch/csrc/trisolve.cu",
+                 "lis_tpu/ops/trisolve.py:92"),
+}
+
+
+def report_results(S, smi_line, total):
+    """The kernels line (the f64 records), the card line and the last
+    line."""
+    import torch
     print(f"phase results: launches over the counted solves {total}",
           flush=True)
     rows = []
-    for name, (src, tpu) in where.items():
+    for name, (src, tpu) in WHERE.items():
         rows.append({"name": name, "route": "cuda", "source": src,
                      "replaces": tpu, "launches": total[name],
-                     **results[name]})
+                     **S.results[name]})
     print(json.dumps({"kernels": rows}))
     print(smi_line)
     print(json.dumps({"ok": True, "device": {

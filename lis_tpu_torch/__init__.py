@@ -10,11 +10,12 @@ matrix lives.  Every Pallas kernel on a ported path is a hand-written
 CUDA kernel for Hopper (``csrc/``), built with nvcc at first use.
 
 Ported so far: ``solve()`` with cg, cr, bicg, bicr, bicgstab, bicrstab,
-cocg and cocr, Jacobi or no preconditioner, ``-f double`` and ``-f
-single``, over CSR, DIA, HDI, CSS and CST, routed by ``auto_storage`` as
-in lis_tpu (banded → DIA) unless ``-storage`` says otherwise; ASCII
-MatrixMarket I/O; the ``lsolve`` and ``hpcg`` command lines
-(``python -m lis_tpu_torch.cli.lsolve``).
+cocg, cocr, gmres, fgmres, jacobi, gs and sor; the preconditioners none,
+jacobi, ssor and ilu (ILU(k)), with additive Schwarz around them
+(``-adds true``); ``-f double`` and ``-f single``; over CSR, DIA, HDI, CSS
+and CST, routed by ``auto_storage`` as in lis_tpu (banded → DIA) unless
+``-storage`` says otherwise; ASCII MatrixMarket I/O; the ``lsolve`` and
+``hpcg`` command lines (``python -m lis_tpu_torch.cli.hpcg 96 96 96``).
 """
 
 from lis_tpu_torch.config import (

@@ -2,8 +2,10 @@
 
 Port of ``lis_tpu/_native/__init__.py`` for the functions the port uses so
 far: the three of the Benes shuffle routing (``euler_split``,
-``greedy_color``, ``pass_idx``) and the MatrixMarket coordinate parser
-(``mm_parse_coords``).  There is one copy of the C++ source: ``lis_tpu/_native/lis_native.cpp``
+``greedy_color``, ``pass_idx``), the MatrixMarket coordinate parser
+(``mm_parse_coords``), the level schedule of a triangular solve
+(``level_schedule``) and the ILU factorisations ``iluk_factor`` (CSR,
+level of fill k) and ``ilu0_dia`` (ILU(0) on the DIA diagonals).  There is one copy of the C++ source: ``lis_tpu/_native/lis_native.cpp``
 is read by path (never imported — importing ``lis_tpu`` pulls in JAX) and
 compiled with g++ into ``build/lis_tpu_torch/`` at the repository root on
 first use, and again whenever the source is newer than the library.
@@ -72,6 +74,19 @@ def _load():
     lib.pass_idx.argtypes = [ctypes.c_int64, i64p, i64p, ctypes.c_int64,
                              ctypes.c_int64, ctypes.c_int64, ctypes.c_int,
                              i32p]
+    f64p = ctypes.POINTER(ctypes.c_double)
+    lib.level_schedule.restype = ctypes.c_int32
+    lib.level_schedule.argtypes = [ctypes.c_int32, i32p, i32p,
+                                   ctypes.c_int32, i32p]
+    lib.iluk_factor.restype = ctypes.c_int
+    lib.iluk_factor.argtypes = [
+        ctypes.c_int32, i32p, i32p, f64p, ctypes.c_int32,
+        ctypes.POINTER(i32p), ctypes.POINTER(i32p), ctypes.POINTER(f64p),
+        ctypes.POINTER(ctypes.c_int64)]
+    lib.ilu0_dia.restype = ctypes.c_int
+    lib.ilu0_dia.argtypes = [ctypes.c_int64, ctypes.c_int32, i64p, f64p]
+    lib.lis_native_free.restype = None
+    lib.lis_native_free.argtypes = [ctypes.c_void_p]
     lib.mm_parse_coords.restype = ctypes.c_int64
     lib.mm_parse_coords.argtypes = [ctypes.c_char_p, ctypes.c_int64,
                                     ctypes.c_int64, ctypes.c_int32, i32p,
@@ -149,3 +164,63 @@ def mm_parse_coords(path: str, skip_lines: int, nnz: int, pattern: bool):
     if got != nnz:
         return None
     return rows, cols, vals
+
+
+def level_schedule(ptr, index, lower: bool):
+    """Levels of a strictly triangular CSR (lower: rows ascending, else
+    descending): (nlev, lev) with lev[i] = 1 + max(lev[deps of i]), or None
+    without the native library."""
+    lib = _load()
+    if lib is None:
+        return None
+    n = len(ptr) - 1
+    ptr = np.ascontiguousarray(ptr, dtype=np.int32)
+    index = np.ascontiguousarray(index, dtype=np.int32)
+    lev = np.zeros(n, dtype=np.int32)
+    nlev = lib.level_schedule(n, _i32p(ptr), _i32p(index),
+                              1 if lower else 0, _i32p(lev))
+    return int(nlev), lev
+
+
+def iluk_factor(ptr, index, value, fill: int):
+    """ILU(k) of a real CSR: combined-LU CSR arrays (L strictly lower with
+    the factors, U upper with its diagonal), or None without the native
+    library or on failure."""
+    lib = _load()
+    if lib is None:
+        return None
+    n = len(ptr) - 1
+    ptr = np.ascontiguousarray(ptr, dtype=np.int32)
+    index = np.ascontiguousarray(index, dtype=np.int32)
+    value = np.ascontiguousarray(value, dtype=np.float64)
+    i32p = ctypes.POINTER(ctypes.c_int32)
+    f64p = ctypes.POINTER(ctypes.c_double)
+    optr, oidx, oval = i32p(), i32p(), f64p()
+    nnz = ctypes.c_int64()
+    rc = lib.iluk_factor(n, _i32p(ptr), _i32p(index),
+                         value.ctypes.data_as(f64p), int(fill),
+                         ctypes.byref(optr), ctypes.byref(oidx),
+                         ctypes.byref(oval), ctypes.byref(nnz))
+    if rc != 0:
+        return None
+    out_ptr = np.ctypeslib.as_array(optr, shape=(n + 1,)).copy()
+    out_idx = np.ctypeslib.as_array(oidx, shape=(nnz.value,)).copy()
+    out_val = np.ctypeslib.as_array(oval, shape=(nnz.value,)).copy()
+    for p in (optr, oidx, oval):
+        lib.lis_native_free(p)
+    return out_ptr, out_idx, out_val
+
+
+def ilu0_dia(offsets, diags):
+    """ILU(0) on DIA storage: a float64 copy of the (nnd, n) diagonals,
+    factored in place into combined LU (the L factors at negative offsets,
+    U with its diagonal at the others).  None without the native library
+    or without a main diagonal."""
+    lib = _load()
+    if lib is None:
+        return None
+    d = np.array(diags, dtype=np.float64, order="C", copy=True)
+    offs = np.ascontiguousarray(offsets, dtype=np.int64)
+    rc = lib.ilu0_dia(d.shape[1], d.shape[0], _i64p(offs),
+                      d.ctypes.data_as(ctypes.POINTER(ctypes.c_double)))
+    return d if rc == 0 else None

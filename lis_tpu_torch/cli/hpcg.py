@@ -3,9 +3,10 @@
 
 Reference: test/test3b.c (installed as hpcg_kernel, doc/man/man1/
 hpcg_kernel.1): CG + SSOR(+additive Schwarz) on the 27-point 3-D Poisson
-operator with diag 26 / off-diag -1 (test3b.c:127,172).  SSOR and additive
-Schwarz are not ported yet (ROADMAP.md queue 1 items 5 and 9), so the
-default options raise; ``-p jacobi`` and ``-p none`` run.
+operator with diag 26 / off-diag -1 (test3b.c:127,172).  The default
+options are ``-i cg -p ssor -adds true``: the operator is routed to DIA,
+SSOR runs as relaxed sweeps of its triangles (kernel H) inside additive
+Schwarz, and CG takes the fused step.
 
 Usage: python -m lis_tpu_torch.cli.hpcg l m n [options]
 

@@ -14,7 +14,10 @@ lis_tpu has no Pallas kernel here: XLA fuses the shift-multiply-add chain
 into one loop.  PyTorch does not, so on a CUDA tensor ``matvec`` is
 kernel E (``dia_spmv``) and the square ``matvech`` is kernel F
 (``dia_spmvh``), hand-written in ``csrc/dia.cu``; on a CPU tensor each
-takes its plain version below, two torch calls per diagonal.
+takes its plain version below, two torch calls per diagonal.  The relaxed
+triangular sweeps of SSOR, ILU(0) and GS/SOR on a DIA operator are
+kernels H and I (``dia_relax``, ``dia_relaxh``, ``csrc/dia_relax.cu``),
+one sweep over a triangle's diagonals per launch.
 """
 
 from __future__ import annotations
@@ -143,6 +146,121 @@ def dia_spmvh(value: torch.Tensor, off: torch.Tensor, offsets,
 dia_spmvh.launches = 0
 
 
+def _relax_plain(value, offsets, rhs, y, s, w, rs, start, trans):
+    """The sweep of kernels H and I in plain torch, in the kernels' order
+    of operations: base = rhs·rs; the term vector t = base·w (start),
+    y·s (y given) or none; out = (base − T·t)·w, T·t by the plain E or F."""
+    base = rhs if rs is None else rhs * rs
+    if start:
+        t = base if w is None else base * w
+    else:
+        t = None if y is None else (y if s is None else y * s)
+    out = base
+    if t is not None:
+        n = value.shape[1]
+        out = base - (_spmvh_plain if trans else _spmv_plain)(
+            value, offsets, t, n)
+    return out if w is None else out * w
+
+
+def _relax_operands(value, rhs, y, scales):
+    """(value, rhs, y, scales) as kernels H and I take them: the vectors in
+    the result type, the scales in value's type, value in the result type
+    or its real type (cast only where a pair is not one of the kernels')."""
+    dt = torch.promote_types(value.dtype, rhs.dtype)
+    if y is not None:
+        dt = torch.promote_types(dt, y.dtype)
+    if dt not in _cuda.DTYPE_CODE:
+        raise ValueError(f"dia sweeps: dtype {dt} not supported")
+    vdt = value.dtype if value.dtype in (dt, _REAL_OF.get(dt)) else dt
+    if value.dtype != vdt:
+        value = value.to(vdt)
+
+    def vec(t, want):
+        if t is None:
+            return None
+        if t.is_complex() and not want.is_complex:
+            raise ValueError("dia sweeps: a complex scale with real "
+                             "diagonals")
+        if t.dtype != want:
+            t = t.to(want)
+        if t.is_conj():
+            t = t.resolve_conj()
+        return t.contiguous()
+    return (value, vec(rhs, dt), vec(y, dt),
+            tuple(vec(t, vdt) for t in scales))
+
+
+def _relax(fn, trans, T, rhs, y, s, w, rs, start):
+    n = T.nrows
+    if T.ncols != n:
+        raise ValueError("dia sweeps: T must be square")
+    if start and y is not None:
+        raise ValueError("dia sweeps: start computes its own term vector; "
+                         "give no y")
+    for name, t in (("rhs", rhs), ("y", y), ("s", s), ("w", w), ("rs", rs)):
+        if t is not None and t.shape != (n,):
+            raise ValueError(f"dia sweeps: {name} has shape "
+                             f"{tuple(t.shape)}, expected ({n},)")
+    if not rhs.is_cuda:
+        if rhs.device.type != "cpu":
+            raise ValueError(f"no kernel or plain path for {rhs.device}")
+        return _relax_plain(T.value, T.offsets, rhs, y, s, w, rs, start,
+                            trans)
+    value, rhs, y, (s, w, rs) = _relax_operands(T.value, rhs, y, (s, w, rs))
+    nnd = value.shape[0]
+    if nnd > MAX_NND:
+        raise ValueError(f"dia sweeps: {nnd} diagonals, at most {MAX_NND}")
+    _cuda.check(value, "value", numel=nnd * n, aligned=False)
+    _cuda.check(T.off, "off", torch.int64, nnd, aligned=False)
+    for name, t in (("rhs", rhs), ("y", y), ("s", s), ("w", w), ("rs", rs)):
+        if t is not None:
+            _cuda.check(t, name, aligned=False)
+    out = torch.empty(n, dtype=rhs.dtype, device=rhs.device)
+    ymode = 2 if start else (0 if y is None else 1)
+    _cuda.launch("lis_dia_relax", _cuda.DTYPE_CODE[value.dtype],
+                 _cuda.DTYPE_CODE[rhs.dtype], int(trans), ymode,
+                 value.data_ptr(), T.off.data_ptr(), rhs.data_ptr(),
+                 _ptr(rs), _ptr(y), _ptr(s), _ptr(w), out.data_ptr(), n, nnd,
+                 _cuda.stream())
+    fn.launches += 1
+    return out
+
+
+def _ptr(t) -> int:
+    return 0 if t is None else t.data_ptr()
+
+
+def dia_relax(T: "DIAMatrix", rhs: torch.Tensor, y=None, s=None, w=None,
+              rs=None, start: bool = False) -> torch.Tensor:
+    """One relaxed triangular sweep over the diagonals of the square DIA
+    ``T``: ``out = (rhs·rs − T·t)·w`` with the term vector ``t = s·y``
+    (``y`` given), ``t = (rhs·rs)·w`` (``start``: the sweep from the start
+    vector, with no launch for the start) or no term (``y`` None: the start
+    itself).  ``s``, ``w`` and ``rs`` are optional, absent meaning 1.
+
+    Kernel H.  lis_tpu leaves these sweeps to XLA (precon/ssor.py:60-72,
+    precon/ilu.py:319-326, solvers/stationary.py:61-65).  Bound on the
+    H100: bytes, T read once and each vector once."""
+    return _relax(dia_relax, False, T, rhs, y, s, w, rs, start)
+
+
+dia_relax.launches = 0
+
+
+def dia_relaxh(T: "DIAMatrix", rhs: torch.Tensor, y=None, s=None, w=None,
+               rs=None, start: bool = False) -> torch.Tensor:
+    """The conjugate-transposed sweep: ``out = (rhs·rs − Tᴴ·t)·w``, with
+    ``t`` as in ``dia_relax``.
+
+    Kernel I.  lis_tpu leaves these sweeps to XLA (precon/ssor.py:75-84,
+    precon/ilu.py:328-337).  Bound on the H100: bytes, as for H."""
+    return _relax(dia_relaxh, True, T, rhs, y, s, w, rs, start)
+
+
+dia_relaxh.launches = 0
+
+
 @matrix_format("dia")
 class DIAMatrix(SparseMatrix):
     value: torch.Tensor       # (nnd, n): value[k, i] = A[i, i + offsets[k]]
@@ -218,6 +336,27 @@ class DIAMatrix(SparseMatrix):
         ptr = np.zeros(n + 1, dtype=np.int64)
         np.add.at(ptr, r + 1, 1)
         return np.cumsum(ptr).astype(np.int32), c.astype(np.int32), v
+
+    def diagonals(self, ks, nnz: int | None = None) -> "DIAMatrix":
+        """The square DIA of diagonals ``ks`` (indices into ``offsets``, in
+        that order): a view of ``value`` when they are a contiguous range,
+        as the strict triangles of sorted offsets are; else a copy.  ``nnz``
+        None counts the nonzeros with one device-to-host read."""
+        ks = list(ks)
+        n = self.nrows
+        if not ks:
+            value = self.value.new_zeros((0, n))
+            off = self.off.new_zeros((0,))
+        elif ks == list(range(ks[0], ks[-1] + 1)):
+            value, off = self.value[ks[0]:ks[-1] + 1], self.off[ks[0]:ks[-1] + 1]
+        else:
+            idx = torch.tensor(ks, dtype=torch.int64, device=self.off.device)
+            value, off = self.value.index_select(0, idx), self.off[idx]
+        if nnz is None:
+            nnz = int(torch.count_nonzero(value)) if ks else 0
+        return DIAMatrix(value=value, off=off, nrows=n, ncols=self.ncols,
+                         nnz=int(nnz),
+                         offsets=tuple(self.offsets[k] for k in ks))
 
     def get_diagonal(self):
         if 0 in self.offsets:

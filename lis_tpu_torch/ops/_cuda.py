@@ -49,6 +49,10 @@ _SIGNATURES = {
     "lis_cg_update": [_INT, _P, _P, _P, _P, _P, _I64, _P, _P, _P, _INT, _P,
                       _P, _INT, _P],
     "lis_cg_finish": [_INT, _P, _INT, _P, _P, _P, _INT, _P],
+    "lis_dia_relax": [_INT, _INT, _INT, _INT, _P, _P, _P, _P, _P, _P, _P, _P,
+                      _I64, _I64, _P],
+    "lis_trisolve_levels": [_INT, _INT, _P, _P, _P, _P, _P, _P, _I64, _I64,
+                            _I64, _I64, _P, _P],
 }
 
 _lib = None
@@ -150,8 +154,8 @@ def stream() -> int:
     return torch.cuda.current_stream().cuda_stream
 
 
-# the complex codes serve lane_shuffle, which moves whole elements, and the
-# DIA products
+# the complex codes serve lane_shuffle, which moves whole elements, the DIA
+# products and sweeps, and the triangular solve
 DTYPE_CODE = {torch.float32: 0, torch.float64: 1, torch.complex64: 2,
               torch.complex128: 3}
 

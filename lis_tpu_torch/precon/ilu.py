@@ -1,0 +1,285 @@
+"""ILU(k) preconditioner.
+
+Port of the ILU(k) part of ``lis_tpu/precon/ilu.py`` (reference
+lis_precon_iluk.c: symbolic factorisation :263, numeric :638, psolve :880).
+Option: -ilu_fill k (default 0).  The factorisation runs on the host at
+creation, in the native library where it applies (``iluk_factor`` for a
+real CSR, ``ilu0_dia`` for ILU(0) of a real DIA) and otherwise in the
+Python IKJ loop; the factors go to the operator's device.
+
+- ``ILUDiaPrecon``: ILU(0) of a real DIA operator.  ILU(0) keeps the
+  pattern, so L and U are DIA with the operator's offsets; each triangular
+  solve is ``-ssor_sweeps`` Jacobi-relaxed sweeps (the reference's OpenMP
+  solve relaxes dependencies the same way, lis_matrix_csr.c:1577-1605), one
+  launch of kernel H (I for psolveh) each.
+- ``ILUPrecon``: every other case (ILU(k) of CSR, HDI, CSS, CST; a complex
+  DIA; fill > 0): exact level-scheduled solves (``ops/trisolve.py``,
+  kernel K), with the conjugate-transposed factors for psolveh.
+
+ILUT, ILUC and the block ILU of BSR/VBR operators are not ported yet
+(ROADMAP.md queue 1 item 9).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import scipy.sparse as sp
+import torch
+
+from lis_tpu_torch.matrix.base import TensorFields, static
+from lis_tpu_torch.matrix.dia import DIAMatrix
+from lis_tpu_torch.ops.trisolve import (TriSolvePlan, make_plan,
+                                        relaxed_sweeps, trisolve)
+from lis_tpu_torch.precon.base import register_precon
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class ILUPrecon(TensorFields):
+    lower: TriSolvePlan       # unit L (dinv = 1)
+    upper: TriSolvePlan       # U (dinv = 1/U_ii)
+    lower_t: TriSolvePlan     # Uᴴ (for the Mᴴ solve)
+    upper_t: TriSolvePlan     # Lᴴ (unit)
+
+    def psolve(self, r):
+        return trisolve(self.upper, trisolve(self.lower, r))
+
+    def psolveh(self, r):
+        return trisolve(self.upper_t, trisolve(self.lower_t, r))
+
+
+def _factor_iluk(ptr, index, value, n, fill):
+    """Level-of-fill ILU(k), IKJ variant (Saad Alg. 10.5; the reference's
+    lis_symbolic_fact_csr + lis_numerical_fact_csr combined): one dict per
+    factored row, column -> value."""
+    rows_val = []
+    rows_lev = []
+    for i in range(n):
+        work = {}
+        lev = {}
+        for p in range(ptr[i], ptr[i + 1]):
+            work[int(index[p])] = value[p]
+            lev[int(index[p])] = 0
+        if i not in work:
+            work[i] = 0.0
+            lev[i] = 0
+        for k in sorted(work):
+            if k >= i:
+                break
+            lk = lev[k]
+            if lk > fill:
+                continue
+            ukk = rows_val[k].get(k, 0.0)
+            if ukk == 0.0:
+                continue
+            factor = work[k] / ukk
+            work[k] = factor
+            for j, vkj in rows_val[k].items():
+                if j <= k:
+                    continue
+                new_lev = lk + rows_lev[k][j] + 1
+                if j in work:
+                    work[j] -= factor * vkj
+                    lev[j] = min(lev[j], new_lev)
+                elif new_lev <= fill:
+                    work[j] = -factor * vkj
+                    lev[j] = new_lev
+        # drop entries above the fill level (original entries are level 0)
+        keep = {j: v for j, v in work.items() if lev[j] <= fill}
+        if keep.get(i, 0.0) == 0.0:
+            keep[i] = 1.0
+        rows_val.append(keep)
+        rows_lev.append(lev)
+    return rows_val
+
+
+def _plans_from_rows(rows_val, n, shape, device):
+    li, lv, lp = [], [], [0]
+    ui, uv, up = [], [], [0]
+    dtype = (np.complex128
+             if any(isinstance(v, complex) or np.iscomplexobj(v)
+                    for row in rows_val for v in row.values())
+             else np.float64)
+    udiag = np.zeros(n, dtype=dtype)
+    for i in range(n):
+        for j in sorted(rows_val[i]):
+            v = rows_val[i][j]
+            if j < i:
+                li.append(j)
+                lv.append(v)
+            else:
+                ui.append(j)
+                uv.append(v)
+                if j == i:
+                    udiag[i] = v
+        lp.append(len(li))
+        up.append(len(ui))
+    return _plans_from_lu(np.asarray(lp, dtype=np.int32),
+                          np.asarray(li, dtype=np.int32),
+                          np.asarray(lv, dtype=dtype),
+                          np.asarray(up, dtype=np.int32),
+                          np.asarray(ui, dtype=np.int32),
+                          np.asarray(uv, dtype=dtype), udiag, n, shape,
+                          device)
+
+
+def _plans_from_combined_csr(ptr, index, value, n, shape, device):
+    """Split a combined LU CSR (the factors of L below the diagonal, U with
+    its diagonal) into the plan arrays: the native factorisation's
+    output."""
+    rows = np.repeat(np.arange(n, dtype=np.int64), np.diff(ptr))
+    lower = index < rows
+    udiag = np.zeros(n, dtype=value.dtype)
+    isd = index == rows
+    np.add.at(udiag, rows[isd], value[isd])
+
+    def side(mask):
+        r, c, v = rows[mask], index[mask], value[mask]
+        p = np.zeros(n + 1, dtype=np.int32)
+        np.add.at(p, r + 1, 1)
+        return np.cumsum(p).astype(np.int32), c.astype(np.int32), v
+
+    lp, li, lv = side(lower)
+    up, ui, uv = side(~lower)
+    return _plans_from_lu(lp, li, lv, up, ui, uv, udiag, n, shape, device)
+
+
+def _plans_from_lu(lp, li, lv, up, ui, uv, udiag, n, shape, device):
+    with np.errstate(divide="ignore"):
+        udinv = np.where(udiag != 0, 1.0 / np.where(udiag != 0, udiag, 1),
+                         1.0)
+
+    # the strictly upper part of U for the solve (its diagonal is dinv)
+    urows = np.repeat(np.arange(n), np.diff(up))
+    strict = ui != urows
+    sui, suv = ui[strict], uv[strict]
+    sup = np.zeros(n + 1, dtype=np.int32)
+    np.add.at(sup, urows[strict] + 1, 1)
+    sup = np.cumsum(sup).astype(np.int32)
+
+    lower = make_plan(lp, li, lv, np.ones(n), lower=True, device=device)
+    upper = make_plan(sup, sui, suv, udinv, lower=False, device=device)
+
+    # Mᴴx = b: Uᴴ (lower, diagonal multiplier 1/conj(u_ii)), then Lᴴ (unit)
+    Ut = sp.csr_matrix((suv, sui, sup), shape=shape).T.tocsr()
+    Lt = sp.csr_matrix((lv, li, lp), shape=shape).T.tocsr()
+    Ut.sort_indices()
+    Lt.sort_indices()
+    lower_t = make_plan(Ut.indptr, Ut.indices, np.conj(Ut.data), np.conj(udinv),
+                        lower=True, device=device)
+    upper_t = make_plan(Lt.indptr, Lt.indices, np.conj(Lt.data), np.ones(n),
+                        lower=False, device=device)
+    return ILUPrecon(lower=lower, upper=upper, lower_t=lower_t,
+                     upper_t=upper_t)
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class ILUDiaPrecon(TensorFields):
+    """ILU(0) factors of a DIA operator, applied by relaxed sweeps of the
+    factors' diagonals (lis_tpu ``ILUDiaPrecon``, ilu.py:305-337), in
+    lis_tpu's order of operations:
+
+        psolve:  y = r, nsweeps × y = r − L·y; z = y·udinv, nsweeps ×
+                 z = (y − U·z)·udinv
+        psolveh: w = r·ū, nsweeps × w = (r − Uᴴw)·ū (ū = conj(udinv));
+                 z = w, nsweeps × z = w − Lᴴz
+    """
+    L: DIAMatrix              # strict-lower factor (unit diagonal implied)
+    U: DIAMatrix              # strict-upper factor
+    udinv: torch.Tensor       # 1 / diag(U)
+    nsweeps: int = static()
+
+    def psolve(self, r):
+        ns, ud = self.nsweeps, self.udinv
+        if ns == 0:
+            return r * ud
+        y = relaxed_sweeps(self.L, r, ns)
+        return relaxed_sweeps(self.U, y, ns, w=ud)
+
+    def psolveh(self, r):
+        ns = self.nsweeps
+        ud = self.udinv.conj().resolve_conj() if self.udinv.is_complex() \
+            else self.udinv
+        if ns == 0:
+            return r * ud
+        w = relaxed_sweeps(self.U, r, ns, w=ud, trans=True)
+        return relaxed_sweeps(self.L, w, ns, trans=True)
+
+
+def _dia_from_csr(ptr, index, value, n, device):
+    """Combined factor CSR arrays → (strict-lower DIA, strict-upper DIA,
+    the diagonal as a host array)."""
+    rows = np.repeat(np.arange(n, dtype=np.int64), np.diff(ptr))
+    offs_all = index.astype(np.int64) - rows
+    diag = np.zeros(n, dtype=value.dtype)
+    isd = offs_all == 0
+    np.add.at(diag, rows[isd], value[isd])
+
+    def side(mask):
+        offs = np.unique(offs_all[mask])
+        v = np.zeros((len(offs), n), dtype=value.dtype)
+        if mask.any():
+            pos = np.searchsorted(offs, offs_all[mask])
+            np.add.at(v, (pos, rows[mask]), value[mask])
+        return DIAMatrix.from_diagonals(v, offs, (n, n),
+                                        nnz=int(np.count_nonzero(v)),
+                                        device=device)
+    return side(offs_all < 0), side(offs_all > 0), diag
+
+
+def _udinv(d):
+    with np.errstate(divide="ignore"):
+        return np.where(d != 0, 1.0 / np.where(d != 0, d, 1), 1.0)
+
+
+@register_precon("ilu")
+def create_iluk(A, opts):
+    fill = getattr(opts, "ilu_fill", 0)
+    ns = int(getattr(opts, "ssor_sweeps", 2))
+    dev = A.device
+    if getattr(A, "format_name", None) == "dia" and fill == 0 \
+            and not A.value.is_complex():
+        from lis_tpu_torch import _native
+        n = A.nrows
+        # the native factor works on a float64 host copy of the diagonals
+        lu = _native.ilu0_dia(np.asarray(A.offsets), A.value_2d)
+        if lu is not None:
+            # the factors go up in the operator's dtype
+            in_dt = torch.empty(0, dtype=A.value.dtype).numpy().dtype
+            lu = lu.astype(in_dt, copy=False)
+            nnz_row = np.count_nonzero(lu, axis=1)
+            F = DIAMatrix.from_diagonals(lu, A.offsets, A.shape,
+                                         nnz=int(nnz_row.sum()), device=dev)
+            offs = A.offsets
+
+            def side(sel):
+                ks = [k for k, o in enumerate(offs) if sel(o)]
+                return F.diagonals(ks, nnz=int(sum(nnz_row[k] for k in ks)))
+            d = lu[offs.index(0)]
+            return ILUDiaPrecon(L=side(lambda o: o < 0),
+                                U=side(lambda o: o > 0),
+                                udinv=torch.from_numpy(_udinv(d)).to(dev),
+                                nsweeps=ns)
+        # no native library: the generic factorisation, applied on DIA
+        ptr, index, value = A.to_csr_arrays()
+        rows_val = _factor_iluk(ptr, index, value, n, 0)
+        fi, fv, fp = [], [], [0]
+        for i in range(n):
+            for j in sorted(rows_val[i]):
+                fi.append(j)
+                fv.append(rows_val[i][j])
+            fp.append(len(fi))
+        L, U, d = _dia_from_csr(np.asarray(fp, np.int32),
+                                np.asarray(fi, np.int32), np.asarray(fv), n,
+                                dev)
+        return ILUDiaPrecon(L=L, U=U, udinv=torch.from_numpy(_udinv(d)).to(dev),
+                            nsweeps=ns)
+    ptr, index, value = A.to_csr_arrays()
+    if not np.iscomplexobj(value):
+        from lis_tpu_torch import _native
+        out = _native.iluk_factor(ptr, index, value, fill)
+        if out is not None:
+            return _plans_from_combined_csr(*out, A.nrows, A.shape, dev)
+    rows = _factor_iluk(ptr, index, value, A.nrows, fill)
+    return _plans_from_rows(rows, A.nrows, A.shape, dev)

@@ -38,6 +38,8 @@ class SolverSpec(NamedTuple):
     tol_w: float = 1.0
     maxiter: int = 1000
     conv_cond: int = 0
+    restart: int = 40         # -restart (GMRES/FGMRES)
+    omega: float = 1.9        # -omega (SOR)
     # -print out/all: print each iteration's residual from the host loop
     # (reference lis_solver_cg.c:217-221 prints live)
     live_print: bool = False
@@ -57,11 +59,24 @@ class SolverOutput(NamedTuple):
 
 
 SOLVER_FNS: dict[str, Any] = {}
+SOLVER_PREPARE: dict[str, Any] = {}
 
 
 def register_solver(name: str):
     def deco(fn):
         SOLVER_FNS[name] = fn
+        return fn
+    return deco
+
+
+def register_prepare(name: str):
+    """Host-side setup hook ``prepare(A, spec) -> aux`` that the driver
+    runs before the loop (the analogue of the reference's lis_matrix_split
+    setup): the level-scheduled plans or relaxed sweeps of GS and SOR.  The
+    solver receives the result as ``aux``; under ``-f single`` it is cast
+    with the operator."""
+    def deco(fn):
+        SOLVER_PREPARE[name] = fn
         return fn
     return deco
 

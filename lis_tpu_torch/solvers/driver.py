@@ -11,14 +11,19 @@ The solve runs on the device that holds the matrix's tensors; ``b`` and
 ``x0`` are moved there.  A matrix built by the port's constructors lives
 on the default device, the card, unless its caller asked for another.
 With no ``-storage`` the operator is routed by ``auto_storage`` (banded →
-DIA, quasi-banded → HDI, locality-free → CST or CSS), as in lis_tpu.
-What lis_tpu does and this package does not yet (the BES format, the
-other solvers, preconditioners and precision modes) raises
+DIA, quasi-banded → HDI, locality-free → CST or CSS), as in lis_tpu.  The
+preconditioner (none, jacobi, ssor, ilu; additive Schwarz around it with
+``-adds true``) is built on the scaled and routed operator, as lis_tpu
+builds it, and a solver's prepare hook (GS, SOR) runs after it; ``ptime``
+times both (lis_tpu times the preconditioner alone).  What
+lis_tpu does and this package does not yet (the BES format, the other
+solvers, preconditioners and precision modes) raises
 ``NotImplementedError`` naming the ROADMAP.md item that ports it.
 """
 
 from __future__ import annotations
 
+import functools
 import sys
 from dataclasses import dataclass
 
@@ -34,13 +39,18 @@ from lis_tpu_torch.matrix.cst import CSTMatrix
 from lis_tpu_torch.matrix.hybrid import HybridMatrix
 from lis_tpu_torch.precon.base import (PRECON_REGISTRY, NonePrecon,
                                        create_precon)
+from lis_tpu_torch.precon import ilu as _pilu            # noqa: F401
 from lis_tpu_torch.precon import jacobi as _pjac          # noqa: F401
+from lis_tpu_torch.precon import ssor as _pssor           # noqa: F401
+from lis_tpu_torch.precon.ads import wrap_additive_schwarz
 from lis_tpu_torch.runtime.options import SolverOptions, STORAGE_NAMES
-from lis_tpu_torch.solvers.base import SOLVER_FNS, SolverSpec
+from lis_tpu_torch.solvers.base import SOLVER_FNS, SOLVER_PREPARE, SolverSpec
 from lis_tpu_torch.solvers import bicg as _bicg           # noqa: F401
 from lis_tpu_torch.solvers import bicgstab as _bicgstab   # noqa: F401
 from lis_tpu_torch.solvers import cg as _cg               # noqa: F401
 from lis_tpu_torch.solvers import cocg as _cocg           # noqa: F401
+from lis_tpu_torch.solvers import gmres as _gmres         # noqa: F401
+from lis_tpu_torch.solvers import stationary as _stat     # noqa: F401
 from lis_tpu_torch.utils.trace import traced
 
 _STORAGE_BY_ID = {i: n for n, i in STORAGE_NAMES.items()}
@@ -132,7 +142,7 @@ class SolveResult:
     rhistory: np.ndarray      # relative residuals, [0] = initial
     time: float               # total solve time (s)
     itime: float              # iteration time (s)
-    ptime: float              # preconditioner-creation time (s)
+    ptime: float              # preconditioner and solver set-up time (s)
     options: SolverOptions
 
     def __repr__(self):
@@ -154,7 +164,7 @@ def _check_ported(opts: SolverOptions) -> None:
                           "queue 1 item 6 (remaining Krylov solvers)")
     if opts.precon not in ("none",) + tuple(PRECON_REGISTRY):
         raise _not_ported(f"preconditioner {opts.precon!r}",
-                          "queue 1 items 5 and 9 (preconditioners)")
+                          "queue 1 item 9 (remaining preconditioners)")
     if opts.precision not in ("double", "single"):
         raise _not_ported(f"-f {opts.precision}",
                           "queue 1 item 7 (precision modes)")
@@ -162,13 +172,12 @@ def _check_ported(opts: SolverOptions) -> None:
         raise _not_ported("-reorder rcm", "queue 1 item 8")
     if opts.use_at:
         raise _not_ported("-use_at", "queue 1 item 8")
-    if opts.adds:
-        raise _not_ported("-adds (additive Schwarz)", "queue 1 item 9")
 
 
 def _make_spec(opts: SolverOptions) -> SolverSpec:
     return SolverSpec(solver=opts.solver, tol=opts.tol, tol_w=opts.tol_w,
                       maxiter=opts.maxiter, conv_cond=opts.conv_cond,
+                      restart=opts.restart, omega=opts.omega,
                       live_print=bool(opts.print_ & 2))
 
 
@@ -279,7 +288,11 @@ def solve(A: SparseMatrix, b, x0=None, options=None, M=None,
     # ---- storage conversion (-storage N) ----------------------------------
     A = _convert_storage(A, opts)
 
-    # ---- preconditioner ---------------------------------------------------
+    # ---- preconditioner, on the scaled and routed operator, and the
+    # solver's own set-up (the GS/SOR lower solve): both count in ptime ----
+    spec = _make_spec(opts)
+    fn = SOLVER_FNS[opts.solver]
+    prepare = SOLVER_PREPARE.get(opts.solver)
     t_p = C.wtime()
     if M is not None:
         pass                       # caller-supplied preconditioner object
@@ -287,23 +300,28 @@ def solve(A: SparseMatrix, b, x0=None, options=None, M=None,
         M = NonePrecon()
     else:
         M = create_precon(opts.precon, A, opts)
+        if opts.adds:
+            M = wrap_additive_schwarz(A, M, opts)
+    aux = prepare(A, spec) if prepare else None
     _sync(device)
     ptime = C.wtime() - t_p
 
     # ---- execute -----------------------------------------------------------
-    spec = _make_spec(opts)
-    fn = SOLVER_FNS[opts.solver]
     t_i = C.wtime()
     if opts.precision == "single":
         # like lis_tpu's _cast32: real float64 tensors drop to float32,
         # complex ones stay as they are (TensorFields.to casts only real
         # floating-point leaves)
         f32 = torch.float32
-        out = fn(A.to(dtype=f32), _cast32(b), _cast32(x0), M.to(dtype=f32),
-                 spec)
-        out = out._replace(x=out.x.to(b.dtype))
+        A, b32, x0, M = A.to(dtype=f32), _cast32(b), _cast32(x0), \
+            M.to(dtype=f32)
+        aux = None if aux is None else aux.to(dtype=f32)
     else:
-        out = fn(A, b, x0, M, spec)
+        b32 = b
+    if prepare:
+        fn = functools.partial(fn, aux=aux)
+    out = fn(A, b32, x0, M, spec)
+    out = out._replace(x=out.x.to(b.dtype))
     x = out.x
     _sync(device)
     itime = C.wtime() - t_i

@@ -511,6 +511,195 @@ def test_dia_and_fused_wrappers_take_the_plain_version_on_the_cpu():
     assert [f.launches for f in fns] == before
 
 
+# ---- kernels H and I (relaxed sweeps) and K (level-scheduled solve) ---------
+
+_SWEEPS = [dict(y=True, s=True, w=True, rs=True), dict(y=True),
+           dict(start=True, w=True, rs=True), dict(start=True), dict(),
+           dict(w=True), dict(y=True, s=True)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("vdtype,xdtype", [(d, d) for d in ALL_DTYPES] + [
+    (torch.float32, torch.complex64), (torch.float64, torch.complex128)],
+    ids=lambda d: str(d)[6:])
+@pytest.mark.parametrize("n,offsets", [
+    (1, (0,)), (33, (-32, -1, 1, 32)), (1001, (-1000, -501, -3, 7, 600)),
+    (70001, tuple(range(-13, 0))), (4099, tuple(range(-256, 256)))],
+    ids=lambda v: str(v) if isinstance(v, int) else f"nnd{len(v)}")
+def test_dia_relax_and_relaxh(cuda, vdtype, xdtype, n, offsets):
+    """H and I against their plain versions for every term mode, with and
+    without each scale: odd n, offsets beyond n/2, 512 diagonals; real data
+    bit for bit (every product and sum rounded on its own, in offset
+    order)."""
+    from lis_tpu_torch.matrix import dia
+    rng = np.random.default_rng(n)
+    T = _banded(rng, n, offsets, vdtype)
+    Tc = T.to(cuda)
+    vecs = {k: _randn(rng, n, xdtype) for k in ("rhs", "y")}
+    vecs.update({k: _randn(rng, n, vdtype) for k in ("s", "w", "rs")})
+    for fn in (dia.dia_relax, dia.dia_relaxh):
+        for case in _SWEEPS:
+            kw = {k: vecs[k] for k in ("y", "s", "w", "rs") if case.get(k)}
+            kw["start"] = case.get("start", False)
+            want = fn(T, vecs["rhs"], **kw)
+            before = fn.launches
+            got = fn(Tc, vecs["rhs"].to(cuda),
+                     **{k: (t.to(cuda) if isinstance(t, torch.Tensor) else t)
+                        for k, t in kw.items()})
+            assert fn.launches == before + 1
+            assert got.dtype == want.dtype and got.is_cuda
+            if not xdtype.is_complex:
+                assert torch.equal(got.cpu(), want)
+            tol = _tol(xdtype)
+            torch.testing.assert_close(got.cpu(), want, rtol=tol,
+                                       atol=tol * float(want.abs().max()))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32,
+                                   torch.complex128, torch.complex64],
+                         ids=lambda d: str(d)[6:])
+@pytest.mark.parametrize("lower", [True, False])
+@pytest.mark.parametrize("shape", [(17, 19, 23), (31, 1, 1), (40, 40, 9)],
+                         ids=lambda s: "x".join(map(str, s)))
+def test_trisolve_levels(cuda, dtype, lower, shape):
+    """K against its plain version and scipy: plans of poisson3d27 on odd
+    grids (one level per row on a line; levels wider than one block), every
+    dtype, a real plan with a complex right-hand side."""
+    import scipy.sparse as sp
+    from scipy.sparse.linalg import spsolve_triangular
+    from lis_tpu_torch.ops import trisolve as ts
+    from lis_tpu_torch.utils.testmat import poisson3d27
+    p, i, val = poisson3d27(*shape, device="cpu").to_csr_arrays()
+    n = len(p) - 1
+    a = sp.csr_matrix((val, i, p), shape=(n, n))
+    tri = (sp.tril(a, -1) if lower else sp.triu(a, 1)).tocsr()
+    tri.sort_indices()
+    rng = np.random.default_rng(n)
+    vals = tri.data * rng.uniform(0.5, 1.5, tri.nnz)
+    d = a.diagonal() + (1j if dtype.is_complex else 0)
+    plan = ts.make_plan(tri.indptr, tri.indices, vals.astype(
+        d.dtype), 1.0 / d, lower=lower, device="cpu")
+    plan = ts.TriSolvePlan(rows=plan.rows, cols=plan.cols,
+                           vals=plan.vals.to(dtype), dinv=plan.dinv.to(dtype),
+                           n=n)
+    b = _randn(rng, n, dtype)
+    want = ts.trisolve(plan, b)
+    before = ts.trisolve.launches
+    got = ts.trisolve(plan.to(cuda), b.to(cuda))
+    assert ts.trisolve.launches == before + 1
+    tol = _tol(dtype)
+    torch.testing.assert_close(got.cpu(), want, rtol=tol,
+                               atol=tol * float(want.abs().max()))
+    if dtype == torch.float64:
+        full = (sp.csr_matrix((vals, tri.indices, tri.indptr), shape=(n, n))
+                + sp.diags(d)).tocsr()
+        ref = spsolve_triangular(full, b.numpy(), lower=lower)
+        np.testing.assert_allclose(got.cpu().numpy(), ref, rtol=1e-12,
+                                   atol=1e-12 * np.abs(ref).max())
+        bz = _randn(rng, n, torch.complex128)
+        torch.testing.assert_close(ts.trisolve(plan.to(cuda), bz.to(cuda))
+                                   .cpu(), ts.trisolve(plan, bz),
+                                   rtol=1e-13, atol=1e-13)
+
+
+@pytest.mark.gpu
+def test_trisolve_levels_on_two_streams(cuda):
+    """K solves enqueued on two streams at once: each launch has its own
+    barrier counter, so every solve agrees with the plain version."""
+    import scipy.sparse as sp
+    from lis_tpu_torch.ops import trisolve as ts
+    from lis_tpu_torch.utils.testmat import poisson3d27
+    p, i, val = poisson3d27(40, 40, 9, device="cpu").to_csr_arrays()
+    n = len(p) - 1
+    a = sp.csr_matrix((val, i, p), shape=(n, n))
+    tri = sp.tril(a, -1).tocsr()
+    tri.sort_indices()
+    plan = ts.make_plan(tri.indptr, tri.indices, tri.data,
+                        1.0 / a.diagonal(), device="cpu")
+    rng = np.random.default_rng(2)
+    bs = [_randn(rng, n, torch.float64) for _ in range(2)]
+    want = [ts.trisolve(plan, b) for b in bs]
+    pc, bc = plan.to(cuda), [b.to(cuda) for b in bs]
+    streams = [torch.cuda.Stream() for _ in bs]
+    for s in streams:
+        s.wait_stream(torch.cuda.current_stream())
+    got = [[], []]
+    for _ in range(8):
+        for k, s in enumerate(streams):
+            with torch.cuda.stream(s):
+                got[k].append(ts.trisolve(pc, bc[k]))
+    torch.cuda.synchronize()
+    for k in range(2):
+        for g in got[k]:
+            torch.testing.assert_close(g.cpu(), want[k], rtol=1e-12,
+                                       atol=1e-12 * float(want[k].abs().max()))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("opts,kernel", [
+    ("-i cg -p ssor -adds true", "dia_relax"), ("-i cg -p ilu", "dia_relax"),
+    ("-i bicg -p ssor", "dia_relaxh"), ("-i gs", "dia_relax"),
+    ("-i cg -p ssor -auto_storage false", "trisolve"),
+    ("-i sor -tol 1e-8", "trisolve"),
+    ("-i gmres -restart 30 -p ssor", "dia_relax")])
+def test_preconditioned_solve_on_the_card(cuda, opts, kernel):
+    """The hpcg slice on the card: SSOR, ILU(0), ADDS, GS/SOR and GMRES
+    through kernels H, I and K, with the CPU plain path's iterations ±1."""
+    from lis_tpu_torch.matrix import dia
+    from lis_tpu_torch.ops import trisolve as ts
+    from lis_tpu_torch.utils.testmat import poisson3d27
+    A = poisson3d27(17, 19, 23)
+    A_cpu = poisson3d27(17, 19, 23, device="cpu")
+    b = np.random.default_rng(9).standard_normal(A.nrows)
+    want = lis_tpu_torch.solve(A_cpu, b, options=opts)
+    fn = {"dia_relax": dia.dia_relax, "dia_relaxh": dia.dia_relaxh,
+          "trisolve": ts.trisolve}[kernel]
+    before = fn.launches
+    got = lis_tpu_torch.solve(A, b, options=opts)
+    assert got.x.is_cuda and got.status == want.status == 0
+    assert abs(got.iters - want.iters) <= 1
+    assert fn.launches - before >= got.iters
+    torch.testing.assert_close(got.x.cpu(), want.x, rtol=1e-7, atol=1e-9)
+
+
+@pytest.mark.gpu
+def test_hpcg_default_on_the_card(cuda, capsys):
+    """python -m lis_tpu_torch.cli.hpcg with its defaults runs on the card
+    through kernel H, with the CPU run's iteration count ±1."""
+    from lis_tpu_torch.cli import hpcg
+    from lis_tpu_torch.matrix import dia
+    from lis_tpu_torch.ops import trisolve as ts
+    assert hpcg.main(["24", "20", "18"], device="cpu") == 0
+    cpu = capsys.readouterr().out
+    before = (dia.dia_relax.launches, ts.trisolve.launches)
+    assert hpcg.main(["24", "20", "18"]) == 0
+    card = capsys.readouterr().out
+
+    def iters(out):
+        return int(next(ln for ln in out.splitlines()
+                        if "number of iterations" in ln).split("=")[1])
+    assert abs(iters(card) - iters(cpu)) <= 1
+    assert dia.dia_relax.launches - before[0] >= 9 * iters(card)
+    assert ts.trisolve.launches == before[1]
+
+
+def test_sweep_and_trisolve_wrappers_take_the_plain_version_on_the_cpu():
+    """CPU tensors count no launch of H, I or K."""
+    from lis_tpu_torch.matrix import dia
+    from lis_tpu_torch.ops import trisolve as ts
+    fns = (dia.dia_relax, dia.dia_relaxh, ts.trisolve)
+    before = [f.launches for f in fns]
+    T = _banded(np.random.default_rng(0), 50, (-3, -1), torch.float64)
+    x = torch.ones(50, dtype=torch.float64)
+    dia.dia_relax(T, x, x, w=x)
+    dia.dia_relaxh(T, x, start=True)
+    plan = ts.make_plan(np.arange(51, dtype=np.int32) * 0, np.zeros(0, int),
+                        np.zeros(0), np.ones(50), device="cpu")
+    torch.testing.assert_close(ts.trisolve(plan, x), x)
+    assert [f.launches for f in fns] == before
+
+
 # ---- the router's other branches on the card: CSS, HDI, CSR ----------------
 
 def _windowed(n=1 << 15, w=2000):

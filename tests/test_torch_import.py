@@ -15,6 +15,10 @@ import lis_tpu_torch.matrix.dia, lis_tpu_torch.matrix.hybrid
 import lis_tpu_torch.matrix.css, lis_tpu_torch.utils.testmat
 import lis_tpu_torch.io.mm, lis_tpu_torch._native
 import lis_tpu_torch.cli.lsolve, lis_tpu_torch.cli.hpcg
+import lis_tpu_torch.matrix.split, lis_tpu_torch.ops.trisolve
+import lis_tpu_torch.precon.ssor, lis_tpu_torch.precon.ilu
+import lis_tpu_torch.precon.ads
+import lis_tpu_torch.solvers.stationary, lis_tpu_torch.solvers.gmres
 import lis_tpu_torch.ops._cuda as cu
 bad = sorted(m for m in sys.modules
              if m.split('.')[0] in ('jax', 'jaxlib', 'lis_tpu'))

@@ -431,7 +431,16 @@ def test_hpcg_matches_lis_tpu(capsys, precon):
     assert "number of iterations" in tt[3]
 
 
-def test_hpcg_default_options_are_not_ported():
-    with pytest.raises(NotImplementedError, match="ssor"):
-        thpcg.main(["4", "4", "4"], device="cpu")
+def test_hpcg_default_options_match_lis_tpu(capsys):
+    """hpcg with its defaults (-i cg -p ssor -adds true): exit 0 and the
+    same report head as lis_tpu's; too few arguments still give usage."""
+    args = ["8", "8", "8"]
+    rcj = jhpcg.main(args)
+    outj = capsys.readouterr().out
+    rct = thpcg.main(args, device="cpu")
+    outt = capsys.readouterr().out
+    assert rct == rcj == 0
+    tj, tt = _solve_lines(outj), _solve_lines(outt)
+    assert tt[:4] == tj[:4]            # size, solver, precon + adds, iters
+    assert tt[2].endswith("ssor + adds")
     assert thpcg.main(["4"], device="cpu") == 1
