@@ -83,8 +83,14 @@ Phases (one or more lines each):
    also checked bit for bit in their start and no-term forms), timed
    beside the plain version, the bound and the library call (torch.sparse
    CSR @ y for the sweep's product; torch.triangular_solve on a sparse CSR
-   for K, where this torch takes it); (b) ``cli.hpcg.main(["96", "96",
-   "96"])`` with its defaults (-i cg -p ssor -adds true): exit 0, route
+   for K, where this torch takes it), K's time also per level; then K
+   against its plain version on the upper plan of the same operator
+   (plain and with the ``rs`` fold), with NaN and Inf in b (same NaN/Inf
+   pattern), on the ILU(1) factors of poisson3d27 32³ (rows longer than
+   16 entries) in f64 and f32, on a bidiagonal of 20,000 rows (one level
+   per row) and on a diagonal plan (one level); (b)
+   ``cli.hpcg.main(["96", "96", "96"])`` with its defaults (-i cg -p ssor
+   -adds true): exit 0, route
    dia, SUCCESS, true residual <= 1e-7, H launched exactly 9 times per
    iteration and E, G as the fused step calls them (so no sweep took a
    plain version), and the CPU run's iteration count ±1; (c) the same at
@@ -96,9 +102,11 @@ Phases (one or more lines each):
    -restart 30 -p ssor on the same operator, bicg -p ssor on a
    nonsymmetric 96³ DIA (I launched), and on poisson3d27 64³ CSR the
    level-scheduled -i cg -p ssor -auto_storage false (K twice per
-   iteration) and -i sor -tol 1e-8 (DIA, ω = 1.9: the level plan, K once
-   per iteration), each held to the CPU's count ±1.  Every solve prints
-   its ms/iter beside one psolve's and one matvec's time on the card.
+   iteration, and one psolve dispatching no torch operation but K's
+   allocations, so nothing runs between its two launches) and -i sor -tol
+   1e-8 (DIA, ω = 1.9: the level plan, K once per iteration), held to the
+   CPU's count exactly (the others ±1).  Every solve prints its ms/iter
+   beside one psolve's and one matvec's time on the card.
 
 Phases 1 to 9 all run at the sizes named here.  The matrices of phases 3
 to 6 are built with no ``device`` argument, so they live on the default
@@ -391,7 +399,8 @@ def main() -> None:
         dev=dev, kernels=kernels, check=check, counted=counted, stamp=stamp,
         need_launches=need_launches,
         need_exact=need_exact, route_of=route_of, randn=randn, es=es,
-        results=results, results32=results32, grids=(96, 192, 64))
+        results=results, results32=results32, grids=(96, 192, 64),
+        seed=args.seed)
     R = M // 128
     for dtype in (torch.float64, torch.float32, torch.complex128,
                   torch.complex64):
@@ -1219,6 +1228,7 @@ def phase_preconditioned(S):
     from lis_tpu_torch.runtime.options import SolverOptions
     from lis_tpu_torch.utils import testmat
     import scipy.sparse as sp
+    from torch.utils._python_dispatch import TorchDispatchMode
 
     dev, check, randn, es = S.dev, S.check, S.randn, S.es
     g96, g192, g64 = S.grids
@@ -1296,31 +1306,39 @@ def phase_preconditioned(S):
         del Lt, Ut
     # K: the GS plan of the 96^3 operator, (D + L) x = b
     t0 = time.perf_counter()
-    plan = tsm.make_plan(low_h.indptr, low_h.indices, low_h.data,
-                         1.0 / a_h.diagonal(), lower=True, device=dev)
+    dg = a_h.diagonal()
+    plan = tsm.make_plan(low_h.indptr, low_h.indices, low_h.data, 1.0 / dg,
+                         lower=True, device=dev)
     torch.cuda.synchronize()
     nlev, max_rows = plan.rows.shape
     max_nnz = plan.cols.shape[2]
+
+    def plan_mb(pl, names):
+        return sum(getattr(pl, f).numel() * getattr(pl, f).element_size()
+                   for f in names) / 2**20
+    padded_mb = plan_mb(plan, ("rows", "cols", "vals", "dinv"))
+    sliced_mb = plan_mb(plan, ("srows", "sbase", "scols", "svals", "sdinv"))
     tag(f"level plan of (D + L) at 96^3: nlev {nlev}, max_rows {max_rows}, "
-        f"max_nnz {max_nnz}, built in {time.perf_counter() - t0:.2f} s")
-    full_h = (low_h + sp.diags(a_h.diagonal())).tocsr()
+        f"max_nnz {max_nnz}, {plan.nunits} units of 32, built in "
+        f"{time.perf_counter() - t0:.2f} s; device bytes f64: padded "
+        f"{padded_mb:.1f} MiB + sliced {sliced_mb:.1f} MiB")
+    rng_k = np.random.default_rng(S.seed)
+    full_h = (low_h + sp.diags(dg)).tocsr()
     full_h.sort_indices()
     for dtype in (torch.float64, torch.float32, torch.complex128):
         if dtype.is_complex:
-            ph = torch.exp(1j * randn(plan.vals.numel(), torch.float64))
-            pl = tsm.TriSolvePlan(rows=plan.rows, cols=plan.cols,
-                                  vals=plan.vals * ph.view(plan.vals.shape),
-                                  dinv=plan.dinv.to(dtype), n=n)
+            # complex values: a random phase on every entry
+            ph = np.exp(1j * rng_k.standard_normal(low_h.nnz))
+            pl = tsm.make_plan(low_h.indptr, low_h.indices, low_h.data * ph,
+                               (1.0 / dg).astype(np.complex128), lower=True,
+                               device=dev)
         else:
             pl = plan.to(dtype=dtype)
         b = randn(n, dtype)
         eb = es(dtype)
         # the bound counts the unpadded triangle (row and column indices,
-        # values, b, dinv and x once); the padded plan's bytes are a side
-        # figure
+        # values, b, dinv and x once)
         nbytes = n * 4 + low_h.nnz * (4 + eb) + 3 * n * eb
-        padded = (pl.rows.numel() * 4 + pl.cols.numel() * (4 + eb)
-                  + 3 * n * eb)
         flops = 2 * low_h.nnz + 2 * n
         lib = None
         if not dtype.is_complex:
@@ -1344,15 +1362,72 @@ def phase_preconditioned(S):
                   lambda: tsm.trisolve(pl, b),
                   lambda: tsm._trisolve_plain(pl, b), lib, nbytes, flops),
               rtol=rtol[dtype])
-        if dtype == torch.float64:
-            p_ms, _ = bound_ms(padded, flops, dtype)
-            k_ms = S.results["trisolve"]["ms"]
-            tag(f"K f64: {k_ms:.4f} ms = {1e3 * k_ms / nlev:.2f} us per "
-                f"level; bound of the unpadded triangle "
-                f"{S.results['trisolve']['bound_ms']:.4f} ms "
-                f"({100 * S.results['trisolve']['bound_ms'] / k_ms:.1f} %), "
-                f"of the padded plan {p_ms:.4f} ms")
-    del plan, pl, P, L, U, a_h, low_h, up_t, full_h
+        if not dtype.is_complex:
+            rec = (S.results if dtype == torch.float64 else S.results32)[
+                "trisolve"]
+            tag(f"K {str(dtype)[6:]}: {rec['ms']:.4f} ms = "
+                f"{1e3 * rec['ms'] / nlev:.3f} us per level over nlev "
+                f"{nlev}; bound of the unpadded triangle "
+                f"{rec['bound_ms']:.4f} ms ({100 * rec['bound_ms'] / rec['ms']:.2f} "
+                f"% of it)")
+    del plan, pl, Acsr, full_h
+
+    def k_case(what, pl, b, rs=None, dtype=torch.float64):
+        """K against its plain version on the card, NaN and Inf where the
+        plain version has them and rtol on the finite entries."""
+        got = tsm.trisolve(pl, b, rs)
+        want = tsm._trisolve_plain(pl, b, rs)
+        torch.cuda.synchronize()
+        if not (torch.equal(got.isnan(), want.isnan())
+                and torch.equal(got.isinf(), want.isinf())
+                and torch.equal(got[got.isinf()], want[want.isinf()])):
+            fail(f"trisolve {what}: NaN/Inf differ from the plain version")
+        fin = torch.isfinite(want)
+        check("trisolve", dtype, what, got[fin], want[fin], False,
+              rtol=rtol[dtype])
+        return got
+
+    # the upper plan of the 96^3 operator (SSOR's backward solve), plain
+    # and with the rs fold; NaN and Inf in b on the lower plan
+    up_h = sp.triu(a_h, 1).tocsr()
+    up_h.sort_indices()
+    plan_u = tsm.make_plan(up_h.indptr, up_h.indices, up_h.data, 1.0 / dg,
+                           lower=False, device=dev)
+    b = randn(n, torch.float64)
+    k_case(f"96^3 upper nlev={plan_u.nlev}", plan_u, b)
+    k_case("96^3 upper, rs fold", plan_u, b, randn(n, torch.float64))
+    del plan_u, up_h
+    plan = tsm.make_plan(low_h.indptr, low_h.indices, low_h.data, 1.0 / dg,
+                         lower=True, device=dev)
+    bad = b.clone()
+    bad[torch.tensor([7, n // 3, n - 5], device=dev)] = float("nan")
+    bad[torch.tensor([11, n // 2], device=dev)] = float("inf")
+    bad[n - 100] = -float("inf")
+    got = k_case("96^3 b with NaN and Inf", plan, bad)
+    if not torch.isfinite(got[:7]).all():
+        fail("trisolve: rows before the first NaN are not finite")
+    del plan, bad
+    # the ILU(1) factors of poisson3d27 32^3: rows longer than 16 entries
+    A32 = testmat.poisson3d27(32, 32, 32)
+    M1 = pilu.create_iluk(A32, SolverOptions.from_string("-ilu_fill 1"))
+    r32 = randn(A32.nrows, torch.float64)
+    for side in ("lower", "upper"):
+        pl = getattr(M1, side)
+        wmax = int(((pl.sbase[1:] - pl.sbase[:-1]) // 32).max())
+        for dtype in (torch.float64, torch.float32):
+            k_case(f"ILU(1) 32^3 {side} nlev={pl.nlev} longest row {wmax}",
+                   pl.to(dtype=dtype), r32.to(dtype), dtype=dtype)
+    del A32, M1
+    # one level per row (a bidiagonal), and one level (no triangle)
+    nb = 20000
+    hb = sp.diags(np.linspace(-0.9, 0.9, nb - 1), -1, shape=(nb, nb)).tocsr()
+    pl = tsm.make_plan(hb.indptr, hb.indices, hb.data, np.full(nb, 0.5),
+                       device=dev)
+    k_case(f"bidiagonal nlev={pl.nlev}", pl, randn(nb, torch.float64))
+    pl = tsm.make_plan(np.zeros(n + 1, np.int32), np.zeros(0, np.int32),
+                       np.zeros(0), 1.0 / dg, device=dev)
+    k_case(f"diagonal nlev={pl.nlev}", pl, b)
+    del pl, P, L, U, a_h, low_h, up_t
     torch.cuda.empty_cache()
 
     # ---- helpers for the solves -------------------------------------------
@@ -1590,6 +1665,29 @@ def phase_preconditioned(S):
                 f"{time.perf_counter() - t0:.2f} s, nlev {M.fwd.nlev} / "
                 f"{M.bwd.nlev}, max_rows {M.fwd.rows.shape[1]}")
             shares(f"{opts} 64^3 (route {route})", r, wall, got, M, A64)
+            # one psolve is two launches of K and nothing between them:
+            # every torch operation it dispatches that makes a tensor is
+            # an allocation (K's flags and x), the y·(D/ω) multiply being
+            # folded into K
+            ops = []
+
+            class Record(TorchDispatchMode):
+                def __torch_dispatch__(self, func, types, args=(),
+                                       kwargs=None):
+                    out = func(*args, **(kwargs or {}))
+                    ops.append((str(func), isinstance(out, torch.Tensor)))
+                    return out
+            rv = randn(A64.nrows, torch.float64)
+            k0 = tsm.trisolve.launches
+            with Record():
+                M.psolve(rv)
+            other = [o for o, made in ops
+                     if made and not o.startswith("aten.empty")]
+            if tsm.trisolve.launches - k0 != 2 or other:
+                fail(f"SSOR psolve: {tsm.trisolve.launches - k0} launches "
+                     f"of K and the operations {other} besides them")
+            tag(f"SSOR psolve dispatches {[o for o, _ in ops]}: two "
+                f"launches of K, no elementwise launch between them")
         else:
             tag(f"{opts} 64^3 (route {route}): status {r.status} iters {it} "
                 f"true_resid {r.true_resid:.3e} wall {wall:.3f} s "
@@ -1603,7 +1701,8 @@ def phase_preconditioned(S):
         r_c = lis_tpu_torch.solve(A64c, b64, options=opts)
         tag(f"{opts} 64^3 on the CPU: iters {r_c.iters} in "
             f"{time.perf_counter() - t0:.2f} s")
-        same_count(f"{opts} 64^3", it, r_c.iters)
+        if it != r_c.iters:
+            fail(f"{opts} 64^3: cuda iters {it} vs cpu {r_c.iters}")
     del A64, A64c
     torch.cuda.empty_cache()
 

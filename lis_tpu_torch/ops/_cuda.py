@@ -51,8 +51,8 @@ _SIGNATURES = {
     "lis_cg_finish": [_INT, _P, _INT, _P, _P, _P, _INT, _P],
     "lis_dia_relax": [_INT, _INT, _INT, _INT, _P, _P, _P, _P, _P, _P, _P, _P,
                       _I64, _I64, _P],
-    "lis_trisolve_levels": [_INT, _INT, _P, _P, _P, _P, _P, _P, _I64, _I64,
-                            _I64, _I64, _P, _P],
+    "lis_trisolve_levels": [_INT, _INT, _P, _P, _P, _P, _P, _P, _P, _P,
+                            _I64, _I64, _I64, _P, _P],
 }
 
 _lib = None

@@ -41,13 +41,13 @@ from lis_tpu_torch.precon.base import register_precon
 class SSORPrecon(TensorFields):
     fwd: TriSolvePlan         # (D/ω + L)
     bwd: TriSolvePlan         # (D/ω + U)
-    fwd_t: TriSolvePlan       # (I + ωUᵀD⁻¹)
-    bwd_t: TriSolvePlan       # (D/ω + Lᵀ)
+    fwd_t: TriSolvePlan       # (I + ωUᴴD̄⁻¹)
+    bwd_t: TriSolvePlan       # (D̄/ω + Lᴴ)
     dtil: torch.Tensor        # D/ω
 
     def psolve(self, r):
         y = trisolve(self.fwd, r)
-        return trisolve(self.bwd, y * self.dtil)
+        return trisolve(self.bwd, y, rs=self.dtil)
 
     def psolveh(self, r):
         z = trisolve(self.fwd_t, r)
@@ -61,8 +61,8 @@ class SSORRelaxPrecon(TensorFields):
 
         fwd:  y = r·wd, then nsweeps × y = (r − L·y)·wd
         bwd:  with f = fwd(r)·dtil: z = f·wd, then nsweeps × z = (f − U·z)·wd
-        psolveh: y = r, nsweeps × y = r − Uᴴ(wd·y); z = y·wd, nsweeps ×
-              z = (y − Lᴴz)·wd
+        psolveh: with w̄ = conj(wd): y = r, nsweeps × y = r − Uᴴ(w̄·y);
+              z = y·w̄, nsweeps × z = (y − Lᴴz)·w̄
     """
     L: DIAMatrix              # strict-lower diagonals
     U: DIAMatrix              # strict-upper diagonals
@@ -80,6 +80,8 @@ class SSORRelaxPrecon(TensorFields):
 
     def psolveh(self, r):
         ns, wd = self.nsweeps, self.wd
+        if wd.is_complex():
+            wd = wd.conj().resolve_conj()
         if ns == 0:
             return r * wd
         y = relaxed_sweeps(self.U, r, ns, y=r, s=wd, trans=True)
@@ -126,17 +128,17 @@ def create_ssor(A, opts):
     fwd = make_plan(lp, li, lv, wd, lower=True, device=dev)
     bwd = make_plan(up, ui, uv, wd, lower=False, device=dev)
 
-    # transposed triangles for psolveh
+    # conjugate-transposed triangles for psolveh
     Lt = sp.csr_matrix((lv, li, lp), shape=A.shape).T.tocsr()
     Ut = sp.csr_matrix((uv, ui, up), shape=A.shape).T.tocsr()
     Lt.sort_indices()
     Ut.sort_indices()
-    # (I + ωUᵀD⁻¹): strictly lower Uᵀ with column scaling ω/d[col], unit
-    # diagonal multiplier
-    utv = Ut.data * (w / d[Ut.indices])
+    # (I + ωUᴴD̄⁻¹): strictly lower conj(Uᵀ·ω/d[col]), unit diagonal
+    # multiplier; then (D̄/ω + Lᴴ) with conj(WD)
+    utv = np.conj(Ut.data * (w / d[Ut.indices]))
     fwd_t = make_plan(Ut.indptr, Ut.indices, utv, np.ones(n), lower=True,
                       device=dev)
-    bwd_t = make_plan(Lt.indptr, Lt.indices, Lt.data, wd, lower=False,
-                      device=dev)
+    bwd_t = make_plan(Lt.indptr, Lt.indices, np.conj(Lt.data), np.conj(wd),
+                      lower=False, device=dev)
     return SSORPrecon(fwd=fwd, bwd=bwd, fwd_t=fwd_t, bwd_t=bwd_t,
                       dtil=torch.from_numpy(dtil).to(dev))

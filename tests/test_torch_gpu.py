@@ -555,6 +555,28 @@ def test_dia_relax_and_relaxh(cuda, vdtype, xdtype, n, offsets):
                                        atol=tol * float(want.abs().max()))
 
 
+_NP_OF = {torch.float64: np.float64, torch.float32: np.float32,
+          torch.complex128: np.complex128, torch.complex64: np.complex64}
+
+
+def _k_against_plain(cuda, plan, b, rs=None, tol=None):
+    """One launch of K against the plain version of the same plan on the
+    CPU; NaN and Inf must sit where the plain version has them."""
+    from lis_tpu_torch.ops import trisolve as ts
+    want = ts._trisolve_plain(plan, b, rs)
+    before = ts.trisolve.launches
+    got = ts.trisolve(plan.to(cuda), b.to(cuda),
+                      None if rs is None else rs.to(cuda))
+    torch.cuda.synchronize()
+    assert ts.trisolve.launches == before + 1
+    tol = _tol(want.dtype) if tol is None else tol
+    fin = want[torch.isfinite(want)]
+    scale = float(fin.abs().max()) if fin.numel() else 1.0
+    torch.testing.assert_close(got.cpu(), want, rtol=tol, atol=tol * scale,
+                               equal_nan=True)
+    return got
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32,
                                    torch.complex128, torch.complex64],
@@ -564,7 +586,7 @@ def test_dia_relax_and_relaxh(cuda, vdtype, xdtype, n, offsets):
                          ids=lambda s: "x".join(map(str, s)))
 def test_trisolve_levels(cuda, dtype, lower, shape):
     """K against its plain version and scipy: plans of poisson3d27 on odd
-    grids (one level per row on a line; levels wider than one block), every
+    grids (one level per row on a line; levels of many units), every
     dtype, a real plan with a complex right-hand side."""
     import scipy.sparse as sp
     from scipy.sparse.linalg import spsolve_triangular
@@ -578,19 +600,11 @@ def test_trisolve_levels(cuda, dtype, lower, shape):
     rng = np.random.default_rng(n)
     vals = tri.data * rng.uniform(0.5, 1.5, tri.nnz)
     d = a.diagonal() + (1j if dtype.is_complex else 0)
-    plan = ts.make_plan(tri.indptr, tri.indices, vals.astype(
-        d.dtype), 1.0 / d, lower=lower, device="cpu")
-    plan = ts.TriSolvePlan(rows=plan.rows, cols=plan.cols,
-                           vals=plan.vals.to(dtype), dinv=plan.dinv.to(dtype),
-                           n=n)
+    npt = _NP_OF[dtype]
+    plan = ts.make_plan(tri.indptr, tri.indices, vals.astype(npt),
+                        (1.0 / d).astype(npt), lower=lower, device="cpu")
     b = _randn(rng, n, dtype)
-    want = ts.trisolve(plan, b)
-    before = ts.trisolve.launches
-    got = ts.trisolve(plan.to(cuda), b.to(cuda))
-    assert ts.trisolve.launches == before + 1
-    tol = _tol(dtype)
-    torch.testing.assert_close(got.cpu(), want, rtol=tol,
-                               atol=tol * float(want.abs().max()))
+    got = _k_against_plain(cuda, plan, b)
     if dtype == torch.float64:
         full = (sp.csr_matrix((vals, tri.indices, tri.indptr), shape=(n, n))
                 + sp.diags(d)).tocsr()
@@ -598,15 +612,144 @@ def test_trisolve_levels(cuda, dtype, lower, shape):
         np.testing.assert_allclose(got.cpu().numpy(), ref, rtol=1e-12,
                                    atol=1e-12 * np.abs(ref).max())
         bz = _randn(rng, n, torch.complex128)
-        torch.testing.assert_close(ts.trisolve(plan.to(cuda), bz.to(cuda))
-                                   .cpu(), ts.trisolve(plan, bz),
-                                   rtol=1e-13, atol=1e-13)
+        _k_against_plain(cuda, plan, bz)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32],
+                         ids=lambda d: str(d)[6:])
+@pytest.mark.parametrize("which", ["lower", "upper", "lower_t", "upper_t"])
+def test_trisolve_levels_long_rows(cuda, dtype, which):
+    """K on the ILU(1) factors of poisson3d27: rows longer than one chunk
+    of 16 entries."""
+    from lis_tpu_torch.precon.ilu import create_iluk
+    from lis_tpu_torch.runtime.options import SolverOptions
+    from lis_tpu_torch.utils.testmat import poisson3d27
+    A = poisson3d27(11, 10, 9, device="cpu")
+    M = create_iluk(A, SolverOptions.from_string("-ilu_fill 1"))
+    plan = getattr(M, which).to(dtype=dtype)
+    width = (plan.sbase[1:] - plan.sbase[:-1]) // 32
+    assert int(width.max()) > 16
+    b = _randn(np.random.default_rng(1), A.nrows, dtype)
+    _k_against_plain(cuda, plan, b)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["one_level", "level_per_row", "nan_inf"])
+def test_trisolve_levels_edge_plans(cuda, case):
+    """K on a plan of one level (no triangle), on a plan of one level per
+    row (a bidiagonal of 5000 rows), and with NaN and Inf in b: the same
+    result as the plain version, NaN where it has NaN, and no hang."""
+    import scipy.sparse as sp
+    from lis_tpu_torch.ops import trisolve as ts
+    rng = np.random.default_rng(3)
+    n = 5000
+    if case == "one_level":
+        tri = sp.csr_matrix((n, n))
+    else:
+        tri = sp.diags(rng.uniform(-1, 1, n - 1), -1, shape=(n, n)).tocsr()
+    if case == "nan_inf":
+        tri = (tri + sp.diags(rng.uniform(-1, 1, n - 7), -7)).tocsr()
+    tri.sort_indices()
+    plan = ts.make_plan(tri.indptr, tri.indices, tri.data,
+                        rng.uniform(0.5, 1.5, n), device="cpu")
+    assert plan.nlev == {"one_level": 1, "level_per_row": n}.get(
+        case, plan.nlev)
+    b = _randn(rng, n, torch.float64)
+    if case == "nan_inf":
+        b[[10, 2000]] = float("nan")
+        b[[500, 4000]] = float("inf")
+        b[3000] = -float("inf")
+    got = _k_against_plain(cuda, plan, b)
+    if case == "nan_inf":
+        assert got.isnan().any() and torch.isfinite(got[:10]).all()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32,
+                                   torch.complex128],
+                         ids=lambda d: str(d)[6:])
+def test_trisolve_rs_fold(cuda, dtype):
+    """trisolve(plan, b, rs) on the card against the plain version of
+    b·rs: SSOR's backward solve with its y·(D/ω) folded in."""
+    import scipy.sparse as sp
+    from lis_tpu_torch.ops import trisolve as ts
+    from lis_tpu_torch.utils.testmat import poisson3d27
+    p, i, val = poisson3d27(17, 19, 23, device="cpu").to_csr_arrays()
+    n = len(p) - 1
+    a = sp.csr_matrix((val, i, p), shape=(n, n))
+    tri = sp.triu(a, 1).tocsr()
+    tri.sort_indices()
+    npt = _NP_OF[torch.float32 if dtype == torch.float32 else torch.float64]
+    plan = ts.make_plan(tri.indptr, tri.indices, tri.data.astype(npt),
+                        (1.0 / a.diagonal()).astype(npt), lower=False,
+                        device="cpu")
+    rng = np.random.default_rng(4)
+    rs = _randn(rng, n, plan.sdinv.dtype)
+    _k_against_plain(cuda, plan, _randn(rng, n, dtype), rs)
+
+
+def test_trisolve_kernel_has_no_grid_barrier():
+    """K's source launches no cooperative kernel and has no grid-wide
+    barrier: rows wait on per-row ready flags, polled with a time limit
+    (read from the source, so this runs without a card)."""
+    import pathlib
+    src = (pathlib.Path(lis_tpu_torch.__file__).parent / "csrc"
+           / "trisolve.cu").read_text()
+    code = "\n".join(ln.split("//")[0] for ln in src.splitlines())
+    for banned in ("cudaLaunchCooperativeKernel", "grid_sync",
+                   "this_grid", "cooperative_groups"):
+        assert banned not in code
+    assert "ld.relaxed.gpu" in code and "st.relaxed.gpu" in code
+    assert "%%globaltimer" in code and "__trap()" in code
+
+
+@pytest.mark.gpu
+def test_trisolve_broken_plan_traps(cuda, tmp_path):
+    """A plan whose two rows of one unit wait on each other makes K trap
+    after its spin limit instead of hanging: the synchronize after the
+    launch raises.  Run in a child process, since a trap leaves that
+    process's CUDA context unusable."""
+    import os
+    import pathlib
+    import subprocess
+    import sys
+    import textwrap
+    script = tmp_path / "broken.py"
+    script.write_text(textwrap.dedent("""
+        import dataclasses
+        import numpy as np, torch
+        from lis_tpu_torch.ops import trisolve as ts
+        n = 64
+        plan = ts.make_plan(np.zeros(n + 1, np.int32), np.zeros(0, np.int32),
+                            np.zeros(0), np.ones(n), device="cuda")
+        # rows 0 and 1, lanes 0 and 1 of unit 0, each read the other
+        cols = torch.full((32,), n, dtype=torch.int32)
+        cols[:2] = torch.tensor([1, 0])
+        plan = dataclasses.replace(
+            plan, sbase=torch.tensor([0, 32, 32], dtype=torch.int32).cuda(),
+            scols=cols.cuda(), svals=torch.ones(32, dtype=torch.float64).cuda())
+        ts.trisolve(plan, torch.ones(n, dtype=torch.float64, device="cuda"))
+        try:
+            torch.cuda.synchronize()
+        except RuntimeError as e:
+            print("TRAPPED", str(e).splitlines()[0])
+            raise SystemExit(0)
+        print("NO TRAP")
+        raise SystemExit(1)
+    """))
+    root = str(pathlib.Path(lis_tpu_torch.__file__).parent.parent)
+    r = subprocess.run([sys.executable, str(script)], capture_output=True,
+                       text=True, timeout=120, cwd=root,
+                       env={**os.environ, "PYTHONPATH": root})
+    assert r.returncode == 0 and "TRAPPED" in r.stdout, r.stdout + r.stderr
 
 
 @pytest.mark.gpu
 def test_trisolve_levels_on_two_streams(cuda):
     """K solves enqueued on two streams at once: each launch has its own
-    barrier counter, so every solve agrees with the plain version."""
+    ready flags and claim counter, so every solve agrees with the plain
+    version."""
     import scipy.sparse as sp
     from lis_tpu_torch.ops import trisolve as ts
     from lis_tpu_torch.utils.testmat import poisson3d27

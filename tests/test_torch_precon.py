@@ -152,6 +152,112 @@ def test_level_schedule_equals_lis_tpu():
         np.testing.assert_array_equal(lt, lj)
 
 
+@pytest.mark.parametrize("lower", [True, False])
+@pytest.mark.parametrize("name", ["poisson3d27", "random", "csym", "wide"])
+def test_sliced_plan_layout(name, lower):
+    """Kernel K's sliced-ELL copy of the plan: every row once, in level
+    order and in units of 32 that hold one level each; a row's entries in
+    its CSR order at stride 32; each unit padded to its own longest row;
+    every column a row reads in an earlier level (so in an earlier unit);
+    padding inert (row and column n, value and dinv 0).  ``wide`` has rows
+    of up to about 40 entries (more than the kernel's chunk of 16)."""
+    a = (_scipy("random_sparse", 120, 0.3, 3) if name == "wide"
+         else MATRICES[name]())
+    n = a.shape[0]
+    tri = (sp.tril(a, -1) if lower else sp.triu(a, 1)).tocsr()
+    tri.sort_indices()
+    dinv = 1.0 / a.diagonal()
+    pt = tts.make_plan(tri.indptr, tri.indices, tri.data, dinv, lower=lower,
+                       device="cpu")
+    U = tts.UNIT
+    srows, sbase = _t(pt.srows), _t(pt.sbase).astype(np.int64)
+    scols, svals, sdinv = _t(pt.scols), _t(pt.svals), _t(pt.sdinv)
+    assert len(srows) == len(sdinv) == pt.nunits * U
+    assert sbase[0] == 0 and sbase[-1] == len(scols) == len(svals)
+    live = srows < n
+    # every row once, in the padded plan's level order
+    np.testing.assert_array_equal(srows[live], _t(pt.rows)[_t(pt.rows) < n])
+    np.testing.assert_array_equal(np.sort(srows[live]), np.arange(n))
+    np.testing.assert_array_equal(sdinv[live], dinv[srows[live]])
+    assert not sdinv[~live].any()
+    lev = np.empty(n, dtype=np.int64)
+    for l, rl in enumerate(_t(pt.rows)):
+        lev[rl[rl < n]] = l
+    row_nnz = np.diff(tri.indptr)
+    unit_lev = []
+    for u in range(pt.nunits):
+        rows = srows[u * U:(u + 1) * U]
+        rl = rows[rows < n]
+        assert len(rl) and len(set(lev[rl])) == 1      # one level per unit
+        unit_lev.append(lev[rl[0]])
+        width = (sbase[u + 1] - sbase[u]) // U
+        assert (sbase[u + 1] - sbase[u]) % U == 0
+        assert width == row_nnz[rl].max()       # padded to its longest row
+        block_c = scols[sbase[u]:sbase[u + 1]].reshape(width, U)
+        block_v = svals[sbase[u]:sbase[u + 1]].reshape(width, U)
+        for t, i in enumerate(rows):
+            k = row_nnz[i] if i < n else 0
+            s, e = (tri.indptr[i], tri.indptr[i + 1]) if i < n else (0, 0)
+            np.testing.assert_array_equal(block_c[:k, t], tri.indices[s:e])
+            np.testing.assert_array_equal(block_v[:k, t], tri.data[s:e])
+            assert (block_c[k:, t] == n).all() and not block_v[k:, t].any()
+            if k:
+                assert (lev[block_c[:k, t]] < lev[i]).all()
+    assert unit_lev == sorted(unit_lev)                 # level-major
+    assert pt.nunits == sum(-(-np.bincount(lev) // U))
+
+
+def test_trisolve_rs_folds_the_scale():
+    """trisolve(plan, b, rs) equals the plain version of b·rs bit for bit,
+    real and complex (a real plan with complex b), on the CPU."""
+    a = MATRICES["poisson3d27"]()
+    tri = sp.triu(a, 1).tocsr()
+    tri.sort_indices()
+    pt = tts.make_plan(tri.indptr, tri.indices, tri.data,
+                       1.0 / a.diagonal(), lower=False, device="cpu")
+    rs = torch.from_numpy(_vec(a.shape[0], False, seed=8))
+    for cplx in (False, True):
+        b = torch.from_numpy(_vec(a.shape[0], cplx))
+        want = tts._trisolve_plain(pt, b * rs)
+        assert torch.equal(tts._trisolve_plain(pt, b, rs), want)
+        assert torch.equal(tts.trisolve(pt, b, rs), want)
+    with pytest.raises(ValueError, match="rs"):
+        tts.trisolve(pt, b, rs[1:])
+
+
+def test_ssor_psolve_folds_dtil_into_the_second_solve(monkeypatch):
+    """The level-scheduled SSOR psolve is two triangular solves, the second
+    with rs = D/ω, and no tensor operation of its own between them."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+    from lis_tpu_torch.precon import ssor as tssor_mod
+    a, J, T = _built("poisson3d27", "csr")
+    M = tssor(T, TOptions.from_string(""))
+    calls, ops, inside = [], [], [False]
+
+    class Record(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            if not inside[0]:
+                ops.append(str(func))
+            return func(*args, **(kwargs or {}))
+
+    def spy(plan, b, rs=None):
+        calls.append((plan, rs))
+        inside[0] = True
+        try:
+            return tts.trisolve(plan, b, rs)
+        finally:
+            inside[0] = False
+    monkeypatch.setattr(tssor_mod, "trisolve", spy)
+    r = torch.from_numpy(_vec(a.shape[0], False))
+    with Record():
+        z = M.psolve(r)
+    assert [(p, q) for p, q in calls] == [(M.fwd, None), (M.bwd, M.dtil)]
+    assert ops == []
+    monkeypatch.undo()
+    _close(z.numpy(), _j(jssor(J, lis_tpu.SolverOptions.from_string(""))
+                          .psolve(jnp.asarray(r.numpy()))), 1e-13)
+
+
 def test_relaxed_sweeps_match_lis_tpu():
     a = MATRICES["poisson3d27"]()
     J, T = _pair(a)
@@ -303,10 +409,37 @@ PRECONS = [
 ]
 
 
+def _ssor_inv_h(a, r, omega=1.0, nsweeps=None):
+    """scipy's M⁻ᴴr for SSOR on ``a``: M = (D/ω + L)(I + ωD⁻¹U) solved
+    exactly, or with ``nsweeps`` the operator of the relaxed form,
+    P = G·(D/ω)·F with F = Σ_{k≤ns} (−WL)^k W and G = Σ_{k≤ns} (−WU)^k W
+    (W = ω/D), whose adjoint Pᴴ r is what psolveh must give."""
+    a = sp.csr_matrix(a)
+    d = a.diagonal()
+    L, U = sp.tril(a, -1).tocsr(), sp.triu(a, 1).tocsr()
+    if nsweeps is None:
+        M = (sp.diags(d / omega) + L) @ (sp.eye(a.shape[0])
+                                         + omega * sp.diags(1 / d) @ U)
+        return sp.linalg.spsolve(sp.csc_matrix(M.conj().T), r)
+    W = np.diag(omega / d)
+
+    def series(T):
+        term, acc = W, W
+        for _ in range(nsweeps):
+            term = -W @ T.toarray() @ term
+            acc = acc + term
+        return acc
+    P = series(U) @ np.diag(d / omega) @ series(L)
+    return P.conj().T @ r
+
+
 @pytest.mark.parametrize("name,fmt,kind,opts,cls", PRECONS,
                          ids=[f"{p[0]}-{p[1]}-{p[2]}{p[3].replace(' ', '')}"
                               for p in PRECONS])
 def test_psolve_and_psolveh_match_lis_tpu(name, fmt, kind, opts, cls):
+    """psolve and psolveh against lis_tpu's; SSOR's psolveh on complex data
+    against scipy's M⁻ᴴr instead, since lis_tpu solves with Mᵀ there
+    (ROADMAP queue 3)."""
     a, J, T = _built(name, fmt)
     Mj, Mt = _create(kind, J, T, opts)
     inner = getattr(Mt, "inner", Mt)
@@ -317,7 +450,35 @@ def test_psolve_and_psolveh_match_lis_tpu(name, fmt, kind, opts, cls):
         zj = _j(getattr(Mj, meth)(jnp.asarray(r)))
         zt = getattr(Mt, meth)(torch.from_numpy(r))
         assert str(zt.dtype)[6:] == zj.dtype.name
-        _close(_t(zt), zj, 1e-13)
+        if kind == "ssor" and cplx and meth == "psolveh":
+            ns = inner.nsweeps if cls is SSORRelaxPrecon else None
+            _close(_t(zt), _ssor_inv_h(a, r, nsweeps=ns), 1e-12)
+        else:
+            _close(_t(zt), zj, 1e-13)
+
+
+@pytest.mark.parametrize("fmt,cls", [("dia", SSORRelaxPrecon),
+                                     ("csr", SSORPrecon)])
+def test_complex_bicg_ssor_converges(fmt, cls):
+    """BiCG + SSOR on a complex banded system with a complex diagonal:
+    BiCG's shadow recurrence runs psolveh, so with Mᵀ in place of Mᴴ it
+    stalls (lis_tpu: MAXITER after 2000 iterations).  Both SSOR forms
+    must reach SUCCESS with a true residual within 1e-8."""
+    from lis_tpu_torch.precon.base import create_precon
+    from lis_tpu_torch.solvers.driver import transform_operator
+    a = csym_banded(500, seed=3)
+    _, T = _pair(a)
+    if fmt == "dia":
+        T = lis_tpu_torch.convert_matrix(T, "dia", device="cpu")
+    b = _vec(a.shape[0], True, seed=4)
+    opts = "-i bicg -p ssor -auto_storage false -maxiter 500"
+    o = lis_tpu_torch.SolverOptions.from_string(opts)
+    M = create_precon(o.precon, transform_operator(T, o), o)
+    assert type(M) is cls
+    res = lis_tpu_torch.solve(T, b, options=opts)
+    assert res.status == lis_tpu.LIS_SUCCESS
+    x = _t(res.x)
+    assert np.linalg.norm(b - a @ x) <= 1e-8 * np.linalg.norm(b)
 
 
 @pytest.mark.parametrize("name,fmt,kind,opts", [
@@ -336,8 +497,10 @@ def test_single_precision_precon(name, fmt, kind, opts):
     for f in ("lower", "upper", "fwd", "bwd", "fwd_t", "bwd_t"):
         plan = getattr(inner, f, None)
         if plan is not None:
-            assert plan.rows.dtype == plan.cols.dtype == torch.int32
-            assert plan.vals.dtype == plan.dinv.dtype == torch.float32
+            for idx in ("rows", "cols", "srows", "sbase", "scols"):
+                assert getattr(plan, idx).dtype == torch.int32
+            for val in ("vals", "dinv", "svals", "sdinv"):
+                assert getattr(plan, val).dtype == torch.float32
     r = _vec(a.shape[0], False)
     for meth in ("psolve", "psolveh"):
         zj = _j(getattr(Mj, meth)(jnp.asarray(r)))
@@ -389,7 +552,7 @@ def test_level_scheduled_precon_on_other_formats(opts):
     from lis_tpu_torch.solvers.driver import transform_operator
     from tests.test_torch_solve import assert_same as assert_same_solve
     from tests.test_torch_solve import system
-    a, J, T, b = system(1 << 15, 5)
+    a, J, T, b = system(1 << 12, 5)
     rj = lis_tpu.solve(J, b, options=opts)
     rt = lis_tpu_torch.solve(T, b, options=opts)
     assert rj.status == lis_tpu.LIS_SUCCESS
