@@ -32,9 +32,14 @@ Phases (one or more lines each):
    "-storage cst -scale 1 -p jacobi -tol 1e-10" by bicg, bicr, bicgstab
    and bicrstab, which scale the grid itself (lane_shuffle); then
    "-i cg -p jacobi -storage cst -scale 1" on phase 4's prebuilt SPD CST
-   (scale_symm).  Each: SUCCESS, true residual <= 1e-9 (scipy too),
-   lane_shuffle launched, the oracle at n = 2^17;
-   BiCG and BiCR launch kernels A-D at least once per iteration;
+   (scale_symm); then the same options on the nonsymmetric CST for the
+   eleven nonsymmetric solvers of the Krylov slice (cgs, crs, tfqmr,
+   orthomin, gpbicg, gpbicr, bicgsafe, bicrsafe, bicgstabl, idrs, idr1).
+   Each: SUCCESS, true residual <= 1e-9 (scipy too), lane_shuffle
+   launched, the oracle at n = 2^17; BiCG and BiCR launch kernels A-D at
+   least once per iteration, the slice's solvers exactly as often as one
+   matvec launches each on A's grid and on the transpose grid times the
+   solver's matvecs and Aᴴ products (``krylov_counts``), printed beside;
 6. complex: the complex-symmetric a + aᵀ + 32·I with complex128 values on
    the same pattern, one CST; cocg and cocr with -p jacobi, checked as
    in phase 5 with lane_shuffle launched at least once per iteration;
@@ -107,8 +112,24 @@ Phases (one or more lines each):
    1e-8 (DIA, ω = 1.9: the level plan, K once per iteration), held to the
    CPU's count exactly (the others ±1).  Every solve prints its ms/iter
    beside one psolve's and one matvec's time on the card.
+10. the Krylov slice: (a) at 96³ on poisson3d27_dia (minres, orthomin)
+   and phase 9's nonsymmetric variant (the other ten), "-p jacobi -tol
+   1e-8" (cgs, crs and tfqmr with -p ssor: under Jacobi they stagnate
+   near 1e-7 on the variant, as in lis_tpu), and bicgstabl -p ssor and
+   idrs -irestart 4 -p ssor on the variant; (b) at 192³ on poisson3d27_dia, bicgstabl and idrs -irestart
+   4 with -p jacobi.  Each: SUCCESS, true residual <= 1e-7, E, F and H
+   launched exactly as the solver's matvecs, Aᴴ products and psolves imply
+   (``krylov_counts``; nothing else launched), and the iteration count ±1
+   (BiCGSTAB(l): ±l, one cycle) of the same solver function over a
+   wrapper whose matvec and matvech are E's and F's plain versions on the
+   card (and, under SSOR, a psolve over H's), checked to launch no
+   kernel; at 192³ x also to 1e-6 relative.  Each solve runs once
+   untimed first.  Each prints ms/iter, kernel launches and all launches per
+   iteration (torch operations counted by a dispatch mode in a second
+   solve, views and allocations left out) and host reads per iteration,
+   then one table row.
 
-Phases 1 to 9 all run at the sizes named here.  The matrices of phases 3
+Phases 1 to 10 all run at the sizes named here.  The matrices of phases 3
 to 6 are built with no ``device`` argument, so they live on the default
 device, the card.  Their CPU oracles (the port's plain path on the CPU,
 whose Benes passes take up to a minute a solve at n = 2^20) run at
@@ -117,8 +138,8 @@ card and on the CPU, and the iteration counts must agree ±1 (the CSR
 remainder sums with atomics on the card); the card's solves at n = 2^20
 keep every other check.
 
-Launch counts are set to 0 just before each solve of phases 3, 5, 6, 8
-and 9 and read just after; launches made to compare a kernel with its plain
+Launch counts are set to 0 just before each solve of phases 3, 5, 6, 8,
+9 and 10 and read just after; launches made to compare a kernel with its plain
 version are not counted.  It prints one JSON line of per-kernel results
 (each row's ``timing`` says how its ``ms`` was taken; where that is
 "queued", ``host_ms`` is the figure taken as ``plain_ms`` is), then as its
@@ -351,7 +372,7 @@ def main() -> None:
     def es(dtype):
         return torch.empty((), dtype=dtype).element_size()
 
-    # ---- launch counts over the counted solves of phases 3, 5, 6, 8, 9 ------
+    # ---- launch counts over the counted solves of phases 3, 5, 6, 8-10 -----
     kernels = {"lane_shuffle": sh.lane_shuffle, "cst_front": cstm.cst_front,
                "benes_pass": sh.benes_pass,
                "benes_pass_rowsum": sh.benes_pass_rowsum,
@@ -388,6 +409,18 @@ def main() -> None:
     def route_of(A, opts):
         return lis_tpu_torch.transform_operator(
             A, SolverOptions.from_string(opts)).format_name
+
+    def launches_per(fn):
+        """The launches of one call of fn(), counted outside the solves'
+        counts."""
+        for f in kernels.values():
+            f.launches = 0
+        fn()
+        torch.cuda.synchronize()
+        got = {name: f.launches for name, f in kernels.items()}
+        for f in kernels.values():
+            f.launches = 0
+        return got
 
     def need_exact(got, want, what):
         for name, cnt in want.items():
@@ -619,14 +652,16 @@ def main() -> None:
         fail(f"CST matvec kernels vs plain: relative error {err:.3e}")
 
     def solve_checked(tag, Ad, a_sp, b, opts, per_iter, once, small,
-                      rc=None):
+                      rc=None, exact=None):
         """One counted solve on the card (n = 2^20): SUCCESS, true
         residual <= 1e-9 (the port's and scipy's), the kernels in
         ``per_iter`` launched at least once per iteration, those in
-        ``once`` at least once.  The oracle runs on ``small`` = (card
-        operator, its CPU copy, b) at n = 2^17: the card's
-        iterations equal the CPU's ±1 (or those of the CPU result ``rc``
-        of an equivalent solve).  Returns (result, wall s, CPU result)."""
+        ``once`` at least once, and with ``exact`` (a function of the
+        result giving {kernel: count}) each of those exactly so often.
+        The oracle runs on ``small`` = (card operator, its CPU copy, b) at
+        n = 2^17: the card's iterations equal the CPU's ±1 (or those of
+        the CPU result ``rc`` of an equivalent solve).  Returns (result,
+        wall s, CPU result)."""
         r, got, wall = counted(
             lambda: lis_tpu_torch.solve(Ad, b, options=opts))
         Sd, Sc, s_b = small
@@ -655,6 +690,11 @@ def main() -> None:
                  f"{rc.iters}")
         need_launches(got, per_iter, r.iters, f"{tag} {opts}")
         need_launches(got, once, 1, f"{tag} {opts}")
+        if exact is not None:
+            want = exact(r)
+            print(f"phase {tag}: {opts}: launches the code implies {want}",
+                  flush=True)
+            need_exact(got, want, f"{tag} {opts}")
         return r, wall, rc
 
     # ---- 5. reuse: one prebuilt CST, scaled by each solve ------------------
@@ -681,6 +721,27 @@ def main() -> None:
         "-i cg -p jacobi -storage cst -scale 1 -tol 1e-10",
         matvec_kernels, ("lane_shuffle",), C_s)
     walls.append(wall)
+    # the Krylov slice's nonsymmetric solvers: A-D exactly as often as the
+    # solver's matvecs on A's grid (the initial and the true residual
+    # included) and its Aᴴ products on the transpose grid imply
+    xs = randn(n, torch.float64)
+    per_a, per_at = launches_per(lambda: N.matvec(xs)), \
+        launches_per(lambda: N.at.matvec(xs))
+    t0 = time.perf_counter()
+    for solver in KRYLOV[:-1]:
+        def exact(r, solver=solver):
+            mv, mvh, _ = krylov_counts(solver, r.iters)
+            return {k: per_a[k] * (mv + 1) + per_at[k] * mvh
+                    for k in matvec_kernels}
+        _, wall, _ = solve_checked(
+            "reuse", N, an, b,
+            f"-i {solver} -p jacobi -storage cst -scale 1 -tol 1e-10",
+            (), ("lane_shuffle",) + matvec_kernels, N_s, exact=exact)
+        walls.append(wall)
+    print(f"phase reuse: the {len(KRYLOV) - 1} solvers of the Krylov slice "
+          f"with their n=2^17 oracles in {time.perf_counter() - t0:.2f} s; "
+          f"one matvec launches {per_a} on A's grid, {per_at} on the "
+          f"transpose grid", flush=True)
     print(f"phase reuse: per-solve wall {min(walls):.4f}-{max(walls):.4f} s "
           f"on the prebuilt CST, against {t_warm:.2f} s for phase 3's warm "
           f"solve that rebuilds it", flush=True)
@@ -1213,6 +1274,9 @@ def main() -> None:
     # ---- 9. preconditioned: H, I, K and the hpcg configuration -------------
     stamp("phase 9")
     phase_preconditioned(S)
+    # ---- 10. the Krylov slice's twelve solvers on DIA ----------------------
+    stamp("phase 10")
+    phase_krylov(S)
     report_results(S, smi_line, total)
 
 def phase_preconditioned(S):
@@ -1526,19 +1590,7 @@ def phase_preconditioned(S):
         """CG + SSOR + additive Schwarz over the plain versions of E, G
         and H on D's device, in the order of the port's fused CG step:
         the oracle of the 192^3 solve (x0 = 0, nrm2_r)."""
-        Lp, Up, dd = pssor._split_dia(D)
-        wd = pssor._inv_where(dd, 1.0)
-        dtil = torch.where(wd != 0, 1.0 / wd, torch.ones_like(wd))
-
-        def sweep(T, rhs, y=None, w=None, rs=None, start=False):
-            return diam._relax_plain(T.value, T.offsets, rhs, y, None, w, rs,
-                                     start, False)
-
-        def ssor(q):
-            y = sweep(Lp, q, w=wd, start=True)
-            y = sweep(Lp, q, y, w=wd)
-            z = sweep(Up, y, w=wd, rs=dtil, start=True)
-            return sweep(Up, y, z, w=wd, rs=dtil)
+        ssor, sweep = plain_ssor(D)
 
         def psolve(q):
             xq = ssor(q)
@@ -1705,6 +1757,242 @@ def phase_preconditioned(S):
             fail(f"{opts} 64^3: cuda iters {it} vs cpu {r_c.iters}")
     del A64, A64c
     torch.cuda.empty_cache()
+
+
+def phase_krylov(S):
+    """Phase 10: the twelve solvers of the Krylov slice on DIA at 96^3,
+    two of them at 192^3 (see the docstring)."""
+    import torch
+    import lis_tpu_torch
+    from lis_tpu_torch.matrix import dia as diam
+    from lis_tpu_torch.precon.jacobi import create_jacobi
+    from lis_tpu_torch.runtime.options import SolverOptions
+    from lis_tpu_torch.solvers import driver as drv
+    from lis_tpu_torch.solvers.base import SOLVER_FNS, SOLVER_PREPARE
+    from lis_tpu_torch.utils import testmat
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    dev = S.dev
+    g96, g192 = S.grids[0], S.grids[1]
+
+    def tag(msg):
+        print(f"phase krylov: {msg}", flush=True)
+
+    class PlainDIA:
+        """D's matvec and matvech through the plain versions of E, F."""
+
+        def __init__(self, D):
+            self.D, self.nrows, self.device = D, D.nrows, D.device
+
+        def matvec(self, x):
+            return diam._spmv_plain(self.D.value, self.D.offsets, x,
+                                    self.D.ncols)
+
+        def matvech(self, x):
+            return diam._spmvh_plain(self.D.value, self.D.offsets, x,
+                                     self.D.ncols)
+
+    class PlainSSOR:
+        def __init__(self, D):
+            self.psolve = plain_ssor(D)[0]
+
+    def oracle(D, b, opts):
+        """The solve's own solver function over the plain versions of E,
+        F and H on the card (Jacobi is torch operations either way):
+        (iterations, status, x, wall s).  It must launch no kernel."""
+        o = SolverOptions.from_string(opts)
+        spec = drv._make_spec(o)
+        A = PlainDIA(D)
+        M = PlainSSOR(D) if o.precon == "ssor" else create_jacobi(D, o)
+        kw = {"aux": SOLVER_PREPARE[o.solver](A, spec)} \
+            if o.solver in SOLVER_PREPARE else {}
+        before = {name: f.launches for name, f in S.kernels.items()}
+        t0 = time.perf_counter()
+        out = SOLVER_FNS[o.solver](A, b, torch.zeros_like(b), M, spec, **kw)
+        it = int(out.iters)
+        wall = time.perf_counter() - t0
+        if before != {name: f.launches for name, f in S.kernels.items()}:
+            fail(f"the plain-version oracle of {opts} launched a kernel")
+        return it, int(out.status), out.x, wall
+
+    # torch operations that move no data on the card: views, allocations
+    free = {"view", "_unsafe_view", "alias", "slice", "select", "as_strided",
+            "expand", "t", "transpose", "unsqueeze", "squeeze", "detach",
+            "empty", "empty_strided", "lift_fresh", "_reshape_alias",
+            "resolve_conj", "resolve_neg", "permute", "unbind", "real",
+            "imag", "view_as_real", "view_as_complex", "_conj", "conj"}
+
+    def dispatched(fn):
+        """fn()'s (torch operations that run on the card, reads of a
+        device value by the host), counted by a dispatch mode."""
+        cnt = {"ops": 0, "reads": 0}
+
+        class Record(TorchDispatchMode):
+            def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+                out = func(*args, **(kwargs or {}))
+                name = func.overloadpacket.__name__
+                on_card = any(isinstance(a, torch.Tensor) and a.is_cuda
+                              for a in args)
+                to_host = isinstance(out, torch.Tensor) and not out.is_cuda
+                if name == "_local_scalar_dense" or (on_card and to_host):
+                    cnt["reads"] += 1
+                elif name not in free:
+                    cnt["ops"] += 1
+                return out
+        with Record():
+            res = fn()
+        torch.cuda.synchronize()
+        return res, cnt
+
+    rows = []
+
+    def cell(D, tag_, opts, oracle_x=False):
+        """One counted solve of ``opts`` on D (b = ones), after one untimed
+        and uncounted (the first call of a torch operation pays its
+        library's set-up): SUCCESS, true residual <= 1e-7, E, F and H
+        launched exactly as the solver's products and psolves imply, and
+        the oracle's count ±1 (BiCGSTAB(l): ±l, one cycle, since it mostly
+        converges in the MR part that ends a cycle)."""
+        o = SolverOptions.from_string(opts)
+        bt = torch.ones(D.nrows, dtype=torch.float64, device=dev)
+        lis_tpu_torch.solve(D, bt, options=opts)
+        r, got, wall = S.counted(lambda: lis_tpu_torch.solve(D, bt,
+                                                             options=opts))
+        it = r.iters
+        mv, mvh, ps = krylov_counts(o.solver, it, ell=o.ell, s=o.irestart)
+        want = dict.fromkeys(S.kernels, 0)
+        want.update(dia_spmv=mv + 1, dia_spmvh=mvh,
+                    dia_relax=4 * ps if o.precon == "ssor" else 0)
+        kern = sum(got.values())
+        (rd, cnt) = dispatched(lambda: lis_tpu_torch.solve(D, bt,
+                                                           options=opts))
+        it_o, st_o, x_o, wall_o = oracle(D, bt, opts)
+        err = ((r.x - x_o).abs().max() / x_o.abs().max()).item()
+        per = 1e3 * r.itime / max(it, 1)
+        row = (tag_, opts, it, per, kern / it, (cnt["ops"] + kern) / it,
+               cnt["reads"] / rd.iters, wall)
+        rows.append(row)
+        tag(f"{tag_} {opts}: status {r.status} iters {it} (plain-version "
+            f"oracle {it_o} in {wall_o:.2f} s, x {err:.2e} relative) "
+            f"true_resid {r.true_resid:.3e} wall {wall:.3f} s (ptime "
+            f"{r.ptime:.3f} s, itime {r.itime:.4f} s, {per:.4f} ms/iter); "
+            f"kernel launches {kern} = {kern / it:.2f}/iter, torch "
+            f"operations {cnt['ops']} (views, allocations and reads "
+            f"excluded), all launches {(cnt['ops'] + kern) / it:.1f}/iter, "
+            f"host reads {cnt['reads']} = {cnt['reads'] / rd.iters:.2f}/iter "
+            f"(the recorded solve: {rd.iters} iterations); products and "
+            f"psolves the code implies {mv} + 1, {mvh}, {ps}")
+        if r.status != 0 or st_o != 0 or not r.true_resid <= 1e-7:
+            fail(f"{tag_} {opts}: status {r.status} (oracle {st_o}), true "
+                 f"residual {r.true_resid:.3e}")
+        if abs(it - it_o) > (o.ell if o.solver == "bicgstabl" else 1):
+            fail(f"{tag_} {opts}: iters {it} vs the oracle's {it_o}")
+        if oracle_x and err > 1e-6:
+            fail(f"{tag_} {opts}: x differs from the oracle's by {err:.2e}")
+        S.need_exact(got, want, f"{tag_} {opts}")
+
+    # ---- (a) 96^3: SPD poisson3d27 and its nonsymmetric variant ----------
+    t0 = time.perf_counter()
+    P = testmat.poisson3d27_dia(g96, g96, g96)
+    scale = torch.tensor([0.7 if o < 0 else (1.3 if o > 0 else 28 / 26)
+                          for o in P.offsets], dtype=torch.float64,
+                         device=dev)
+    Dn = dataclasses.replace(P, value=P.value * scale[:, None])
+    torch.cuda.synchronize()
+    tag(f"poisson3d27_dia {g96}^3 (n={P.nrows}) and its nonsymmetric "
+        f"variant built in {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    for solver in KRYLOV:
+        D = P if solver in ("minres", "orthomin") else Dn
+        # the squared methods stagnate near 1e-7 on Dn under Jacobi (CGS
+        # and CRS for 1000 iterations, TFQMR for 200, on the CPU and in
+        # lis_tpu alike), so they run with SSOR
+        precon = "ssor" if solver in ("cgs", "crs", "tfqmr") else "jacobi"
+        cell(D, f"{g96}^3", f"-i {solver} -p {precon} -tol 1e-8")
+    for opts in ("-i bicgstabl -p ssor -tol 1e-8",
+                 "-i idrs -irestart 4 -p ssor -tol 1e-8"):
+        cell(Dn, f"{g96}^3", opts)
+    tag(f"{g96}^3: {len(KRYLOV) + 2} solves with their recorded runs and "
+        f"oracles in {time.perf_counter() - t0:.2f} s")
+    del P, Dn
+    torch.cuda.empty_cache()
+
+    # ---- (b) 192^3: the two solvers whose stacks grow with n --------------
+    t0 = time.perf_counter()
+    D192 = testmat.poisson3d27_dia(g192, g192, g192)
+    torch.cuda.synchronize()
+    tag(f"poisson3d27_dia {g192}^3 (n={D192.nrows}) built in "
+        f"{time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    for opts in ("-i bicgstabl -p jacobi -tol 1e-8",
+                 "-i idrs -irestart 4 -p jacobi -tol 1e-8"):
+        cell(D192, f"{g192}^3", opts, oracle_x=True)
+    tag(f"{g192}^3: 2 solves with their recorded runs and oracles in "
+        f"{time.perf_counter() - t0:.2f} s")
+    del D192
+    torch.cuda.empty_cache()
+    tag("table: size, options, iterations, ms/iter, kernel launches/iter, "
+        "all launches/iter, host reads/iter, solve wall s")
+    for row in rows:
+        tag("row " + json.dumps(row))
+
+
+def plain_ssor(D):
+    """(psolve, sweep): ``-p ssor``'s psolve on the DIA ``D`` (ω = 1, two
+    sweeps each way, as SSORRelaxPrecon orders them) and one relaxed sweep,
+    both over the plain version of kernel H."""
+    import torch
+    from lis_tpu_torch.matrix import dia as diam
+    from lis_tpu_torch.precon import ssor as pssor
+    Lp, Up, dd = pssor._split_dia(D)
+    wd = pssor._inv_where(dd, 1.0)
+    dtil = torch.where(wd != 0, 1.0 / wd, torch.ones_like(wd))
+
+    def sweep(T, rhs, y=None, w=None, rs=None, start=False):
+        return diam._relax_plain(T.value, T.offsets, rhs, y, None, w, rs,
+                                 start, False)
+
+    def ssor(q):
+        y = sweep(Lp, q, w=wd, start=True)
+        y = sweep(Lp, q, y, w=wd)
+        z = sweep(Up, y, w=wd, rs=dtil, start=True)
+        return sweep(Up, y, z, w=wd, rs=dtil)
+    return ssor, sweep
+
+
+# the solvers of the Krylov slice (lis_tpu_torch/solvers/{cgs,tfqmr,
+# orthomin,gpbicg,bicgsafe,bicgstabl,idrs,minres}.py); all but minres take
+# nonsymmetric systems
+KRYLOV = ("cgs", "crs", "tfqmr", "orthomin", "gpbicg", "gpbicr", "bicgsafe",
+          "bicrsafe", "bicgstabl", "idrs", "idr1", "minres")
+
+
+def krylov_counts(solver: str, iters: int, ell: int = 2, s: int = 2):
+    """(matvecs, transposed products, psolves) that a solve by ``solver``
+    makes when it converges in ``iters`` iterations, as its code in
+    lis_tpu_torch/solvers applies them: the initial residual's matvec
+    included, the driver's true residual not.  ``ell`` is BiCGSTAB(l)'s
+    -ell and ``s`` IDR(s)'s -irestart.  Every step runs all its products
+    (a masked one too): BiCGSTAB(l) runs whole cycles of l BiCG steps
+    (2 matvecs and 2 psolves each) and one psolve at the exit; IDR(s)
+    runs its s start steps even when it converges among them."""
+    it = iters
+    per_iter = {"cgs": (2, 0, 2), "crs": (2, 0, 2), "tfqmr": (2, 0, 4),
+                "orthomin": (1, 0, 1), "gpbicg": (2, 0, 4),
+                "gpbicr": (2, 0, 2), "bicgsafe": (2, 0, 2),
+                "bicrsafe": (2, 0, 2), "minres": (1, 0, 1)}
+    setup = {"crs": (0, 1, 0), "tfqmr": (1, 0, 1), "orthomin": (0, 0, 1),
+             "gpbicr": (0, 1, 1), "bicgsafe": (1, 0, 1),
+             "bicrsafe": (1, 1, 1), "minres": (0, 0, 1)}
+    if solver == "bicgstabl":
+        cycles = -(-it // ell)
+        return 1 + 2 * ell * cycles, 0, 2 * ell * cycles + 1
+    if solver in ("idrs", "idr1"):
+        steps = max(it, s if solver == "idrs" else 1)
+        return 1 + steps, 0, steps
+    mv, mvh, ps = per_iter[solver]
+    smv, smvh, sps = setup.get(solver, (0, 0, 0))
+    return 1 + smv + mv * it, smvh + mvh * it, sps + ps * it
 
 
 # the repo file of each kernel's source, and the lis_tpu code it replaces: a

@@ -38,8 +38,11 @@ class SolverSpec(NamedTuple):
     tol_w: float = 1.0
     maxiter: int = 1000
     conv_cond: int = 0
-    restart: int = 40         # -restart (GMRES/FGMRES)
+    restart: int = 40         # -restart (GMRES/FGMRES/Orthomin)
+    ell: int = 2              # -ell (BiCGSTAB(l))
+    m: int = 3                # -m (read by no solver, as in lis_tpu)
     omega: float = 1.9        # -omega (SOR)
+    irestart: int = 2         # -irestart (IDR(s) shadow dimension)
     # -print out/all: print each iteration's residual from the host loop
     # (reference lis_solver_cg.c:217-221 prints live)
     live_print: bool = False
@@ -137,12 +140,17 @@ def record(rh, it, nrm):
 
 
 def krylov_loop(spec: SolverSpec, tol_eff, state: dict, step,
-                live=None) -> dict:
+                live=None, it_done: bool = False) -> dict:
     """Run ``step`` while it <= maxiter, nrm > tol_eff and flag == RUNNING
     (the exit structure of every reference solver's for-loop).
 
-    ``state`` holds at least ``it`` (starts at 1), ``flag``, ``nrm`` and
-    ``rh``; ``step(state) -> state`` performs one iteration.  With more
+    ``state`` holds at least ``it``, ``flag``, ``nrm`` and ``rh``;
+    ``step(state) -> state`` performs one iteration, or with ``it_done``
+    a cycle of several (BiCGSTAB(l)'s ell BiCG steps and its MR part).
+    ``it`` names the next iteration (starting at 1, the step records
+    rh[it] and then advances it) or, with ``it_done``, counts the
+    iterations done (IDR(s) and BiCGSTAB(l): the step advances it and
+    records rh[it]), so one more step fits under maxiter.  With more
     than one step between host reads, each new state is merged under the
     loop condition of the old one, so a state that has left the loop stays
     as it was.  ``live(state)`` replaces the loop condition for a step
@@ -155,19 +163,29 @@ def krylov_loop(spec: SolverSpec, tol_eff, state: dict, step,
                     & (s["flag"] == RUNNING))
 
     every = 1 if spec.live_print else max(1, spec.check_every)
-    for n in range(spec.maxiter):
+    for n in range(spec.maxiter + int(it_done)):
         on = live(state)
         if n % every == 0 and not bool(on):
             break
+        before = int(state["it"]) if spec.live_print else 0
         new = step(state)
         # between two host reads a step may run past the loop condition;
         # with a read before every step it cannot, and needs no merge
         state = new if every == 1 or frozen_by_step else {
             k: torch.where(on, new[k], state[k]) for k in state}
         if spec.live_print:
-            print(f"iteration: {int(state['it']) - 1:5d}  relative residual"
-                  f" = {float(state['nrm']):e}", flush=True)
+            print_rhistory(state["rh"], before, int(state["it"]), it_done)
     return state
+
+
+def print_rhistory(rh, before: int, after: int, it_done: bool) -> None:
+    """Print the history entries that one step recorded (reference
+    lis_print_rhistory, lis_solver_cg.c:217-221 prints live)."""
+    shift = int(it_done)
+    last = rh.shape[0] - 1
+    for it in range(before + shift, after + shift):
+        print(f"iteration: {it:5d}  relative residual = "
+              f"{float(rh[min(it, last)]):e}", flush=True)
 
 
 def loop_output(spec: SolverSpec, tol_eff, final: dict) -> SolverOutput:

@@ -17,7 +17,7 @@ preconditioner (none, jacobi, ssor, ilu; additive Schwarz around it with
 builds it, and a solver's prepare hook (GS, SOR) runs after it; ``ptime``
 times both (lis_tpu times the preconditioner alone).  What
 lis_tpu does and this package does not yet (the BES format, the other
-solvers, preconditioners and precision modes) raises
+preconditioners and the precision modes) raises
 ``NotImplementedError`` naming the ROADMAP.md item that ports it.
 """
 
@@ -46,11 +46,19 @@ from lis_tpu_torch.precon.ads import wrap_additive_schwarz
 from lis_tpu_torch.runtime.options import SolverOptions, STORAGE_NAMES
 from lis_tpu_torch.solvers.base import SOLVER_FNS, SOLVER_PREPARE, SolverSpec
 from lis_tpu_torch.solvers import bicg as _bicg           # noqa: F401
+from lis_tpu_torch.solvers import bicgsafe as _bicgsafe   # noqa: F401
 from lis_tpu_torch.solvers import bicgstab as _bicgstab   # noqa: F401
+from lis_tpu_torch.solvers import bicgstabl as _bicgstabl  # noqa: F401
 from lis_tpu_torch.solvers import cg as _cg               # noqa: F401
+from lis_tpu_torch.solvers import cgs as _cgs             # noqa: F401
 from lis_tpu_torch.solvers import cocg as _cocg           # noqa: F401
 from lis_tpu_torch.solvers import gmres as _gmres         # noqa: F401
+from lis_tpu_torch.solvers import gpbicg as _gpbicg       # noqa: F401
+from lis_tpu_torch.solvers import idrs as _idrs           # noqa: F401
+from lis_tpu_torch.solvers import minres as _minres       # noqa: F401
+from lis_tpu_torch.solvers import orthomin as _orthomin   # noqa: F401
 from lis_tpu_torch.solvers import stationary as _stat     # noqa: F401
+from lis_tpu_torch.solvers import tfqmr as _tfqmr         # noqa: F401
 from lis_tpu_torch.utils.trace import traced
 
 _STORAGE_BY_ID = {i: n for n, i in STORAGE_NAMES.items()}
@@ -160,8 +168,8 @@ def _not_ported(what: str, item: str):
 
 def _check_ported(opts: SolverOptions) -> None:
     if opts.solver not in SOLVER_FNS:
-        raise _not_ported(f"solver {opts.solver!r}",
-                          "queue 1 item 6 (remaining Krylov solvers)")
+        raise NotImplementedError(f"solver {opts.solver!r} not implemented; "
+                                  f"have {sorted(SOLVER_FNS)}")
     if opts.precon not in ("none",) + tuple(PRECON_REGISTRY):
         raise _not_ported(f"preconditioner {opts.precon!r}",
                           "queue 1 item 9 (remaining preconditioners)")
@@ -177,7 +185,8 @@ def _check_ported(opts: SolverOptions) -> None:
 def _make_spec(opts: SolverOptions) -> SolverSpec:
     return SolverSpec(solver=opts.solver, tol=opts.tol, tol_w=opts.tol_w,
                       maxiter=opts.maxiter, conv_cond=opts.conv_cond,
-                      restart=opts.restart, omega=opts.omega,
+                      restart=opts.restart, ell=opts.ell, m=opts.m,
+                      omega=opts.omega, irestart=opts.irestart,
                       live_print=bool(opts.print_ & 2))
 
 

@@ -967,3 +967,84 @@ def test_css_on_the_card(cuda, name, transpose):
         close(R.matvech(dev(y)), a.conj().T @ (d * y))
         close(Y.matvec(dev(x)), d * (a @ (d * x)))
         close(Y.matvech(dev(y)), d * (a.conj().T @ (d * y)))
+
+
+def _krylov_pair(kind):
+    """poisson3d27 17 x 19 x 23 as CSR on the card and on the CPU ("spd"),
+    or its nonsymmetric variant (lower diagonals times 0.7, upper ones
+    times 1.3, 28 on the diagonal: chip_smoke.py's phase 10 system)."""
+    from lis_tpu_torch.utils.testmat import poisson3d27
+    ptr, idx, val = poisson3d27(17, 19, 23, device="cpu").to_csr_arrays()
+    n = len(ptr) - 1
+    a = sp.csr_matrix((val, idx, ptr), shape=(n, n))
+    if kind == "nonsym":
+        c = a.tocoo()
+        scale = np.where(c.col < c.row, 0.7,
+                         np.where(c.col > c.row, 1.3, 28 / 26))
+        a = sp.csr_matrix((c.data * scale, (c.row, c.col)), shape=(n, n))
+    a.sort_indices()
+    args = (a.indptr, a.indices, a.data, a.shape)
+    return (lis_tpu_torch.CSRMatrix.from_csr_arrays(*args),
+            lis_tpu_torch.CSRMatrix.from_csr_arrays(*args, device="cpu"))
+
+
+KRYLOV_OPTS = [f"-i {s} -p jacobi -tol 1e-10" for s in (
+    "cgs", "crs", "tfqmr", "orthomin", "gpbicg", "gpbicr", "bicgsafe",
+    "bicrsafe", "bicgstabl", "idrs", "idr1", "minres")] + [
+    "-i bicgstabl -p ssor -tol 1e-10", "-i idrs -irestart 4 -p ssor -tol 1e-10"]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("opts", KRYLOV_OPTS)
+def test_krylov_solver_on_the_card(cuda, opts):
+    """The Krylov slice's solvers on a small routed DIA on the card
+    against the same solve on the CPU: equal count and status, x to 1e-9,
+    and E, F and H launched exactly as often as the solver's matvecs, Aᴴ
+    products and SSOR sweeps (``chip_smoke.krylov_counts``; the true
+    residual is taken on the CSR input)."""
+    from chip_smoke import krylov_counts
+    from lis_tpu_torch.matrix import dia
+    from lis_tpu_torch.runtime.options import SolverOptions
+    o = SolverOptions.from_string(opts)
+    A, A_cpu = _krylov_pair("spd" if o.solver in ("minres", "orthomin")
+                            else "nonsym")
+    b = np.random.default_rng(9).standard_normal(A.nrows)
+    want = lis_tpu_torch.solve(A_cpu, b, options=opts)
+    fns = (dia.dia_spmv, dia.dia_spmvh, dia.dia_relax, dia.dia_relaxh)
+    before = [f.launches for f in fns]
+    got = lis_tpu_torch.solve(A, b, options=opts)
+    e, f, h, i = (fn.launches - b0 for fn, b0 in zip(fns, before))
+    assert got.x.is_cuda and got.status == want.status == 0
+    assert got.iters == want.iters
+    torch.testing.assert_close(got.x.cpu(), want.x, rtol=1e-9,
+                               atol=1e-9 * float(want.x.abs().max()))
+    mv, mvh, ps = krylov_counts(o.solver, got.iters, ell=o.ell,
+                                s=o.irestart)
+    assert (e, f, h, i) == (mv, mvh, 4 * ps if o.precon == "ssor" else 0, 0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("opts", ["-i bicgstabl -p jacobi -storage cst",
+                                  "-i idrs -irestart 4 -p jacobi -storage cst"])
+def test_krylov_solver_over_cst_on_the_card(cuda, opts):
+    """BiCGSTAB(l) and IDR(s) over a CST on the card: the CPU's count ±1
+    (the CSR remainder sums with atomics), a true residual at the
+    tolerance, and kernel A launched once per matvec."""
+    from chip_smoke import krylov_counts
+    from lis_tpu_torch.runtime.options import SolverOptions
+    n = 1 << 15
+    a = _system(n, 5, "nonsym")
+    Tc = CSTMatrix.from_csr_arrays(a.indptr, a.indices, a.data, a.shape,
+                                   transpose=False)
+    b = np.random.default_rng(3).standard_normal(n)
+    opts += " -tol 1e-10"
+    want = lis_tpu_torch.solve(Tc.to("cpu"), b, options=opts)
+    before = cst_front.launches
+    got = lis_tpu_torch.solve(Tc, b, options=opts)
+    assert got.x.is_cuda and got.status == want.status == 0
+    assert abs(got.iters - want.iters) <= 1
+    x = got.x.cpu().numpy()
+    assert np.linalg.norm(a @ x - b) / np.linalg.norm(b) <= 1e-9
+    o = SolverOptions.from_string(opts)
+    mv, _, _ = krylov_counts(o.solver, got.iters, ell=o.ell, s=o.irestart)
+    assert cst_front.launches - before == mv + 1

@@ -19,6 +19,10 @@ import lis_tpu_torch.matrix.split, lis_tpu_torch.ops.trisolve
 import lis_tpu_torch.precon.ssor, lis_tpu_torch.precon.ilu
 import lis_tpu_torch.precon.ads
 import lis_tpu_torch.solvers.stationary, lis_tpu_torch.solvers.gmres
+import lis_tpu_torch.solvers.cgs, lis_tpu_torch.solvers.tfqmr
+import lis_tpu_torch.solvers.orthomin, lis_tpu_torch.solvers.gpbicg
+import lis_tpu_torch.solvers.bicgsafe, lis_tpu_torch.solvers.minres
+import lis_tpu_torch.solvers.bicgstabl, lis_tpu_torch.solvers.idrs
 import lis_tpu_torch.ops._cuda as cu
 bad = sorted(m for m in sys.modules
              if m.split('.')[0] in ('jax', 'jaxlib', 'lis_tpu'))

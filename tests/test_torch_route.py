@@ -93,10 +93,13 @@ def test_bes_difference_gives_equal_answers(name):
 
 
 @pytest.mark.parametrize("solver,has_at", [("cg", False), ("bicgstab", False),
-                                           ("bicg", True), ("bicr", True)])
+                                           ("bicg", True), ("bicr", True),
+                                           ("crs", False), ("gpbicr", False),
+                                           ("bicrsafe", False)])
 def test_cst_route_builds_the_transpose_grid_only_on_need(solver, has_at):
     """cg gives ``at is None``; bicg and bicr, which apply Aᴴ every
-    iteration, get a transpose grid — as in lis_tpu."""
+    iteration, get a transpose grid — as in lis_tpu.  crs, gpbicr and
+    bicrsafe apply Aᴴ once, at setup, and ride the scatter."""
     a, J, T = pair("locality_free")
     for M in (J, T):                      # a fresh cache for each solver
         M.__dict__.pop("_auto_dia", None)
