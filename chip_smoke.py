@@ -32,9 +32,11 @@ Phases (one or more lines each):
    "-storage cst -scale 1 -p jacobi -tol 1e-10" by bicg, bicr, bicgstab
    and bicrstab, which scale the grid itself (lane_shuffle); then
    "-i cg -p jacobi -storage cst -scale 1" on phase 4's prebuilt SPD CST
-   (scale_symm); then the same options on the nonsymmetric CST for the
-   eleven nonsymmetric solvers of the Krylov slice (cgs, crs, tfqmr,
-   orthomin, gpbicg, gpbicr, bicgsafe, bicrsafe, bicgstabl, idrs, idr1).
+   (scale_symm); then "-i bicgstab -p is -storage cst" on the
+   nonsymmetric CST (I+S forces -scale 1); then the same options as the
+   first four on the nonsymmetric CST for the eleven nonsymmetric solvers
+   of the Krylov slice (cgs, crs, tfqmr, orthomin, gpbicg, gpbicr,
+   bicgsafe, bicrsafe, bicgstabl, idrs, idr1).
    Each: SUCCESS, true residual <= 1e-9 (scipy too), lane_shuffle
    launched, the oracle at n = 2^17; BiCG and BiCR launch kernels A-D at
    least once per iteration, the slice's solvers exactly as often as one
@@ -128,8 +130,33 @@ Phases (one or more lines each):
    iteration (torch operations counted by a dispatch mode in a second
    solve, views and allocations left out) and host reads per iteration,
    then one table row.
+11. the remaining preconditioners: (a) kernels J (lattice_prolong) and L
+   (lattice_restrict) against their plain versions, bit-equal, on the
+   96³ fine level (timed beside the plain version, the byte bound and the
+   one-call library counterpart: torch.sparse.addmm(x, P, ec) and
+   torch.sparse.mm(Pᵀ, r) with P assembled by scipy as torch sparse CSR
+   outside the timed region) and on a 94x95x97 lattice (cropped edge
+   boxes), f64 and f32; (b) solve(poisson3d27 96³ CSR, ones, "-i cg -p
+   saamg -tol 1e-10") with default routing: route dia, the lattice
+   hierarchy, SUCCESS, true residual <= 1e-9, the CPU's count ±1, and J,
+   L once and H twelve times per level per V-cycle (E, G as CG calls
+   them); (c) the same on poisson3d27_dia 192³ with the hierarchy built
+   once (its time printed), held to the count ±1 and x to 1e-6 of CG
+   over the plain versions of E, G, H, J and L on the card, written out
+   here (``plain_pcg``, ``plain_vcycle``); (d) "-saamg_lattice false" on
+   a 64³ CSR: the graph path, K four times per level per V-cycle, the
+   CPU's count ±1; (e) on the 64³ operator, bicgstab with ilut and with
+   iluc -iluc_drop 0.01 (routed to DIA: H; -auto_storage false: K), cg
+   -p sainv -sainv_drop 0.01, cg -p bjacobi and gmres -p hybrid at -tol
+   1e-10, and bicgstab -p is at -tol 1e-8 on phase 9's nonsymmetric
+   variant (on the SPD operator a 1e-14 change in b moves its count by 12,
+   tools/count_spread.py), each SUCCESS at the CPU's count ±1 with the
+   kernels its apply
+   uses launched.  Each SA-AMG solve prints the level sizes, ptime,
+   ms/iter, one psolve's time and launches, and the finest level's kernel
+   times.
 
-Phases 1 to 10 all run at the sizes named here.  The matrices of phases 3
+Phases 1 to 11 all run at the sizes named here.  The matrices of phases 3
 to 6 are built with no ``device`` argument, so they live on the default
 device, the card.  Their CPU oracles (the port's plain path on the CPU,
 whose Benes passes take up to a minute a solve at n = 2^20) run at
@@ -138,8 +165,8 @@ card and on the CPU, and the iteration counts must agree ±1 (the CSR
 remainder sums with atomics on the card); the card's solves at n = 2^20
 keep every other check.
 
-Launch counts are set to 0 just before each solve of phases 3, 5, 6, 8,
-9 and 10 and read just after; launches made to compare a kernel with its plain
+Launch counts are set to 0 just before each solve of phases 3, 5, 6 and
+8 to 11 and read just after; launches made to compare a kernel with its plain
 version are not counted.  It prints one JSON line of per-kernel results
 (each row's ``timing`` says how its ``ms`` was taken; where that is
 "queued", ``host_ms`` is the figure taken as ``plain_ms`` is), then as its
@@ -265,7 +292,7 @@ def main() -> None:
         from lis_tpu_torch.cli import lsolve
         from lis_tpu_torch.core import vector as v
         from lis_tpu_torch.matrix import cst as cstm, dia as diam
-        from lis_tpu_torch.ops import _cuda, shuffle as sh
+        from lis_tpu_torch.ops import _cuda, amg, shuffle as sh
         from lis_tpu_torch.ops import trisolve as tsm
         from lis_tpu_torch.runtime.options import SolverOptions
         from lis_tpu_torch.utils import testmat
@@ -381,7 +408,9 @@ def main() -> None:
                "krylov_dot": v.krylov_dot, "cg_direction": v.cg_direction,
                "cg_update": v.cg_update, "cg_finish": v.cg_finish,
                "dia_relax": diam.dia_relax, "dia_relaxh": diam.dia_relaxh,
-               "trisolve": tsm.trisolve}
+               "trisolve": tsm.trisolve,
+               "lattice_prolong": amg.lattice_prolong,
+               "lattice_restrict": amg.lattice_restrict}
     matvec_kernels = ("cst_front", "benes_pass", "benes_pass_rowsum",
                       "benes_small_run")
     total = dict.fromkeys(kernels, 0)     # launches over the counted solves
@@ -430,7 +459,7 @@ def main() -> None:
 
     S = types.SimpleNamespace(
         dev=dev, kernels=kernels, check=check, counted=counted, stamp=stamp,
-        need_launches=need_launches,
+        need_launches=need_launches, launches_per=launches_per,
         need_exact=need_exact, route_of=route_of, randn=randn, es=es,
         results=results, results32=results32, grids=(96, 192, 64),
         seed=args.seed)
@@ -720,6 +749,12 @@ def main() -> None:
         "reuse", C, a, b,
         "-i cg -p jacobi -storage cst -scale 1 -tol 1e-10",
         matvec_kernels, ("lane_shuffle",), C_s)
+    walls.append(wall)
+    # I+S forces -scale 1: the prebuilt grid is scaled through #1, and the
+    # truncated-U arrays come from the scaled grid's host CSR
+    _, wall, _ = solve_checked(
+        "reuse", N, an, b, "-i bicgstab -p is -storage cst -tol 1e-10",
+        matvec_kernels, ("lane_shuffle",), N_s)
     walls.append(wall)
     # the Krylov slice's nonsymmetric solvers: A-D exactly as often as the
     # solver's matvecs on A's grid (the initial and the true residual
@@ -1277,6 +1312,9 @@ def main() -> None:
     # ---- 10. the Krylov slice's twelve solvers on DIA ----------------------
     stamp("phase 10")
     phase_krylov(S)
+    # ---- 11. the remaining preconditioners: SA-AMG (J, L) and the rest ----
+    stamp("phase 11")
+    phase_precon_more(S)
     report_results(S, smi_line, total)
 
 def phase_preconditioned(S):
@@ -1285,7 +1323,6 @@ def phase_preconditioned(S):
     import torch
     import lis_tpu_torch
     from lis_tpu_torch.cli import hpcg
-    from lis_tpu_torch.core import vector as v
     from lis_tpu_torch.matrix import dia as diam
     from lis_tpu_torch.ops import trisolve as tsm
     from lis_tpu_torch.precon import ads as pads, ilu as pilu, ssor as pssor
@@ -1588,29 +1625,13 @@ def phase_preconditioned(S):
 
     def plain_hpcg(D, b, tol, maxiter):
         """CG + SSOR + additive Schwarz over the plain versions of E, G
-        and H on D's device, in the order of the port's fused CG step:
-        the oracle of the 192^3 solve (x0 = 0, nrm2_r)."""
+        and H on D's device: the oracle of the 192^3 solve."""
         ssor, sweep = plain_ssor(D)
 
         def psolve(q):
             xq = ssor(q)
             return xq + ssor(sweep(D, q, xq))
-
-        x, rr, p = torch.zeros_like(b), b.clone(), torch.zeros_like(b)
-        nrm0 = torch.sqrt(torch.dot(rr, rr))
-        ws = v.KrylovScalars(b, maxiter, tol, 1.0 / nrm0,
-                             torch.ones_like(nrm0), nrm1=False, running=-99,
-                             breakdown=2)
-        rh = torch.zeros(maxiter + 2, dtype=b.dtype, device=b.device)
-        while int(ws.live):
-            z = psolve(rr)
-            v._krylov_dot_plain(rr, z, None, ws, v.P_RHO)
-            v._cg_direction_plain(p, rr, z, None, ws)
-            q = diam._spmv_plain(D.value, D.offsets, p, D.ncols)
-            v._krylov_dot_plain(p, q, None, ws, v.P_PQ)
-            v._cg_update_plain(x, rr, p, q, None, ws, False)
-            v._cg_finish_plain(ws, rh)
-        return x, int(ws.it) - 1
+        return plain_pcg(D, b, tol, maxiter, psolve)
 
     b192 = diam._spmv_plain(A.value, A.offsets, torch.ones(
         A.nrows, dtype=torch.float64, device=dev), A.ncols)
@@ -1770,7 +1791,6 @@ def phase_krylov(S):
     from lis_tpu_torch.solvers import driver as drv
     from lis_tpu_torch.solvers.base import SOLVER_FNS, SOLVER_PREPARE
     from lis_tpu_torch.utils import testmat
-    from torch.utils._python_dispatch import TorchDispatchMode
 
     dev = S.dev
     g96, g192 = S.grids[0], S.grids[1]
@@ -1814,35 +1834,6 @@ def phase_krylov(S):
         if before != {name: f.launches for name, f in S.kernels.items()}:
             fail(f"the plain-version oracle of {opts} launched a kernel")
         return it, int(out.status), out.x, wall
-
-    # torch operations that move no data on the card: views, allocations
-    free = {"view", "_unsafe_view", "alias", "slice", "select", "as_strided",
-            "expand", "t", "transpose", "unsqueeze", "squeeze", "detach",
-            "empty", "empty_strided", "lift_fresh", "_reshape_alias",
-            "resolve_conj", "resolve_neg", "permute", "unbind", "real",
-            "imag", "view_as_real", "view_as_complex", "_conj", "conj"}
-
-    def dispatched(fn):
-        """fn()'s (torch operations that run on the card, reads of a
-        device value by the host), counted by a dispatch mode."""
-        cnt = {"ops": 0, "reads": 0}
-
-        class Record(TorchDispatchMode):
-            def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-                out = func(*args, **(kwargs or {}))
-                name = func.overloadpacket.__name__
-                on_card = any(isinstance(a, torch.Tensor) and a.is_cuda
-                              for a in args)
-                to_host = isinstance(out, torch.Tensor) and not out.is_cuda
-                if name == "_local_scalar_dense" or (on_card and to_host):
-                    cnt["reads"] += 1
-                elif name not in free:
-                    cnt["ops"] += 1
-                return out
-        with Record():
-            res = fn()
-        torch.cuda.synchronize()
-        return res, cnt
 
     rows = []
 
@@ -1937,6 +1928,413 @@ def phase_krylov(S):
         tag("row " + json.dumps(row))
 
 
+def phase_precon_more(S):
+    """Phase 11: kernels J and L against their plain versions, SA-AMG's
+    lattice path at 96^3 and 192^3, its graph path at 64^3, and each
+    other preconditioner of the slice once (see the docstring)."""
+    import torch
+    import scipy.sparse as sp
+    import lis_tpu_torch
+    from lis_tpu_torch.ops import amg
+    from lis_tpu_torch.precon import saamg as psa
+    from lis_tpu_torch.runtime.options import SolverOptions
+    from lis_tpu_torch.utils import testmat
+
+    dev, check, randn, es = S.dev, S.check, S.randn, S.es
+    g96, g192, g64 = S.grids
+
+    def tag(msg):
+        print(f"phase amg: {msg}", flush=True)
+
+    def level_of(D, dims):
+        """dinv and the tent of the finest lattice level of the DIA D."""
+        cd = tuple((f + 2) // 3 for f in dims)
+        counts = np.bincount(psa._lattice_agg(dims, cd),
+                             minlength=int(np.prod(cd)))
+        d = D.get_diagonal()
+        dinv = 1.0 / torch.where(d != 0, d, torch.ones_like(d))
+        wc = torch.from_numpy(1.0 / np.sqrt(counts)).to(dev, D.value.dtype)
+        return dinv, amg.LatticeTent(wc=wc, fdims=dims, cdims=cd)
+
+    def sparse_csr(m, dtype):
+        return torch.sparse_csr_tensor(
+            torch.from_numpy(m.indptr.astype(np.int64)).to(dev),
+            torch.from_numpy(m.indices.astype(np.int64)).to(dev),
+            torch.from_numpy(m.data).to(dev, dtype), size=m.shape,
+            check_invariants=False)
+
+    # ---- (a) J and L on the 96^3 fine level and a cropped lattice --------
+    S.stamp("phase 11a")
+    for dims in ((g96,) * 3, (94, 95, 97)):
+        # dims slowest..fastest; poisson3d27_dia takes the fastest first
+        Dd = testmat.poisson3d27_dia(*dims[::-1])
+        n, nnd = Dd.nrows, Dd.value.shape[0]
+        timed_shape = dims == (g96,) * 3
+        if timed_shape:
+            # the library yardstick: P = (I − ω D⁻¹A)·Pt assembled with
+            # scipy, as torch sparse CSR (outside the timed region)
+            t0 = time.perf_counter()
+            p_h, i_h, v_h = Dd.to_csr_arrays()
+            a_h = sp.csr_matrix((v_h, i_h, p_h), shape=(n, n))
+            dinv_h, tent_h = level_of(Dd, dims)
+            agg = psa._lattice_agg(dims, tent_h.cdims)
+            wc_h = tent_h.wc.cpu().numpy()
+            Pt = sp.csr_matrix((wc_h[agg], (np.arange(n), agg)),
+                               shape=(n, len(wc_h)))
+            P = (Pt - amg.OMEGA * sp.diags(dinv_h.cpu().numpy())
+                 @ (a_h @ Pt)).tocsr()
+            PT = P.T.tocsr()
+            for m in (P, PT):
+                m.sort_indices()
+            tag(f"96^3: P assembled with scipy for the library call in "
+                f"{time.perf_counter() - t0:.2f} s ({P.shape[0]} x "
+                f"{P.shape[1]}, nnz {P.nnz})")
+        for dtype in (torch.float64, torch.float32):
+            D = Dd.to(dtype=dtype)
+            dinv, tent = level_of(D, dims)
+            nc = tent.wc.shape[0]
+            ec, x, r = randn(nc, dtype), randn(n, dtype), randn(n, dtype)
+            shape = "x".join(map(str, dims))
+            tj = tl = None
+            if timed_shape:
+                Pd, PTd = sparse_csr(P, dtype), sparse_csr(PT, dtype)
+                x2, ec2, r2 = x[:, None], ec[:, None], r[:, None]
+                e = es(dtype)
+                # J: diagonals, dinv, x and out once, ec and wc once
+                tj = (lambda: amg.lattice_prolong(D, dinv, tent, ec, x),
+                      lambda: amg._prolong_plain(D, dinv, tent, ec, x),
+                      lambda: torch.sparse.addmm(x2, Pd, ec2),
+                      (nnd * n + 3 * n + 2 * nc) * e + 8 * nnd,
+                      3 * nnd * n + 5 * n)
+                # L: diagonals, dinv and r once, wc and the result once
+                tl = (lambda: amg.lattice_restrict(D, dinv, tent, r),
+                      lambda: amg._restrict_plain(D, dinv, tent, r),
+                      lambda: torch.sparse.mm(PTd, r2),
+                      (nnd * n + 2 * n + 2 * nc) * e + 8 * nnd,
+                      3 * nnd * n + 3 * n + nc)
+                # the library calls compute the same functions
+                for got, want in ((torch.sparse.addmm(x2, Pd, ec2)[:, 0],
+                                   amg._prolong_plain(D, dinv, tent, ec, x)),
+                                  (torch.sparse.mm(PTd, r2)[:, 0],
+                                   amg._restrict_plain(D, dinv, tent, r))):
+                    lerr = ((got - want).abs().max()
+                            / want.abs().max()).item()
+                    if lerr > (1e-12 if dtype == torch.float64 else 1e-4):
+                        fail(f"the library P disagrees with J/L's plain "
+                             f"versions by {lerr:.2e}")
+            check("lattice_prolong", dtype, shape,
+                  amg.lattice_prolong(D, dinv, tent, ec, x),
+                  amg._prolong_plain(D, dinv, tent, ec, x), True, tj)
+            check("lattice_restrict", dtype, shape,
+                  amg.lattice_restrict(D, dinv, tent, r),
+                  amg._restrict_plain(D, dinv, tent, r), True, tl)
+            del D, tj, tl
+        del Dd
+        if timed_shape:
+            del Pd, PTd, P, PT, Pt, a_h
+    torch.cuda.empty_cache()
+
+    def vcycle_report(tag_, M, Dfine, r, got):
+        """One psolve's time and launches, the finest level's kernels
+        beside it, and the level sizes."""
+        nlev = len(M.levels)
+        rv = randn(Dfine.nrows, torch.float64)
+        ps = cuda_ms(lambda: M.psolve(rv), reps=10)
+        per_ps = S.launches_per(lambda: M.psolve(rv))
+        _, ops = dispatched(lambda: M.psolve(rv))
+        lv = M.levels[0]
+        h = cuda_ms(lambda: S.kernels["dia_relax"](lv.A, rv, rv), reps=10)
+        fine = {"J": cuda_ms(lambda: amg.lattice_prolong(
+                    lv.A, lv.dinv, lv.tent, rv[:lv.tent.wc.shape[0]], rv),
+                    reps=10),
+                "L": cuda_ms(lambda: amg.lattice_restrict(
+                    lv.A, lv.dinv, lv.tent, rv), reps=10)} \
+            if lv.tent is not None else {}
+        per = 1e3 * r.itime / max(r.iters, 1)
+        tag(f"{tag_}: levels {[l.A.nrows for l in M.levels]} + coarse "
+            f"{M.coarse_inv.shape[0]}; status {r.status} iters {r.iters} "
+            f"true_resid {r.true_resid:.3e}; ptime {r.ptime:.3f} s, itime "
+            f"{r.itime:.4f} s, {per:.4f} ms/iter; one psolve {ps:.4f} ms "
+            f"({100 * ps / per:.1f} % of an iteration), its launches "
+            f"{ {k: c for k, c in per_ps.items() if c} } and torch "
+            f"operations {ops['ops']} (host reads {ops['reads']}); finest "
+            f"level: the residual sweep over all of A (H) {h:.4f} ms, "
+            + ", ".join(f"{k} {t:.4f} ms" for k, t in fine.items())
+            + f"; launches in the solve {got}")
+        return nlev
+
+    def need_counts(what, got, want):
+        print(f"phase amg: {what}: launches the code implies {want}",
+              flush=True)
+        S.need_exact(got, want, what)
+
+    # ---- (b) CG + SA-AMG at 96^3: CSR -> router -> DIA, lattice path -----
+    S.stamp("phase 11b")
+    t0 = time.perf_counter()
+    A96 = testmat.poisson3d27(g96, g96, g96)
+    b96 = np.ones(A96.nrows)
+    tag(f"poisson3d27 96^3 CSR built in {time.perf_counter() - t0:.2f} s")
+    opts = "-i cg -p saamg -tol 1e-10"
+    t0 = time.perf_counter()
+    lis_tpu_torch.solve(A96, b96, options=opts)
+    torch.cuda.synchronize()
+    t_cold = time.perf_counter() - t0
+    # the counted solve is the second: the first also pays the routing and
+    # the first calls of torch's libraries (cuBLAS for the coarsest solve)
+    r, got, wall = S.counted(lambda: lis_tpu_torch.solve(A96, b96,
+                                                         options=opts))
+    route = S.route_of(A96, opts)
+    Dr = lis_tpu_torch.auto_storage(A96)
+    M = psa.create_saamg(Dr, SolverOptions.from_string(opts))
+    it = r.iters
+    nlev = vcycle_report(f"cg -p saamg 96^3 (wall {wall:.3f} s, hierarchy "
+                         f"and solve; the first solve {t_cold:.3f} s with "
+                         f"the routing)", M, Dr, r, got)
+    if route != "dia" or r.status != 0 or not r.true_resid <= 1e-9 \
+            or any(lv.tent is None for lv in M.levels):
+        fail(f"cg -p saamg 96^3: route {route}, status {r.status}, true "
+             f"residual {r.true_resid:.3e}, levels "
+             f"{[lv.tent is not None for lv in M.levels]}")
+    # one psolve per iteration; per level and cycle J and L once, H twelve
+    # times (two sweeps per Gauss-Seidel half, four residuals)
+    need_counts("cg -p saamg 96^3", got, {
+        "lattice_prolong": nlev * it, "lattice_restrict": nlev * it,
+        "dia_relax": 12 * nlev * it, "dia_spmv": it + 1, "dia_relaxh": 0,
+        "trisolve": 0})
+    t0 = time.perf_counter()
+    rc = lis_tpu_torch.solve(A96.to("cpu"), b96, options=opts)
+    tag(f"cg -p saamg 96^3 on the CPU, plain versions: iters {rc.iters} "
+        f"in {time.perf_counter() - t0:.2f} s")
+    if abs(rc.iters - it) > 1 or rc.status != 0:
+        fail(f"cg -p saamg 96^3: cuda iters {it} vs cpu {rc.iters}")
+    del M, Dr, r, rc
+    torch.cuda.empty_cache()
+
+    # ---- (c) 192^3, built in DIA on the card, held to a plain oracle -----
+    S.stamp("phase 11c")
+    t0 = time.perf_counter()
+    D192 = testmat.poisson3d27_dia(g192, g192, g192)
+    b192 = torch.ones(D192.nrows, dtype=torch.float64, device=dev)
+    torch.cuda.synchronize()
+    tag(f"poisson3d27_dia 192^3 (n={D192.nrows}) built in "
+        f"{time.perf_counter() - t0:.2f} s")
+    o = SolverOptions.from_string(opts)
+    t0 = time.perf_counter()
+    M = psa.create_saamg(D192, o)
+    torch.cuda.synchronize()
+    t_build = time.perf_counter() - t0
+    r, got, wall = S.counted(lambda: lis_tpu_torch.solve(
+        D192, b192, options=opts, M=M))
+    it = r.iters
+    tag(f"192^3: hierarchy built in {t_build:.2f} s (the host CSR of the "
+        f"DIA, lattice detection, scipy Galerkin products, the upload)")
+    nlev = vcycle_report(f"cg -p saamg 192^3 (wall {wall:.3f} s)", M, D192,
+                         r, got)
+    if r.status != 0 or not r.true_resid <= 1e-9:
+        fail(f"cg -p saamg 192^3: status {r.status}, true residual "
+             f"{r.true_resid:.3e}")
+    need_counts("cg -p saamg 192^3", got, {
+        "lattice_prolong": nlev * it, "lattice_restrict": nlev * it,
+        "dia_relax": 12 * nlev * it, "dia_spmv": it + 2, "trisolve": 0})
+    before = {name: f.launches for name, f in S.kernels.items()}
+    t0 = time.perf_counter()
+    xo, it_o = plain_pcg(D192, b192, 1e-10, 1000, plain_vcycle(M))
+    torch.cuda.synchronize()
+    t_o = time.perf_counter() - t0
+    if before != {name: f.launches for name, f in S.kernels.items()}:
+        fail("the plain-version oracle of SA-AMG launched a kernel")
+    err = ((r.x - xo).abs().max() / xo.abs().max()).item()
+    tag(f"192^3 oracle over the plain versions of E, G, H, J and L on the "
+        f"card: iters {it_o} in {t_o:.2f} s; x differs by {err:.2e} "
+        f"relative")
+    if abs(it_o - it) > 1 or err > 1e-6:
+        fail(f"cg -p saamg 192^3: iters {it} vs the oracle's {it_o}, x "
+             f"{err:.2e}")
+    del M, D192, b192, r, xo
+    torch.cuda.empty_cache()
+
+    # ---- (d) the graph path on a 64^3 CSR: K for the SGS ------------------
+    S.stamp("phase 11d")
+    A64 = testmat.poisson3d27(g64, g64, g64)
+    A64c = A64.to("cpu")
+    b64 = np.ones(A64.nrows)
+    opts = "-i cg -p saamg -saamg_lattice false -tol 1e-10"
+    r, got, wall = S.counted(lambda: lis_tpu_torch.solve(A64, b64,
+                                                         options=opts))
+    Dr = lis_tpu_torch.auto_storage(A64)
+    M = psa.create_saamg(Dr, SolverOptions.from_string(opts))
+    nlev = vcycle_report(f"cg -p saamg -saamg_lattice false 64^3 (wall "
+                         f"{wall:.3f} s)", M, Dr, r, got)
+    it = r.iters
+    if r.status != 0 or not r.true_resid <= 1e-9 \
+            or any(lv.tent is not None for lv in M.levels):
+        fail(f"graph saamg 64^3: status {r.status}, true residual "
+             f"{r.true_resid:.3e}")
+    # four level-scheduled solves per level and cycle, no lattice kernel
+    need_counts("graph saamg 64^3", got, {
+        "trisolve": 4 * nlev * it, "lattice_prolong": 0,
+        "lattice_restrict": 0})
+    t0 = time.perf_counter()
+    rc = lis_tpu_torch.solve(A64c, b64, options=opts)
+    tag(f"graph saamg 64^3 on the CPU: iters {rc.iters} in "
+        f"{time.perf_counter() - t0:.2f} s")
+    if abs(rc.iters - it) > 1 or rc.status != 0:
+        fail(f"graph saamg 64^3: cuda iters {it} vs cpu {rc.iters}")
+    del M, Dr
+
+    # ---- (e) each other preconditioner of the slice once, at 64^3 ---------
+    S.stamp("phase 11e")
+    # the nonsymmetric variant of phases 9 and 10 (lower diagonals × 0.7,
+    # upper × 1.3, 28 on the diagonal), for I+S: on the SPD operator a
+    # change of 1e-14 in b moves BiCGSTAB + I+S's count at -tol 1e-10 by
+    # 12 (100-112 on the CPU, lis_tpu_torch/tools/count_spread.py), here
+    # by none at -tol 1e-8 (50)
+    Dsp = lis_tpu_torch.auto_storage(A64)
+    scale = torch.tensor([0.7 if o < 0 else (1.3 if o > 0 else 28 / 26)
+                          for o in Dsp.offsets], dtype=torch.float64,
+                         device=dev)
+    Dn = dataclasses.replace(Dsp, value=Dsp.value * scale[:, None])
+    ops = {"spd": (A64, A64c, "-tol 1e-10", 1e-9),
+           "nonsym": (Dn, Dn.to("cpu"), "-tol 1e-8", 1e-7)}
+    cases = [
+        # (options, operator, kernels launched at least once per
+        # iteration, kernels not launched)
+        ("-i bicgstab -p ilut", "spd", ("dia_relax",), ("trisolve",)),
+        ("-i bicgstab -p ilut -auto_storage false", "spd", ("trisolve",),
+         ("dia_relax",)),
+        # ILUC and SAINV drop every off-diagonal entry of this operator at
+        # their default drop tolerance 0.05 (|−1| < 0.05·‖row‖): 0.01 keeps
+        # them
+        ("-i bicgstab -p iluc -iluc_drop 0.01", "spd", ("dia_relax",),
+         ("trisolve",)),
+        ("-i bicgstab -p iluc -iluc_drop 0.01 -auto_storage false", "spd",
+         ("trisolve",), ("dia_relax",)),
+        ("-i cg -p sainv -sainv_drop 0.01", "spd", ("dia_spmv",),
+         ("trisolve", "dia_relax")),
+        ("-i bicgstab -p is", "nonsym", ("dia_spmv",),
+         ("trisolve", "dia_relax")),
+        ("-i cg -p bjacobi", "spd", ("dia_spmv",), ("trisolve", "dia_relax")),
+        ("-i gmres -p hybrid", "spd", ("dia_relax", "dia_spmv"),
+         ("trisolve",)),
+    ]
+    rows = []
+    for base, op, per_iter, never in cases:
+        Ad, Ac, tol, bound = ops[op]
+        opts = f"{base} {tol}"
+        r, got, wall = S.counted(lambda: lis_tpu_torch.solve(
+            Ad, b64, options=opts))
+        t0 = time.perf_counter()
+        rc = lis_tpu_torch.solve(Ac, b64, options=opts)
+        t_c = time.perf_counter() - t0
+        it = r.iters
+        per = 1e3 * r.itime / max(it, 1)
+        tag(f"64^3 {op} {opts}: route {S.route_of(Ad, opts)}, status "
+            f"{r.status} iters {it} (cpu {rc.iters} in {t_c:.2f} s) "
+            f"true_resid {r.true_resid:.3e}; ptime {r.ptime:.3f} s, "
+            f"{per:.4f} ms/iter; launches "
+            f"{ {k: c for k, c in got.items() if c} }")
+        rows.append((op, opts, it, rc.iters, r.ptime, per))
+        if r.status != 0 or not r.true_resid <= bound or rc.status != 0 \
+                or abs(rc.iters - it) > 1:
+            fail(f"64^3 {op} {opts}: status {r.status} (cpu {rc.status}), "
+                 f"iters {it} vs cpu {rc.iters}, true residual "
+                 f"{r.true_resid:.3e}")
+        S.need_launches(got, per_iter, it, f"64^3 {opts}")
+        S.need_exact(got, dict.fromkeys(never, 0), f"64^3 {opts}")
+    tag("table: operator, options, iterations, cpu iterations, ptime s, "
+        "ms/iter")
+    for row in rows:
+        tag("row " + json.dumps(row))
+    del A64, A64c, Dsp, Dn, ops
+    torch.cuda.empty_cache()
+
+
+def plain_vcycle(M):
+    """The psolve of the lattice SA-AMG preconditioner ``M`` over the plain
+    versions of H, J and L (and the coarsest matmul), in the order of
+    ``SAAMGPrecon._cycle`` with the SGS smoother: the oracle of the 192^3
+    solve."""
+    from lis_tpu_torch.matrix import dia as diam
+    from lis_tpu_torch.ops import amg
+
+    def relax(T, rhs, y=None, w=None, start=False):
+        return diam._relax_plain(T.value, T.offsets, rhs, y, None, w, None,
+                                 start, False)
+
+    def gs(lv, b, lower):
+        T = lv.Ls if lower else lv.Us
+        return relax(T, b, relax(T, b, w=lv.dinv, start=True), w=lv.dinv)
+
+    def cycle(k, b):
+        if k == len(M.levels):
+            return M.coarse_inv @ b
+        lv = M.levels[k]
+        x = gs(lv, b, True)
+        x = x + gs(lv, relax(lv.A, b, x), False)
+        rc = amg._restrict_plain(lv.A, lv.dinv, lv.tent, relax(lv.A, b, x))
+        x = amg._prolong_plain(lv.A, lv.dinv, lv.tent, cycle(k + 1, rc), x)
+        x = x + gs(lv, relax(lv.A, b, x), True)
+        return x + gs(lv, relax(lv.A, b, x), False)
+    return lambda b: cycle(0, b)
+
+
+# torch operations that move no data on the card: views, allocations
+FREE_OPS = {"view", "_unsafe_view", "alias", "slice", "select", "as_strided",
+            "expand", "t", "transpose", "unsqueeze", "squeeze", "detach",
+            "empty", "empty_strided", "lift_fresh", "_reshape_alias",
+            "resolve_conj", "resolve_neg", "permute", "unbind", "real",
+            "imag", "view_as_real", "view_as_complex", "_conj", "conj"}
+
+
+def dispatched(fn):
+    """fn()'s result and its (torch operations that run on the card, reads
+    of a device value by the host), counted by a dispatch mode; views and
+    allocations (``FREE_OPS``) are left out."""
+    import torch
+    from torch.utils._python_dispatch import TorchDispatchMode
+    cnt = {"ops": 0, "reads": 0}
+
+    class Record(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            name = func.overloadpacket.__name__
+            on_card = any(isinstance(a, torch.Tensor) and a.is_cuda
+                          for a in args)
+            to_host = isinstance(out, torch.Tensor) and not out.is_cuda
+            if name == "_local_scalar_dense" or (on_card and to_host):
+                cnt["reads"] += 1
+            elif name not in FREE_OPS:
+                cnt["ops"] += 1
+            return out
+    with Record():
+        res = fn()
+    torch.cuda.synchronize()
+    return res, cnt
+
+
+def plain_pcg(D, b, tol, maxiter, psolve):
+    """Preconditioned CG over the plain versions of E and G on D's device,
+    in the order of the port's fused CG step (x0 = 0, nrm2_r), with the
+    given ``psolve``: (x, iterations)."""
+    import torch
+    from lis_tpu_torch.core import vector as v
+    from lis_tpu_torch.matrix import dia as diam
+    x, rr, p = torch.zeros_like(b), b.clone(), torch.zeros_like(b)
+    nrm0 = torch.sqrt(torch.dot(rr, rr))
+    ws = v.KrylovScalars(b, maxiter, tol, 1.0 / nrm0, torch.ones_like(nrm0),
+                         nrm1=False, running=-99, breakdown=2)
+    rh = torch.zeros(maxiter + 2, dtype=b.dtype, device=b.device)
+    while int(ws.live):
+        z = psolve(rr)
+        v._krylov_dot_plain(rr, z, None, ws, v.P_RHO)
+        v._cg_direction_plain(p, rr, z, None, ws)
+        q = diam._spmv_plain(D.value, D.offsets, p, D.ncols)
+        v._krylov_dot_plain(p, q, None, ws, v.P_PQ)
+        v._cg_update_plain(x, rr, p, q, None, ws, False)
+        v._cg_finish_plain(ws, rh)
+    return x, int(ws.it) - 1
+
+
 def plain_ssor(D):
     """(psolve, sweep): ``-p ssor``'s psolve on the DIA ``D`` (ω = 1, two
     sweeps each way, as SSORRelaxPrecon orders them) and one relaxed sweep,
@@ -2022,6 +2420,10 @@ WHERE = {
                    "lis_tpu/precon/ssor.py:75"),
     "trisolve": ("lis_tpu_torch/csrc/trisolve.cu",
                  "lis_tpu/ops/trisolve.py:92"),
+    "lattice_prolong": ("lis_tpu_torch/csrc/amg.cu",
+                        "lis_tpu/precon/saamg.py:341"),
+    "lattice_restrict": ("lis_tpu_torch/csrc/amg.cu",
+                         "lis_tpu/precon/saamg.py:345"),
 }
 
 

@@ -4,8 +4,12 @@ Port of ``lis_tpu/_native/__init__.py`` for the functions the port uses so
 far: the three of the Benes shuffle routing (``euler_split``,
 ``greedy_color``, ``pass_idx``), the MatrixMarket coordinate parser
 (``mm_parse_coords``), the level schedule of a triangular solve
-(``level_schedule``) and the ILU factorisations ``iluk_factor`` (CSR,
-level of fill k) and ``ilu0_dia`` (ILU(0) on the DIA diagonals).  There is one copy of the C++ source: ``lis_tpu/_native/lis_native.cpp``
+(``level_schedule``), the factorisations of the preconditioners
+(``iluk_factor``: CSR, level of fill k; ``ilu0_dia``: ILU(0) on the DIA
+diagonals; ``ilut_factor`` and ``iluc_factor``: dual-threshold and Crout
+ILU; ``sainv_factor``: the sparse A-biconjugation of SAINV) and SA-AMG's
+aggregation of a strength graph (``amg_aggregate``).  There is one copy of
+the C++ source: ``lis_tpu/_native/lis_native.cpp``
 is read by path (never imported — importing ``lis_tpu`` pulls in JAX) and
 compiled with g++ into ``build/lis_tpu_torch/`` at the repository root on
 first use, and again whenever the source is newer than the library.
@@ -83,6 +87,22 @@ def _load():
         ctypes.c_int32, i32p, i32p, f64p, ctypes.c_int32,
         ctypes.POINTER(i32p), ctypes.POINTER(i32p), ctypes.POINTER(f64p),
         ctypes.POINTER(ctypes.c_int64)]
+    for name in ("ilut_factor", "iluc_factor"):
+        fn = getattr(lib, name)
+        fn.restype = ctypes.c_int
+        fn.argtypes = [
+            ctypes.c_int32, i32p, i32p, f64p, ctypes.c_double,
+            ctypes.c_double, ctypes.POINTER(i32p), ctypes.POINTER(i32p),
+            ctypes.POINTER(f64p), ctypes.POINTER(ctypes.c_int64)]
+    lib.sainv_factor.restype = ctypes.c_int
+    lib.sainv_factor.argtypes = [
+        ctypes.c_int32, i32p, i32p, f64p, ctypes.c_double,
+        ctypes.POINTER(i32p), ctypes.POINTER(i32p), ctypes.POINTER(f64p),
+        ctypes.POINTER(ctypes.c_int64),
+        ctypes.POINTER(i32p), ctypes.POINTER(i32p), ctypes.POINTER(f64p),
+        ctypes.POINTER(ctypes.c_int64), f64p]
+    lib.amg_aggregate.restype = ctypes.c_int32
+    lib.amg_aggregate.argtypes = [ctypes.c_int32, i32p, i32p, i32p]
     lib.ilu0_dia.restype = ctypes.c_int
     lib.ilu0_dia.argtypes = [ctypes.c_int64, ctypes.c_int32, i64p, f64p]
     lib.lis_native_free.restype = None
@@ -101,6 +121,10 @@ def _i64p(a):
 
 def _i32p(a):
     return a.ctypes.data_as(ctypes.POINTER(ctypes.c_int32))
+
+
+def _f64p(a):
+    return a.ctypes.data_as(ctypes.POINTER(ctypes.c_double))
 
 
 def euler_split(u, v, nu: int, nv: int):
@@ -160,7 +184,7 @@ def mm_parse_coords(path: str, skip_lines: int, nnz: int, pattern: bool):
     vals = np.empty(nnz, dtype=np.float64)
     got = lib.mm_parse_coords(
         path.encode(), skip_lines, nnz, 1 if pattern else 0, _i32p(rows),
-        _i32p(cols), vals.ctypes.data_as(ctypes.POINTER(ctypes.c_double)))
+        _i32p(cols), _f64p(vals))
     if got != nnz:
         return None
     return rows, cols, vals
@@ -182,33 +206,103 @@ def level_schedule(ptr, index, lower: bool):
     return int(nlev), lev
 
 
+def _csr_in(ptr, index, value):
+    """Contiguous int32 / float64 copies (where needed) of CSR arrays."""
+    return (np.ascontiguousarray(ptr, dtype=np.int32),
+            np.ascontiguousarray(index, dtype=np.int32),
+            np.ascontiguousarray(value, dtype=np.float64))
+
+
+def _take_csr(lib, n, optr, oidx, oval, nnz):
+    """Copy a CSR that the library allocated into numpy, then free it."""
+    out = (np.ctypeslib.as_array(optr, shape=(n + 1,)).copy(),
+           np.ctypeslib.as_array(oidx, shape=(nnz,)).copy(),
+           np.ctypeslib.as_array(oval, shape=(nnz,)).copy())
+    for p in (optr, oidx, oval):
+        lib.lis_native_free(p)
+    return out
+
+
+def _factor(name, ptr, index, value, *params):
+    """Run one of the combined-LU factorisations: its CSR arrays, or None
+    without the native library or on failure."""
+    lib = _load()
+    if lib is None:
+        return None
+    n = len(ptr) - 1
+    ptr, index, value = _csr_in(ptr, index, value)
+    i32p = ctypes.POINTER(ctypes.c_int32)
+    optr, oidx, oval = i32p(), i32p(), ctypes.POINTER(ctypes.c_double)()
+    nnz = ctypes.c_int64()
+    rc = getattr(lib, name)(n, _i32p(ptr), _i32p(index), _f64p(value),
+                            *params, ctypes.byref(optr), ctypes.byref(oidx),
+                            ctypes.byref(oval), ctypes.byref(nnz))
+    if rc != 0:
+        return None
+    return _take_csr(lib, n, optr, oidx, oval, nnz.value)
+
+
 def iluk_factor(ptr, index, value, fill: int):
     """ILU(k) of a real CSR: combined-LU CSR arrays (L strictly lower with
     the factors, U upper with its diagonal), or None without the native
     library or on failure."""
+    return _factor("iluk_factor", ptr, index, value, int(fill))
+
+
+def ilut_factor(ptr, index, value, drop: float, rate: float):
+    """Dual-threshold ILUT of a real CSR (reference lis_precon_ilut.c:67):
+    combined-LU CSR arrays, or None."""
+    return _factor("ilut_factor", ptr, index, value, float(drop),
+                   float(rate))
+
+
+def iluc_factor(ptr, index, value, drop: float, rate: float):
+    """Crout ILU of a real CSR (reference lis_precon_iluc.c:67):
+    combined-LU CSR arrays, or None."""
+    return _factor("iluc_factor", ptr, index, value, float(drop),
+                   float(rate))
+
+
+def sainv_factor(ptr, index, value, tol: float):
+    """Sparse stabilised A-biconjugation of a real CSR (reference
+    lis_precon_create_sainv_csr, lis_precon_sainv.c:59):
+    ((zptr, zidx, zval), (wptr, widx, wval), dinv) with Z and W as
+    row-wise CSR, or None."""
+    lib = _load()
+    if lib is None:
+        return None
+    n = len(ptr) - 1
+    ptr, index, value = _csr_in(ptr, index, value)
+    i32p = ctypes.POINTER(ctypes.c_int32)
+    f64p = ctypes.POINTER(ctypes.c_double)
+    zp, zi, zv = i32p(), i32p(), f64p()
+    wp, wi, wv = i32p(), i32p(), f64p()
+    znnz, wnnz = ctypes.c_int64(), ctypes.c_int64()
+    dinv = np.zeros(n, dtype=np.float64)
+    rc = lib.sainv_factor(n, _i32p(ptr), _i32p(index), _f64p(value),
+                          float(tol), ctypes.byref(zp), ctypes.byref(zi),
+                          ctypes.byref(zv), ctypes.byref(znnz),
+                          ctypes.byref(wp), ctypes.byref(wi),
+                          ctypes.byref(wv), ctypes.byref(wnnz), _f64p(dinv))
+    if rc != 0:
+        return None
+    return (_take_csr(lib, n, zp, zi, zv, znnz.value),
+            _take_csr(lib, n, wp, wi, wv, wnnz.value), dinv)
+
+
+def amg_aggregate(ptr, index):
+    """Greedy independent-set aggregation of a strength graph (SA-AMG
+    set-up; reference lis_m_aggregate_mod.F90:45): (nagg, agg), or None
+    without the native library."""
     lib = _load()
     if lib is None:
         return None
     n = len(ptr) - 1
     ptr = np.ascontiguousarray(ptr, dtype=np.int32)
     index = np.ascontiguousarray(index, dtype=np.int32)
-    value = np.ascontiguousarray(value, dtype=np.float64)
-    i32p = ctypes.POINTER(ctypes.c_int32)
-    f64p = ctypes.POINTER(ctypes.c_double)
-    optr, oidx, oval = i32p(), i32p(), f64p()
-    nnz = ctypes.c_int64()
-    rc = lib.iluk_factor(n, _i32p(ptr), _i32p(index),
-                         value.ctypes.data_as(f64p), int(fill),
-                         ctypes.byref(optr), ctypes.byref(oidx),
-                         ctypes.byref(oval), ctypes.byref(nnz))
-    if rc != 0:
-        return None
-    out_ptr = np.ctypeslib.as_array(optr, shape=(n + 1,)).copy()
-    out_idx = np.ctypeslib.as_array(oidx, shape=(nnz.value,)).copy()
-    out_val = np.ctypeslib.as_array(oval, shape=(nnz.value,)).copy()
-    for p in (optr, oidx, oval):
-        lib.lis_native_free(p)
-    return out_ptr, out_idx, out_val
+    agg = np.empty(n, dtype=np.int32)
+    nagg = lib.amg_aggregate(n, _i32p(ptr), _i32p(index), _i32p(agg))
+    return int(nagg), agg
 
 
 def ilu0_dia(offsets, diags):
@@ -221,6 +315,5 @@ def ilu0_dia(offsets, diags):
         return None
     d = np.array(diags, dtype=np.float64, order="C", copy=True)
     offs = np.ascontiguousarray(offsets, dtype=np.int64)
-    rc = lib.ilu0_dia(d.shape[1], d.shape[0], _i64p(offs),
-                      d.ctypes.data_as(ctypes.POINTER(ctypes.c_double)))
+    rc = lib.ilu0_dia(d.shape[1], d.shape[0], _i64p(offs), _f64p(d))
     return d if rc == 0 else None

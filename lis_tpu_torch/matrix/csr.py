@@ -76,6 +76,19 @@ class CSRMatrix(SparseMatrix):
         y = torch.zeros(self.ncols, dtype=prod.dtype, device=prod.device)
         return y.index_add_(0, self.index, prod)
 
+    def transpose(self) -> "CSRMatrix":
+        """Aᴴ as a CSR on the same device (lis_tpu ``transpose``,
+        matrix/csr.py:79-86: conjugated on complex data), built on the
+        host."""
+        import scipy.sparse as sp
+        ptr, index, value = self.to_csr_arrays()
+        at = sp.csr_matrix((value, index, ptr), shape=self.shape).T.tocsr()
+        at.sort_indices()
+        return CSRMatrix.from_csr_arrays(at.indptr, at.indices,
+                                         np.conj(at.data),
+                                         (self.ncols, self.nrows),
+                                         device=self.device)
+
     def get_diagonal(self):
         contrib = torch.where(self.index == self.row_ids, self.value,
                               torch.zeros((), dtype=self.value.dtype,

@@ -321,21 +321,29 @@ class DIAMatrix(SparseMatrix):
         return host(self.value)
 
     def to_csr_arrays(self):
+        """Canonical host CSR of the nonzero entries, cached on the matrix.
+        With sorted offsets, the row-major walk of the (n, nnd) transposed
+        diagonals is already in (row, column) order and needs no sort."""
         cached = getattr(self, "_host_csr", None)
         if cached is not None:
             return cached
         val = self.value_2d
         n, m = self.shape
-        cols = np.arange(n)[None, :] + np.array(self.offsets,
-                                                dtype=np.int64)[:, None]
+        offs = np.array(self.offsets, dtype=np.int64)
+        cols = np.arange(n)[None, :] + offs[:, None]
         valid = (cols >= 0) & (cols < m) & (val != 0)
         rows = np.broadcast_to(np.arange(n)[None, :], cols.shape)
-        r, c, v = rows[valid], cols[valid], val[valid]
-        order = np.lexsort((c, r))
-        r, c, v = r[order], c[order], v[order]
+        if (np.diff(offs) > 0).all():
+            r, c, v = rows.T[valid.T], cols.T[valid.T], val.T[valid.T]
+        else:
+            r, c, v = rows[valid], cols[valid], val[valid]
+            order = np.lexsort((c, r))
+            r, c, v = r[order], c[order], v[order]
         ptr = np.zeros(n + 1, dtype=np.int64)
         np.add.at(ptr, r + 1, 1)
-        return np.cumsum(ptr).astype(np.int32), c.astype(np.int32), v
+        out = np.cumsum(ptr).astype(np.int32), c.astype(np.int32), v
+        object.__setattr__(self, "_host_csr", out)
+        return out
 
     def diagonals(self, ks, nnz: int | None = None) -> "DIAMatrix":
         """The square DIA of diagonals ``ks`` (indices into ``offsets``, in

@@ -20,11 +20,13 @@ native ``level_schedule``) and lays the triangle out twice:
 waits on per-row ready flags of its own columns (kept beside the value in
 a mailbox per row); on a CPU tensor it runs the plain version.
 
-``relaxed_sweeps`` is the dependency-dropping alternative that the
+``sweep_series`` is the dependency-dropping alternative that the
 reference itself takes across OpenMP threads (lis_matrix_csr.c:1577-1605):
 fixed-point sweeps x ← (b − T·x)·dinv over a DIA triangle, one launch of
-kernel H (or I, transposed) each.  SSOR, ILU(0) on DIA and the GS/SOR
-lower solve run their sweeps through it.
+kernel H (or I, transposed) each.  SSOR, ILU(0)/ILUT/ILUC on DIA, the
+GS/SOR lower solve and SA-AMG's lattice smoother run their sweeps through
+it.  ``relaxed_sweeps`` is lis_tpu's own form of the same series
+(``relaxed_sweeps(L, U, dinv, b, nsweeps, lower)``, ops/trisolve.py:110).
 """
 
 from __future__ import annotations
@@ -240,20 +242,20 @@ def trisolve(plan: TriSolvePlan, b: torch.Tensor,
 trisolve.launches = 0
 
 
-def relaxed_sweeps(T, rhs: torch.Tensor, nsweeps: int, *, y=None, s=None,
-                   w=None, rs=None, trans: bool = False) -> torch.Tensor:
+def sweep_series(T, rhs: torch.Tensor, nsweeps: int, *, y=None, s=None,
+                 w=None, rs=None, trans: bool = False) -> torch.Tensor:
     """``nsweeps`` Jacobi-relaxed sweeps over the DIA triangle ``T``,
     y ← (rhs·rs − T·(s⊙y))·w (Tᴴ with ``trans``), from the given ``y`` or
-    else from the start y = (rhs·rs)·w.  The form of lis_tpu's
-    ``relaxed_sweeps`` (ops/trisolve.py:110) that every sweep series of the
-    port runs: SSOR, ILU(0) on DIA and the GS/SOR lower solve.  Each sweep
-    is one launch of kernel H (I with ``trans``); the start takes none of
-    its own.  ``s``, ``w`` and ``rs`` are optional, absent meaning 1."""
+    else from the start y = (rhs·rs)·w.  Every sweep series of the port
+    runs through it: SSOR, ILU(0)/ILUT/ILUC on DIA, the GS/SOR lower solve
+    and SA-AMG's lattice smoother.  Each sweep is one launch of kernel H
+    (I with ``trans``); the start takes none of its own.  ``s``, ``w`` and
+    ``rs`` are optional, absent meaning 1."""
     from lis_tpu_torch.matrix.dia import dia_relax, dia_relaxh
     if nsweeps < 1:
-        raise ValueError("relaxed_sweeps: nsweeps must be at least 1")
+        raise ValueError("sweep_series: nsweeps must be at least 1")
     if y is None and s is not None:
-        raise ValueError("relaxed_sweeps: s scales a given y; the start "
+        raise ValueError("sweep_series: s scales a given y; the start "
                          "vector takes none")
     fn = dia_relaxh if trans else dia_relax
     kw = dict(s=s, w=w, rs=rs)
@@ -261,3 +263,21 @@ def relaxed_sweeps(T, rhs: torch.Tensor, nsweeps: int, *, y=None, s=None,
     for _ in range(nsweeps - 1):
         y = fn(T, rhs, y, **kw)
     return y
+
+
+def relaxed_sweeps(L, U, dinv, b, nsweeps: int = 2, lower: bool = True):
+    """lis_tpu's ``relaxed_sweeps`` (ops/trisolve.py:110) with its
+    signature and result: the Jacobi-relaxed solve of (D + T)x = b with
+    T = L (``lower``) or U, x = b·dinv, then ``nsweeps`` times
+    x = (b − T·x)·dinv.  A DIA triangle runs the series on kernel H; any
+    other format (an object with ``matvec``) runs lis_tpu's loop as it
+    is."""
+    T = L if lower else U
+    if nsweeps < 1:
+        return b * dinv
+    if getattr(T, "format_name", None) == "dia":
+        return sweep_series(T, b, nsweeps, w=dinv)
+    x = b * dinv
+    for _ in range(nsweeps):
+        x = (b - T.matvec(x)) * dinv
+    return x

@@ -1,23 +1,29 @@
-"""ILU(k) preconditioner.
+"""ILU preconditioners: ILU(k), ILUT and Crout ILU.
 
-Port of the ILU(k) part of ``lis_tpu/precon/ilu.py`` (reference
-lis_precon_iluk.c: symbolic factorisation :263, numeric :638, psolve :880).
-Option: -ilu_fill k (default 0).  The factorisation runs on the host at
-creation, in the native library where it applies (``iluk_factor`` for a
-real CSR, ``ilu0_dia`` for ILU(0) of a real DIA) and otherwise in the
-Python IKJ loop; the factors go to the operator's device.
+Port of ``lis_tpu/precon/ilu.py`` (reference lis_precon_iluk.c: symbolic
+factorisation :263, numeric :638, psolve :880; lis_precon_ilut.c:67, the
+dual-threshold ILUT; lis_precon_iluc.c:67, Crout ILU).  Options:
+-ilu_fill k (ILU(k), default 0); -iluc_drop (0.05) and -iluc_rate (5.0)
+for ILUT and ILUC.  The factorisation runs on the host at creation, in
+the native library where it applies (``iluk_factor``, ``ilut_factor``,
+``iluc_factor`` for a real CSR, ``ilu0_dia`` for ILU(0) of a real DIA)
+and otherwise in the Python loops (complex data); the factors go to the
+operator's device.
 
 - ``ILUDiaPrecon``: ILU(0) of a real DIA operator.  ILU(0) keeps the
   pattern, so L and U are DIA with the operator's offsets; each triangular
   solve is ``-ssor_sweeps`` Jacobi-relaxed sweeps (the reference's OpenMP
   solve relaxes dependencies the same way, lis_matrix_csr.c:1577-1605), one
   launch of kernel H (I for psolveh) each.
+  ILUT and ILUC of a real DIA operator take the same apply when their
+  factors fit on few diagonals (``_maybe_dia_apply``, as in lis_tpu).
 - ``ILUPrecon``: every other case (ILU(k) of CSR, HDI, CSS, CST; a complex
-  DIA; fill > 0): exact level-scheduled solves (``ops/trisolve.py``,
-  kernel K), with the conjugate-transposed factors for psolveh.
+  DIA; fill > 0; ILUT and ILUC whose factors do not fit): exact
+  level-scheduled solves (``ops/trisolve.py``, kernel K), with the
+  conjugate-transposed factors for psolveh.
 
-ILUT, ILUC and the block ILU of BSR/VBR operators are not ported yet
-(ROADMAP.md queue 1 item 9).
+The block ILU of BSR/VBR operators waits for those formats (ROADMAP.md
+queue 1 item 8).
 """
 
 from __future__ import annotations
@@ -31,7 +37,7 @@ import torch
 from lis_tpu_torch.matrix.base import TensorFields, static
 from lis_tpu_torch.matrix.dia import DIAMatrix
 from lis_tpu_torch.ops.trisolve import (TriSolvePlan, make_plan,
-                                        relaxed_sweeps, trisolve)
+                                        sweep_series, trisolve)
 from lis_tpu_torch.precon.base import register_precon
 
 
@@ -92,6 +98,138 @@ def _factor_iluk(ptr, index, value, n, fill):
         rows_val.append(keep)
         rows_lev.append(lev)
     return rows_val
+
+
+def _factor_ilut(ptr, index, value, n, drop, rate):
+    """Dual-threshold ILUT with the reference's rules
+    (lis_precon_ilut.c:61-63,129-131,230-320), the Python fallback of the
+    native ``ilut_factor`` (complex data):
+    - the drop tolerance is relative to the MEAN |a_ij| of the row;
+    - the elimination factor is never dropped; only update terms with
+      |l_ik·u_kj| < tol that would create NEW fill are skipped;
+    - the final keep is the top lfil = (nnz/2n)·rate entries per side by
+      magnitude (no tolerance filter), the diagonal always kept."""
+    import heapq
+    rows_val = []
+    diag = np.zeros(n, dtype=value.dtype)
+    nnz_tot = int(ptr[n]) if len(ptr) > n else len(value)
+    lfil = max(int((nnz_tot / (2.0 * max(n, 1))) * rate), 1)
+    for i in range(n):
+        work = {}
+        abssum = 0.0
+        for p in range(ptr[i], ptr[i + 1]):
+            c = int(index[p])
+            work[c] = work.get(c, 0.0) + value[p]
+            abssum += abs(value[p])
+        k_cnt = max(ptr[i + 1] - ptr[i], 1)
+        nrm = abssum / k_cnt or 1.0
+        tol_i = drop * nrm
+
+        heap = [c for c in work if c < i]
+        heapq.heapify(heap)
+        done = set()
+        while heap:
+            k = heapq.heappop(heap)
+            if k in done or k not in work:
+                continue
+            done.add(k)
+            dk = diag[k]
+            if dk == 0.0:
+                continue
+            fact = work[k] / dk
+            work[k] = fact
+            for j, ukj in rows_val[k].items():
+                if j <= k:
+                    continue
+                lxu = -fact * ukj
+                if abs(lxu) < tol_i and j not in work:
+                    continue
+                work[j] = work.get(j, 0.0) + lxu
+                if j < i and j not in done:
+                    heapq.heappush(heap, j)
+
+        dv = work.get(i, 0.0)
+        if dv == 0.0:
+            dv = nrm
+        lower = sorted(((abs(v), j) for j, v in work.items() if j < i),
+                       reverse=True)[:lfil]
+        upper = sorted(((abs(v), j) for j, v in work.items() if j > i),
+                       reverse=True)[:lfil]
+        keep = {j: work[j] for _, j in lower}
+        keep.update({j: work[j] for _, j in upper})
+        keep[i] = dv
+        diag[i] = dv
+        rows_val.append(keep)
+    return rows_val
+
+
+def _factor_iluc(ptr, index, value, n, drop, rate):
+    """Crout ILU (Li/Saad/Chow; reference lis_precon_iluc.c:67), the
+    Python fallback of the native ``iluc_factor`` (complex data): step k
+    computes row k of U and column k of L, each with the relative drop
+    tolerance -iluc_drop and the fill bound -iluc_rate.  Updates read the
+    already dropped entries of both factors, so the factors differ from
+    ILUT's whenever dropping is active."""
+    Urows = [dict() for _ in range(n)]     # row k of U (with the diagonal)
+    Lcols = [dict() for _ in range(n)]     # column k of L (strict)
+    Lrows = [dict() for _ in range(n)]     # the row view of L
+    Ucols = [dict() for _ in range(n)]     # the column view of strict U
+    Acols = [[] for _ in range(n)]         # strict-lower A by column
+    rownrm = np.zeros(n)
+    colnrm = np.zeros(n)
+    nnz_col = np.zeros(n, dtype=np.int64)
+    nnz_row = np.diff(ptr)
+    for i in range(n):
+        for p in range(ptr[i], ptr[i + 1]):
+            vp = value[p]
+            c = int(index[p])
+            a2 = abs(vp) ** 2          # vp*vp for real, |vp|^2 complex
+            rownrm[i] += a2
+            colnrm[c] += a2
+            nnz_col[c] += 1
+            if c < i:
+                Acols[c].append((i, vp))
+    rownrm = np.sqrt(rownrm)
+    colnrm = np.sqrt(colnrm)
+    rownrm[rownrm == 0] = 1.0
+    colnrm[colnrm == 0] = 1.0
+
+    for k in range(n):
+        z = {}
+        for p in range(ptr[k], ptr[k + 1]):
+            c = int(index[p])
+            if c >= k:
+                z[c] = z.get(c, 0.0) + value[p]
+        for j, lkj in Lrows[k].items():
+            for c, u in Urows[j].items():
+                if c >= k:
+                    z[c] = z.get(c, 0.0) - lkj * u
+        w = {}
+        for r, vp in Acols[k]:
+            w[r] = w.get(r, 0.0) + vp
+        for j, ujk in Ucols[k].items():
+            for r, l in Lcols[j].items():
+                if r > k:
+                    w[r] = w.get(r, 0.0) - ujk * l
+        dv = z.pop(k, 0.0)
+        if dv == 0.0:
+            dv = rownrm[k]
+        tol_r = drop * rownrm[k]
+        tol_c = drop * colnrm[k]
+        keep_u = sorted(((c, v) for c, v in z.items() if abs(v) >= tol_r),
+                        key=lambda t: -abs(t[1]))[
+            :max(int(rate * nnz_row[k]), 2)]
+        Urows[k] = {k: dv, **dict(keep_u)}
+        for c, v in keep_u:
+            Ucols[c][k] = v
+        keep_l = sorted(((r, v) for r, v in w.items() if abs(v) >= tol_c),
+                        key=lambda t: -abs(t[1]))[
+            :max(int(rate * nnz_col[k]), 2)]
+        Lcols[k] = {r: v / dv for r, v in keep_l}
+        for r, v in keep_l:
+            Lrows[r][k] = v / dv
+
+    return [{**Lrows[i], **Urows[i]} for i in range(n)]
 
 
 def _plans_from_rows(rows_val, n, shape, device):
@@ -176,9 +314,9 @@ def _plans_from_lu(lp, li, lv, up, ui, uv, udiag, n, shape, device):
 
 @dataclasses.dataclass(frozen=True, eq=False)
 class ILUDiaPrecon(TensorFields):
-    """ILU(0) factors of a DIA operator, applied by relaxed sweeps of the
-    factors' diagonals (lis_tpu ``ILUDiaPrecon``, ilu.py:305-337), in
-    lis_tpu's order of operations:
+    """ILU factors on DIA (ILU(0), or ILUT/ILUC whose factors fit),
+    applied by relaxed sweeps of the factors' diagonals (lis_tpu
+    ``ILUDiaPrecon``, ilu.py:305-337), in lis_tpu's order of operations:
 
         psolve:  y = r, nsweeps × y = r − L·y; z = y·udinv, nsweeps ×
                  z = (y − U·z)·udinv
@@ -194,8 +332,8 @@ class ILUDiaPrecon(TensorFields):
         ns, ud = self.nsweeps, self.udinv
         if ns == 0:
             return r * ud
-        y = relaxed_sweeps(self.L, r, ns)
-        return relaxed_sweeps(self.U, y, ns, w=ud)
+        y = sweep_series(self.L, r, ns)
+        return sweep_series(self.U, y, ns, w=ud)
 
     def psolveh(self, r):
         ns = self.nsweeps
@@ -203,8 +341,8 @@ class ILUDiaPrecon(TensorFields):
             else self.udinv
         if ns == 0:
             return r * ud
-        w = relaxed_sweeps(self.U, r, ns, w=ud, trans=True)
-        return relaxed_sweeps(self.L, w, ns, trans=True)
+        w = sweep_series(self.U, r, ns, w=ud, trans=True)
+        return sweep_series(self.L, w, ns, trans=True)
 
 
 def _dia_from_csr(ptr, index, value, n, device):
@@ -283,3 +421,53 @@ def create_iluk(A, opts):
             return _plans_from_combined_csr(*out, A.nrows, A.shape, dev)
     rows = _factor_iluk(ptr, index, value, A.nrows, fill)
     return _plans_from_rows(rows, A.nrows, A.shape, dev)
+
+
+def _maybe_dia_apply(fp, fi, fv, A, opts, max_nnd=512):
+    """The relaxed-sweep apply for a factored LU in CSR when its factors
+    fit on few diagonals (lis_tpu ``_maybe_dia_apply``, ilu.py:741-757):
+    the factors of a banded operator keep roughly its profile, so the
+    psolve runs as diagonal streams (kernels H and I) instead of level
+    plans.  None when they do not fit."""
+    n = A.nrows
+    rows = np.repeat(np.arange(n, dtype=np.int64), np.diff(fp))
+    offs = np.unique(fi.astype(np.int64) - rows)
+    if len(offs) > max_nnd or len(offs) * n > 4 * max(len(fv), 1):
+        return None
+    L, U, d = _dia_from_csr(fp, fi, fv, n, A.device)
+    return ILUDiaPrecon(L=L, U=U, udinv=torch.from_numpy(_udinv(d)).to(
+        A.device), nsweeps=int(getattr(opts, "ssor_sweeps", 2)))
+
+
+def _create_threshold(A, opts, native, factor_py):
+    """ILUT or ILUC: the native factor for real data (on DIA through
+    ``_maybe_dia_apply`` where the factors fit), else the Python factor;
+    level plans otherwise."""
+    from lis_tpu_torch import _native
+    ptr, index, value = A.to_csr_arrays()
+    drop = getattr(opts, "iluc_drop", 0.05)
+    rate = getattr(opts, "iluc_rate", 5.0)
+    if not np.iscomplexobj(value):
+        out = getattr(_native, native)(ptr, index, value, drop, rate)
+        if out is not None:
+            if getattr(A, "format_name", None) == "dia":
+                fast = _maybe_dia_apply(*out, A, opts)
+                if fast is not None:
+                    return fast
+            return _plans_from_combined_csr(*out, A.nrows, A.shape,
+                                            A.device)
+    rows = factor_py(ptr, index, value, A.nrows, drop, rate)
+    return _plans_from_rows(rows, A.nrows, A.shape, A.device)
+
+
+@register_precon("ilut")
+def create_ilut(A, opts):
+    """Dual-threshold ILUT (reference lis_precon_ilut.c:67)."""
+    return _create_threshold(A, opts, "ilut_factor", _factor_ilut)
+
+
+@register_precon("iluc")
+def create_iluc(A, opts):
+    """Crout ILU (reference lis_precon_iluc.c:67): row-of-U/column-of-L
+    factorisation with -iluc_drop / -iluc_rate, distinct from ILUT."""
+    return _create_threshold(A, opts, "iluc_factor", _factor_iluc)

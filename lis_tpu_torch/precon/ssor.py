@@ -33,7 +33,7 @@ from lis_tpu_torch.matrix.base import TensorFields, static
 from lis_tpu_torch.matrix.dia import DIAMatrix
 from lis_tpu_torch.matrix.split import split_matrix
 from lis_tpu_torch.ops.trisolve import (TriSolvePlan, make_plan,
-                                        relaxed_sweeps, trisolve)
+                                        sweep_series, trisolve)
 from lis_tpu_torch.precon.base import register_precon
 
 
@@ -74,9 +74,9 @@ class SSORRelaxPrecon(TensorFields):
         ns, wd, dtil = self.nsweeps, self.wd, self.dtil
         if ns == 0:
             return (r * wd * dtil) * wd
-        y = relaxed_sweeps(self.L, r, ns, w=wd)
+        y = sweep_series(self.L, r, ns, w=wd)
         # the backward series on rhs = y·dtil, which each sweep forms itself
-        return relaxed_sweeps(self.U, y, ns, w=wd, rs=dtil)
+        return sweep_series(self.U, y, ns, w=wd, rs=dtil)
 
     def psolveh(self, r):
         ns, wd = self.nsweeps, self.wd
@@ -84,8 +84,8 @@ class SSORRelaxPrecon(TensorFields):
             wd = wd.conj().resolve_conj()
         if ns == 0:
             return r * wd
-        y = relaxed_sweeps(self.U, r, ns, y=r, s=wd, trans=True)
-        return relaxed_sweeps(self.L, y, ns, w=wd, trans=True)
+        y = sweep_series(self.U, r, ns, y=r, s=wd, trans=True)
+        return sweep_series(self.L, y, ns, w=wd, trans=True)
 
 
 def _split_dia(A: DIAMatrix):

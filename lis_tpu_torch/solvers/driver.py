@@ -2,8 +2,9 @@
 
 Port of ``lis_tpu/solvers/driver.py::solve`` (reference lis_solve /
 lis_solve_kernel, src/solver/lis_solver.c:367,441-953): option parsing,
-scaling (none/jacobi/symm_diag with the CG+Jacobi upgrade at :702-705),
-``-storage`` conversion, preconditioner creation, registry dispatch,
+scaling (none/jacobi/symm_diag with the CG+Jacobi upgrade at :702-705
+and the forced Jacobi scaling of -p is), ``-storage`` conversion,
+preconditioner creation, registry dispatch,
 residual history, true-residual recomputation (:910-924) and per-phase
 timing.
 
@@ -12,13 +13,14 @@ The solve runs on the device that holds the matrix's tensors; ``b`` and
 on the default device, the card, unless its caller asked for another.
 With no ``-storage`` the operator is routed by ``auto_storage`` (banded →
 DIA, quasi-banded → HDI, locality-free → CST or CSS), as in lis_tpu.  The
-preconditioner (none, jacobi, ssor, ilu; additive Schwarz around it with
-``-adds true``) is built on the scaled and routed operator, as lis_tpu
-builds it, and a solver's prepare hook (GS, SOR) runs after it; ``ptime``
-times both (lis_tpu times the preconditioner alone).  What
-lis_tpu does and this package does not yet (the BES format, the other
-preconditioners and the precision modes) raises
-``NotImplementedError`` naming the ROADMAP.md item that ports it.
+preconditioner (additive Schwarz around it with ``-adds true``) is built
+on the scaled and routed operator, as lis_tpu builds it, and a solver's
+prepare hook (GS, SOR) runs after it; ``ptime`` times both (lis_tpu
+times the preconditioner alone).  Every preconditioner of lis_tpu runs
+(none, jacobi, bjacobi, ssor, ilu, ilut, iluc, is, sainv, saamg,
+hybrid).  What lis_tpu does and this package does not yet (the BES and
+BSR formats, the precision modes) raises ``NotImplementedError`` naming
+the ROADMAP.md item that ports it.
 """
 
 from __future__ import annotations
@@ -37,10 +39,13 @@ from lis_tpu_torch.matrix.convert import convert_matrix, is_banded
 from lis_tpu_torch.matrix.css import CSSMatrix
 from lis_tpu_torch.matrix.cst import CSTMatrix
 from lis_tpu_torch.matrix.hybrid import HybridMatrix
-from lis_tpu_torch.precon.base import (PRECON_REGISTRY, NonePrecon,
-                                       create_precon)
+from lis_tpu_torch.precon.base import NonePrecon, create_precon
+from lis_tpu_torch.precon import hybrid as _phyb         # noqa: F401
 from lis_tpu_torch.precon import ilu as _pilu            # noqa: F401
+from lis_tpu_torch.precon import is_precon as _pis        # noqa: F401
 from lis_tpu_torch.precon import jacobi as _pjac          # noqa: F401
+from lis_tpu_torch.precon import saamg as _psaamg         # noqa: F401
+from lis_tpu_torch.precon import sainv as _psainv         # noqa: F401
 from lis_tpu_torch.precon import ssor as _pssor           # noqa: F401
 from lis_tpu_torch.precon.ads import wrap_additive_schwarz
 from lis_tpu_torch.runtime.options import SolverOptions, STORAGE_NAMES
@@ -170,9 +175,6 @@ def _check_ported(opts: SolverOptions) -> None:
     if opts.solver not in SOLVER_FNS:
         raise NotImplementedError(f"solver {opts.solver!r} not implemented; "
                                   f"have {sorted(SOLVER_FNS)}")
-    if opts.precon not in ("none",) + tuple(PRECON_REGISTRY):
-        raise _not_ported(f"preconditioner {opts.precon!r}",
-                          "queue 1 item 9 (remaining preconditioners)")
     if opts.precision not in ("double", "single"):
         raise _not_ported(f"-f {opts.precision}",
                           "queue 1 item 7 (precision modes)")
@@ -192,12 +194,18 @@ def _make_spec(opts: SolverOptions) -> SolverSpec:
 
 def _effective_scale(opts) -> int:
     """The scale mode solve() runs (lis_solve_kernel :613-721): CG+Jacobi
-    upgrades -scale 1 to symmetric scaling (lis_solver.c:702-705).  The
-    I+S and block-Jacobi (-storage bsr) branches of lis_tpu come with
-    their preconditioner and format."""
-    if opts.scale == 1 and opts.solver == "cg" and opts.precon == "jacobi":
-        return 2
-    return opts.scale
+    upgrades -scale 1 to symmetric scaling (lis_solver.c:702-705), and
+    -p is forces Jacobi scaling (scale 0 → 1; its truncated-U inverse
+    assumes a unit diagonal).  lis_tpu checks I+S before the block branch
+    of -scale 1 -storage bsr (``_is_bscale``), so -p is always scales by
+    the point diagonal; that branch comes with the BSR format (ROADMAP.md
+    queue 1 item 8)."""
+    scale = opts.scale
+    if scale == 1 and opts.solver == "cg" and opts.precon == "jacobi":
+        scale = 2
+    if opts.precon == "is" and scale == 0:
+        scale = 1
+    return scale
 
 
 def _scale_operator(A, scale):

@@ -22,7 +22,7 @@ import torch
 from lis_tpu_torch.core import vector as v
 from lis_tpu_torch.matrix.base import TensorFields, static
 from lis_tpu_torch.matrix.dia import DIAMatrix
-from lis_tpu_torch.ops.trisolve import make_plan, relaxed_sweeps, trisolve
+from lis_tpu_torch.ops.trisolve import make_plan, sweep_series, trisolve
 from lis_tpu_torch.solvers.base import (RUNNING, SolverOutput, SolverSpec,
                                         krylov_loop, loop_output,
                                         loop_scalar, new_rhistory, record,
@@ -62,7 +62,7 @@ class _LowerSweep(TensorFields):
     nsweeps: int = static()
 
     def apply(self, r):
-        return relaxed_sweeps(self.L, r, self.nsweeps, w=self.wd)
+        return sweep_series(self.L, r, self.nsweeps, w=self.wd)
 
 
 def _lower_plan(A, w: float = 1.0):

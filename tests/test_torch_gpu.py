@@ -1048,3 +1048,161 @@ def test_krylov_solver_over_cst_on_the_card(cuda, opts):
     o = SolverOptions.from_string(opts)
     mv, _, _ = krylov_counts(o.solver, got.iters, ell=o.ell, s=o.irestart)
     assert cst_front.launches - before == mv + 1
+
+
+# ---- kernels J and L (SA-AMG's lattice transfers) ---------------------------
+
+def _lattice_level(dims, dtype, seed=0):
+    """A random nonsymmetric stencil on the lattice ``dims`` (3^d points)
+    as a DIA on the CPU, its dinv, and a tent with random wc (the kernels
+    take any wc): the operands of J and L."""
+    import scipy.sparse as sp
+    from lis_tpu_torch.matrix.dia import DIAMatrix
+    from lis_tpu_torch.ops.amg import LatticeTent
+    rng = np.random.default_rng(seed)
+    n = int(np.prod(dims))
+    coords = np.unravel_index(np.arange(n), dims)
+    rows, cols, vals = [], [], []
+    for digits in np.ndindex(*(3,) * len(dims)):
+        nb = [c + d - 1 for c, d in zip(coords, digits)]
+        ok = np.all([(x >= 0) & (x < f) for x, f in zip(nb, dims)], axis=0)
+        rows.append(np.arange(n)[ok])
+        cols.append(np.ravel_multi_index([x[ok] for x in nb], dims))
+        vals.append(rng.uniform(-1, 1, ok.sum())
+                    + (3.0 ** len(dims) if digits == (1,) * len(dims)
+                       else 0.0))
+    a = sp.csr_matrix((np.concatenate(vals), (np.concatenate(rows),
+                                              np.concatenate(cols))),
+                      shape=(n, n))
+    a.sort_indices()
+    rdt = torch.float32 if dtype in (torch.float32, torch.complex64) \
+        else torch.float64
+    D = DIAMatrix.from_csr_arrays(a.indptr, a.indices, a.data, a.shape,
+                                  device="cpu").to(dtype=rdt)
+    dinv = 1.0 / D.get_diagonal()
+    cdims = tuple((f + 2) // 3 for f in dims)
+    wc = torch.from_numpy(rng.uniform(0.2, 1.0, int(np.prod(cdims)))).to(rdt)
+    return D, dinv, LatticeTent(wc=wc, fdims=tuple(dims), cdims=cdims)
+
+
+def _jl_against_plain(cuda, dims, dtype, poison=False, seed=0):
+    """J and L on the card against their plain versions on the card (bit
+    for bit on real data, rtol 1e-13 / 1e-5 on complex vectors) and on the
+    CPU (rtol 1e-13 / 1e-5)."""
+    from lis_tpu_torch.ops import amg
+    D, dinv, tent = _lattice_level(dims, dtype, seed)
+    rng = np.random.default_rng(seed + 1)
+    nc = tent.wc.shape[0]
+    ec, x, r = (_randn(rng, k, dtype) for k in (nc, D.nrows, D.nrows))
+    if poison:
+        ec[[0, nc // 2]] = float("nan")
+        x[D.nrows // 3] = float("inf")
+        r[[1, D.nrows - 2]] = float("nan")
+        r[D.nrows // 2] = -float("inf")
+    Dc, dc, tc = D.to(cuda), dinv.to(cuda), tent.to(cuda)
+    before = (amg.lattice_prolong.launches, amg.lattice_restrict.launches)
+    got_j = amg.lattice_prolong(Dc, dc, tc, ec.to(cuda), x.to(cuda))
+    got_l = amg.lattice_restrict(Dc, dc, tc, r.to(cuda))
+    torch.cuda.synchronize()
+    assert (amg.lattice_prolong.launches, amg.lattice_restrict.launches) \
+        == (before[0] + 1, before[1] + 1)
+    on_card = (amg._prolong_plain(Dc, dc, tc, ec.to(cuda), x.to(cuda)),
+               amg._restrict_plain(Dc, dc, tc, r.to(cuda)))
+    on_cpu = (amg._prolong_plain(D, dinv, tent, ec, x),
+              amg._restrict_plain(D, dinv, tent, r))
+    tol = 1e-5 if dtype in (torch.float32, torch.complex64) else 1e-13
+    for got, card, cpu in zip((got_j, got_l), on_card, on_cpu):
+        if dtype.is_complex:
+            torch.testing.assert_close(got, card, rtol=tol, atol=tol,
+                                       equal_nan=True)
+        else:
+            torch.testing.assert_close(got, card, rtol=0, atol=0,
+                                       equal_nan=True)
+        torch.testing.assert_close(got.cpu(), cpu, rtol=tol, atol=tol,
+                                   equal_nan=True)
+    return got_j, got_l
+
+
+LATTICE_DIMS = [(12, 12, 12), (13, 14, 16), (31, 29, 40), (40, 31), (64, 3),
+                (100,), (3, 4, 5), (7, 1, 9)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ALL_DTYPES, ids=lambda d: str(d)[6:])
+@pytest.mark.parametrize("dims", LATTICE_DIMS,
+                         ids=lambda d: "x".join(map(str, d)))
+def test_lattice_prolong_and_restrict(cuda, dims, dtype):
+    """J and L on 1-D, 2-D and 3-D lattices, with cropped edge boxes
+    (dims not divisible by 3) and dims of 1; real and complex vectors."""
+    _jl_against_plain(cuda, dims, dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", DTYPES, ids=lambda d: str(d)[6:])
+def test_lattice_prolong_and_restrict_nan_inf(cuda, dtype):
+    """NaN and Inf in ec, x and r: the same pattern as the plain version."""
+    got_j, got_l = _jl_against_plain(cuda, (13, 11, 10), dtype, poison=True)
+    assert got_j.isnan().any() and got_l.isnan().any()
+    assert torch.isfinite(got_l).any()
+
+
+@pytest.mark.gpu
+def test_lattice_kernels_on_two_streams(cuda):
+    """J and L enqueued on two streams at once agree with their plain
+    versions."""
+    from lis_tpu_torch.ops import amg
+    D, dinv, tent = _lattice_level((31, 29, 40), torch.float64)
+    Dc, dc, tc = D.to(cuda), dinv.to(cuda), tent.to(cuda)
+    rng = np.random.default_rng(4)
+    nc = tent.wc.shape[0]
+    ins = [(_randn(rng, nc, torch.float64).to(cuda),
+            _randn(rng, D.nrows, torch.float64).to(cuda)) for _ in range(2)]
+    want = [(amg._prolong_plain(Dc, dc, tc, ec, x),
+             amg._restrict_plain(Dc, dc, tc, x)) for ec, x in ins]
+    streams = [torch.cuda.Stream() for _ in ins]
+    for s in streams:
+        s.wait_stream(torch.cuda.current_stream())
+    got = [[], []]
+    for _ in range(8):
+        for k, s in enumerate(streams):
+            with torch.cuda.stream(s):
+                ec, x = ins[k]
+                got[k].append((amg.lattice_prolong(Dc, dc, tc, ec, x),
+                               amg.lattice_restrict(Dc, dc, tc, x)))
+    torch.cuda.synchronize()
+    for k in range(2):
+        for gj, gl in got[k]:
+            assert torch.equal(gj, want[k][0]) and torch.equal(gl, want[k][1])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("opts", [
+    "-i cg -p saamg", "-i cg -p saamg -saamg_smoother jacobi",
+    "-i cg -p saamg -saamg_lattice false", "-i bicgstab -p ilut",
+    "-i bicgstab -p iluc -iluc_drop 0.01 -auto_storage false",
+    "-i cg -p sainv",
+    "-i bicgstab -p is", "-i cg -p bjacobi", "-i gmres -p hybrid"])
+def test_remaining_preconditioners_on_the_card(cuda, opts):
+    """The preconditioners of the last slice on a small routed operator on
+    the card against the same solve on the CPU: equal status, the count
+    ±1, x to 1e-8; the lattice SA-AMG launches J and L.  ILUC runs at
+    -iluc_drop 0.01: at 0.05 it drops every off-diagonal entry of this
+    operator, and BiCGSTAB with the Jacobi-like result moves its count by
+    3 under a 1e-14 change of b (poisson3d27 64³ on the CPU,
+    lis_tpu_torch/tools/count_spread.py), so the CSR's atomic sums on the
+    card move it as far."""
+    from lis_tpu_torch.ops import amg
+    from lis_tpu_torch.utils.testmat import poisson3d27
+    A = poisson3d27(20, 21, 22)
+    A_cpu = A.to("cpu")
+    b = np.random.default_rng(5).standard_normal(A.nrows)
+    opts += " -tol 1e-10"
+    want = lis_tpu_torch.solve(A_cpu, b, options=opts)
+    before = amg.lattice_prolong.launches
+    got = lis_tpu_torch.solve(A, b, options=opts)
+    assert got.x.is_cuda and got.status == want.status == 0
+    assert abs(got.iters - want.iters) <= 1
+    torch.testing.assert_close(got.x.cpu(), want.x, rtol=1e-8,
+                               atol=1e-8 * float(want.x.abs().max()))
+    if "saamg" in opts and "lattice false" not in opts:
+        assert amg.lattice_prolong.launches > before

@@ -17,7 +17,10 @@ import lis_tpu_torch.io.mm, lis_tpu_torch._native
 import lis_tpu_torch.cli.lsolve, lis_tpu_torch.cli.hpcg
 import lis_tpu_torch.matrix.split, lis_tpu_torch.ops.trisolve
 import lis_tpu_torch.precon.ssor, lis_tpu_torch.precon.ilu
-import lis_tpu_torch.precon.ads
+import lis_tpu_torch.precon.ads, lis_tpu_torch.precon.jacobi
+import lis_tpu_torch.precon.is_precon, lis_tpu_torch.precon.sainv
+import lis_tpu_torch.precon.hybrid, lis_tpu_torch.precon.saamg
+import lis_tpu_torch.ops.amg
 import lis_tpu_torch.solvers.stationary, lis_tpu_torch.solvers.gmres
 import lis_tpu_torch.solvers.cgs, lis_tpu_torch.solvers.tfqmr
 import lis_tpu_torch.solvers.orthomin, lis_tpu_torch.solvers.gpbicg

@@ -259,6 +259,10 @@ def test_ssor_psolve_folds_dtil_into_the_second_solve(monkeypatch):
 
 
 def test_relaxed_sweeps_match_lis_tpu():
+    """lis_tpu's form ``relaxed_sweeps(L, U, dinv, b, nsweeps, lower)`` in
+    both packages (H's series on a DIA triangle, lis_tpu's loop on any
+    other format), and the port's series ``sweep_series`` that every
+    sweep runs through, against lis_tpu's."""
     a = MATRICES["poisson3d27"]()
     J, T = _pair(a)
     Jd, Td = jconvert(J, "dia"), lis_tpu_torch.convert_matrix(T, "dia",
@@ -269,14 +273,26 @@ def test_relaxed_sweeps_match_lis_tpu():
     Lt, Ut, dt = tsplit_dia(Td)
     assert Lt.nnz == Lj.nnz and Ut.nnz == Uj.nnz
     assert Lt.value.data_ptr() == Td.value.data_ptr()       # a view
+    st = tsplit(T)
     b = _vec(a.shape[0], False)
     for lower in (True, False):
-        for ns in (1, 2, 3):
-            xj = jts.relaxed_sweeps(Lj, Uj, 1.0 / dj, jnp.asarray(b), ns,
-                                    lower)
-            xt = tts.relaxed_sweeps(Lt if lower else Ut, torch.from_numpy(b),
-                                    ns, w=1.0 / dt)
-            _close(_t(xt), _j(xj), 1e-13)
+        for ns in (0, 1, 2, 3):
+            xj = _j(jts.relaxed_sweeps(Lj, Uj, 1.0 / dj, jnp.asarray(b), ns,
+                                       lower))
+            xt = tts.relaxed_sweeps(Lt, Ut, 1.0 / dt, torch.from_numpy(b),
+                                    ns, lower)
+            _close(_t(xt), xj, 1e-13)
+            # the same with CSR triangles: lis_tpu's loop of matvecs
+            xc = tts.relaxed_sweeps(st.L, st.U, 1.0 / dt,
+                                    torch.from_numpy(b), ns, lower=lower)
+            _close(_t(xc), xj, 1e-13)
+            if ns:
+                xs = tts.sweep_series(Lt if lower else Ut,
+                                      torch.from_numpy(b), ns, w=1.0 / dt)
+                assert torch.equal(xs, xt)
+    # the defaults: two sweeps of the lower triangle
+    _close(_t(tts.relaxed_sweeps(Lt, Ut, 1.0 / dt, torch.from_numpy(b))),
+           _j(jts.relaxed_sweeps(Lj, Uj, 1.0 / dj, jnp.asarray(b))), 1e-13)
 
 
 # ---- the sweep kernels' plain versions ---------------------------------------
@@ -348,7 +364,7 @@ def test_relaxed_sweeps_series_is_the_sweep_formula(trans, case, ns):
     want = None
     for _ in range(ns):
         want = y = (rhs - M @ (s_ * y)) * w
-    got = tts.relaxed_sweeps(
+    got = tts.sweep_series(
         T, torch.from_numpy(vecs["rhs"]), ns, trans=trans,
         **{k: torch.from_numpy(vecs[k]) for k in on})
     _close(got.numpy(), want, 1e-13)
@@ -359,9 +375,9 @@ def test_relaxed_sweeps_refuses_what_it_cannot_run():
                                       device="cpu")
     x = torch.ones(5, dtype=torch.float64)
     with pytest.raises(ValueError, match="nsweeps"):
-        tts.relaxed_sweeps(T, x, 0)
+        tts.sweep_series(T, x, 0)
     with pytest.raises(ValueError, match="start"):
-        tts.relaxed_sweeps(T, x, 2, s=x)
+        tts.sweep_series(T, x, 2, s=x)
 
 
 # ---- preconditioners --------------------------------------------------------

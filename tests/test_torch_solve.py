@@ -86,9 +86,6 @@ def test_solve_matches_lis_tpu(grid, storage, solver, precon):
 
 
 @pytest.mark.parametrize("opts,match", [
-    ("-i cg -p ilut -storage cst", "preconditioner 'ilut'.*queue 1 item 9"),
-    ("-i cg -p sainv -storage cst", "preconditioner 'sainv'.*queue 1 item 9"),
-    ("-i cg -p saamg -storage cst", "preconditioner 'saamg'.*queue 1 item 9"),
     ("-i cg -storage cst -f quad", "queue 1 item 7"),
     ("-i cg -storage cst -f switch_df", "queue 1 item 7"),
     ("-i cg -storage cst -reorder rcm", "reorder"),
