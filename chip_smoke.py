@@ -131,12 +131,16 @@ Phases (one or more lines each):
    solve, views and allocations left out) and host reads per iteration,
    then one table row.
 11. the remaining preconditioners: (a) kernels J (lattice_prolong) and L
-   (lattice_restrict) against their plain versions, bit-equal, on the
-   96³ fine level (timed beside the plain version, the byte bound and the
+   (lattice_restrict) over the smoothed prolongator P assembled as the
+   solve path assembles it (``LatticeTransfer``), against their plain
+   versions, bit-equal, on the 96³ fine level (timed beside the plain
+   version, the byte bound of P's CSR arrays and the vectors, and the
    one-call library counterpart: torch.sparse.addmm(x, P, ec) and
-   torch.sparse.mm(Pᵀ, r) with P assembled by scipy as torch sparse CSR
+   torch.sparse.mm(Pᵀ, r) on the same P as torch sparse CSR, built
    outside the timed region) and on a 94x95x97 lattice (cropped edge
-   boxes), f64 and f32; (b) solve(poisson3d27 96³ CSR, ones, "-i cg -p
+   boxes), f64 and f32; at f64 the assembled P is also held to lis_tpu's
+   implicit form (z = Pt·ec, z − ω·D⁻¹(A·z), on the level's DIA) to rtol
+   1e-12; (b) solve(poisson3d27 96³ CSR, ones, "-i cg -p
    saamg -tol 1e-10") with default routing: route dia, the lattice
    hierarchy, SUCCESS, true residual <= 1e-9, the CPU's count ±1, and J,
    L once and H twelve times per level per V-cycle (E, G as CG calls
@@ -153,8 +157,9 @@ Phases (one or more lines each):
    tools/count_spread.py), each SUCCESS at the CPU's count ±1 with the
    kernels its apply
    uses launched.  Each SA-AMG solve prints the level sizes, ptime,
-   ms/iter, one psolve's time and launches, and the finest level's kernel
-   times.
+   ms/iter, one psolve's time and launches, the finest level's kernel
+   times (J and L beside their byte bound) and the device memory of the
+   transfers.
 
 Phases 1 to 11 all run at the sizes named here.  The matrices of phases 3
 to 6 are built with no ``device`` argument, so they live on the default
@@ -169,7 +174,8 @@ Launch counts are set to 0 just before each solve of phases 3, 5, 6 and
 8 to 11 and read just after; launches made to compare a kernel with its plain
 version are not counted.  It prints one JSON line of per-kernel results
 (each row's ``timing`` says how its ``ms`` was taken; where that is
-"queued", ``host_ms`` is the figure taken as ``plain_ms`` is), then as its
+"queued", ``host_ms`` and ``library_host_ms`` are the kernel's and the
+library call's figures taken as ``plain_ms`` is), then as its
 last line {"ok": true, "device": {...}}.  Any failure exits
 non-zero before that line; so does a machine without CUDA.
 """
@@ -354,9 +360,10 @@ def main() -> None:
         recorded per dtype).  The record's ``timing`` says how ``ms`` and
         ``library_ms`` were taken: "host", as ``plain_ms`` always is (the
         host enqueues each call as the device runs), or, with ``queued``,
-        "queued" (from the device's queue, see cuda_ms); ``host_ms`` is
-        then the kernel's time taken as ``plain_ms`` is, the one to hold
-        against it."""
+        "queued" (from the device's queue, see cuda_ms); ``host_ms`` and
+        ``library_host_ms`` are then the kernel's and the library call's
+        times taken as ``plain_ms`` is, the pair to hold against each
+        other where the host's launch is what a solve pays."""
         wide = torch.complex128 if got.is_complex() else torch.float64
         err = (got.to(wide) - want.to(wide)).abs().max().item()
         if exact:
@@ -392,6 +399,10 @@ def main() -> None:
                 rec["host_ms"] = cuda_ms(kern)
                 line += (f"; {rec['host_ms']:.4f} ms a call with the host "
                          f"enqueueing each launch, as the plain version's")
+                if library is not None:
+                    rec["library_host_ms"] = cuda_ms(library)
+                    line += (f" (library "
+                             f"{rec['library_host_ms']:.4f} ms)")
         print(line, flush=True)
         if not ok:
             fail(f"{name} {dtype} {shape} disagrees with its plain version")
@@ -1947,14 +1958,17 @@ def phase_precon_more(S):
         print(f"phase amg: {msg}", flush=True)
 
     def level_of(D, dims):
-        """dinv and the tent of the finest lattice level of the DIA D."""
-        cd = tuple((f + 2) // 3 for f in dims)
-        counts = np.bincount(psa._lattice_agg(dims, cd),
-                             minlength=int(np.prod(cd)))
-        d = D.get_diagonal()
-        dinv = 1.0 / torch.where(d != 0, d, torch.ones_like(d))
-        wc = torch.from_numpy(1.0 / np.sqrt(counts)).to(dev, D.value.dtype)
-        return dinv, amg.LatticeTent(wc=wc, fdims=dims, cdims=cd)
+        """The finest lattice level of the DIA D: its transfer, assembled
+        as the solve path assembles it, P as scipy CSR, and lis_tpu's
+        implicit form (dinv and the tent) for the reference."""
+        p_h, i_h, v_h = D.to_csr_arrays()
+        a_h = sp.csr_matrix((v_h, i_h, p_h), shape=D.shape)
+        P, cd, wc, dinv = psa.lattice_prolongator(a_h, dims)
+        P.sort_indices()
+        T = amg.LatticeTransfer.from_scipy(P, dev)
+        tent = amg.LatticeTent(wc=torch.from_numpy(wc).to(dev), fdims=dims,
+                               cdims=cd)
+        return T, P, torch.from_numpy(dinv).to(dev), tent
 
     def sparse_csr(m, dtype):
         return torch.sparse_csr_tensor(
@@ -1965,73 +1979,86 @@ def phase_precon_more(S):
 
     # ---- (a) J and L on the 96^3 fine level and a cropped lattice --------
     S.stamp("phase 11a")
-    for dims in ((g96,) * 3, (94, 95, 97)):
+    for dims in ((g96,) * 3, (g96 - 2, g96 - 1, g96 + 1)):
         # dims slowest..fastest; poisson3d27_dia takes the fastest first
         Dd = testmat.poisson3d27_dia(*dims[::-1])
-        n, nnd = Dd.nrows, Dd.value.shape[0]
+        n = Dd.nrows
+        shape = "x".join(map(str, dims))
         timed_shape = dims == (g96,) * 3
+        t0 = time.perf_counter()
+        T64, P, dinv64, tent64 = level_of(Dd, dims)
+        nc, nnz = T64.nc, P.nnz
+        tag(f"{shape}: P and Pᵀ assembled and packed in "
+            f"{time.perf_counter() - t0:.2f} s ({n} x {nc}, nnz {nnz}, "
+            f"{nnz / n:.2f} a fine row, at most "
+            f"{int((T64.pptr[1:] - T64.pptr[:-1]).max())}; a Pᵀ row at "
+            f"most {int((T64.rptr[1:] - T64.rptr[:-1]).max())}); "
+            f"{T64.nbytes / 2**20:.1f} MiB on the card at f64")
         if timed_shape:
-            # the library yardstick: P = (I − ω D⁻¹A)·Pt assembled with
-            # scipy, as torch sparse CSR (outside the timed region)
-            t0 = time.perf_counter()
-            p_h, i_h, v_h = Dd.to_csr_arrays()
-            a_h = sp.csr_matrix((v_h, i_h, p_h), shape=(n, n))
-            dinv_h, tent_h = level_of(Dd, dims)
-            agg = psa._lattice_agg(dims, tent_h.cdims)
-            wc_h = tent_h.wc.cpu().numpy()
-            Pt = sp.csr_matrix((wc_h[agg], (np.arange(n), agg)),
-                               shape=(n, len(wc_h)))
-            P = (Pt - amg.OMEGA * sp.diags(dinv_h.cpu().numpy())
-                 @ (a_h @ Pt)).tocsr()
             PT = P.T.tocsr()
-            for m in (P, PT):
-                m.sort_indices()
-            tag(f"96^3: P assembled with scipy for the library call in "
-                f"{time.perf_counter() - t0:.2f} s ({P.shape[0]} x "
-                f"{P.shape[1]}, nnz {P.nnz})")
+            PT.sort_indices()
         for dtype in (torch.float64, torch.float32):
-            D = Dd.to(dtype=dtype)
-            dinv, tent = level_of(D, dims)
-            nc = tent.wc.shape[0]
+            T = T64.to(dtype=dtype)
             ec, x, r = randn(nc, dtype), randn(n, dtype), randn(n, dtype)
-            shape = "x".join(map(str, dims))
             tj = tl = None
+            if dtype == torch.float64:
+                # the assembled P against lis_tpu's implicit form
+                D = Dd.to(dtype=dtype)
+                for what, got, want in (
+                        ("J", amg.lattice_prolong(T, ec, x),
+                         amg.implicit_prolong(D, dinv64, tent64, ec, x)),
+                        ("L", amg.lattice_restrict(T, r),
+                         amg.implicit_restrict(D, dinv64, tent64, r))):
+                    rel = ((got - want).abs().max()
+                           / want.abs().max()).item()
+                    tag(f"{shape} {what}: the assembled P against the "
+                        f"implicit reference: {rel:.3e} relative")
+                    if not rel <= 1e-12:
+                        fail(f"{what} over the assembled P differs from "
+                             f"the implicit reference by {rel:.2e}")
+                del D
             if timed_shape:
                 Pd, PTd = sparse_csr(P, dtype), sparse_csr(PT, dtype)
                 x2, ec2, r2 = x[:, None], ec[:, None], r[:, None]
                 e = es(dtype)
-                # J: diagonals, dinv, x and out once, ec and wc once
-                tj = (lambda: amg.lattice_prolong(D, dinv, tent, ec, x),
-                      lambda: amg._prolong_plain(D, dinv, tent, ec, x),
+                # J: P's entries and row pointers, ec, x and out once
+                tj = (lambda: amg.lattice_prolong(T, ec, x),
+                      lambda: amg._prolong_plain(T, ec, x),
                       lambda: torch.sparse.addmm(x2, Pd, ec2),
-                      (nnd * n + 3 * n + 2 * nc) * e + 8 * nnd,
-                      3 * nnd * n + 5 * n)
-                # L: diagonals, dinv and r once, wc and the result once
-                tl = (lambda: amg.lattice_restrict(D, dinv, tent, r),
-                      lambda: amg._restrict_plain(D, dinv, tent, r),
+                      nnz * (4 + e) + 4 * (n + 1) + (nc + 2 * n) * e,
+                      2 * nnz + n)
+                # L: Pᵀ's entries and row pointers, r and rc once
+                tl = (lambda: amg.lattice_restrict(T, r),
+                      lambda: amg._restrict_plain(T, r),
                       lambda: torch.sparse.mm(PTd, r2),
-                      (nnd * n + 2 * n + 2 * nc) * e + 8 * nnd,
-                      3 * nnd * n + 3 * n + nc)
+                      nnz * (4 + e) + 4 * (nc + 1) + (n + nc) * e,
+                      2 * nnz)
                 # the library calls compute the same functions
                 for got, want in ((torch.sparse.addmm(x2, Pd, ec2)[:, 0],
-                                   amg._prolong_plain(D, dinv, tent, ec, x)),
+                                   amg._prolong_plain(T, ec, x)),
                                   (torch.sparse.mm(PTd, r2)[:, 0],
-                                   amg._restrict_plain(D, dinv, tent, r))):
+                                   amg._restrict_plain(T, r))):
                     lerr = ((got - want).abs().max()
                             / want.abs().max()).item()
                     if lerr > (1e-12 if dtype == torch.float64 else 1e-4):
                         fail(f"the library P disagrees with J/L's plain "
                              f"versions by {lerr:.2e}")
+            # J and L take 0.02-0.05 ms at 96^3, about what the host needs
+            # to enqueue a launch: timed from the device's queue, as G is
+            # (the host's figures are the record's host_ms and
+            # library_host_ms)
             check("lattice_prolong", dtype, shape,
-                  amg.lattice_prolong(D, dinv, tent, ec, x),
-                  amg._prolong_plain(D, dinv, tent, ec, x), True, tj)
+                  amg.lattice_prolong(T, ec, x),
+                  amg._prolong_plain(T, ec, x), True, tj, queued=True)
             check("lattice_restrict", dtype, shape,
-                  amg.lattice_restrict(D, dinv, tent, r),
-                  amg._restrict_plain(D, dinv, tent, r), True, tl)
-            del D, tj, tl
-        del Dd
+                  amg.lattice_restrict(T, r),
+                  amg._restrict_plain(T, r), True, tl, queued=True)
+            del T, tj, tl
+            if timed_shape:
+                del Pd, PTd
+        del Dd, T64, P, dinv64, tent64
         if timed_shape:
-            del Pd, PTd, P, PT, Pt, a_h
+            del PT
     torch.cuda.empty_cache()
 
     def vcycle_report(tag_, M, Dfine, r, got):
@@ -2044,12 +2071,25 @@ def phase_precon_more(S):
         _, ops = dispatched(lambda: M.psolve(rv))
         lv = M.levels[0]
         h = cuda_ms(lambda: S.kernels["dia_relax"](lv.A, rv, rv), reps=10)
-        fine = {"J": cuda_ms(lambda: amg.lattice_prolong(
-                    lv.A, lv.dinv, lv.tent, rv[:lv.tent.wc.shape[0]], rv),
-                    reps=10),
-                "L": cuda_ms(lambda: amg.lattice_restrict(
-                    lv.A, lv.dinv, lv.tent, rv), reps=10)} \
-            if lv.tent is not None else {}
+        T = lv.transfer
+        fine = {}
+        if T is not None:
+            # each kernel's time on the finest level (from the device's
+            # queue) beside its byte bound (as phase 11a counts it, f64)
+            nnz = T.pcol.numel()
+            for k, fn, nb, fl in (
+                    ("J", lambda: amg.lattice_prolong(T, rv[:T.nc], rv),
+                     nnz * 12 + 4 * (T.n + 1) + (T.nc + 2 * T.n) * 8,
+                     2 * nnz + T.n),
+                    ("L", lambda: amg.lattice_restrict(T, rv),
+                     nnz * 12 + 4 * (T.nc + 1) + (T.n + T.nc) * 8,
+                     2 * nnz)):
+                ms = cuda_ms(fn, reps=10, queued=True)
+                b_ms = bound_ms(nb, fl, torch.float64)[0]
+                fine[k] = f"{ms:.4f} ms (bound {b_ms:.4f}, " \
+                    f"{100 * b_ms / ms:.0f} %)"
+        tbytes = sum(l.transfer.nbytes for l in M.levels
+                     if l.transfer is not None)
         per = 1e3 * r.itime / max(r.iters, 1)
         tag(f"{tag_}: levels {[l.A.nrows for l in M.levels]} + coarse "
             f"{M.coarse_inv.shape[0]}; status {r.status} iters {r.iters} "
@@ -2058,8 +2098,10 @@ def phase_precon_more(S):
             f"({100 * ps / per:.1f} % of an iteration), its launches "
             f"{ {k: c for k, c in per_ps.items() if c} } and torch "
             f"operations {ops['ops']} (host reads {ops['reads']}); finest "
-            f"level: the residual sweep over all of A (H) {h:.4f} ms, "
-            + ", ".join(f"{k} {t:.4f} ms" for k, t in fine.items())
+            f"level: the residual sweep over all of A (H) {h:.4f} ms"
+            + "".join(f", {k} {t}" for k, t in fine.items())
+            + (f"; the transfers of J and L {tbytes / 2**20:.1f} MiB on the "
+               f"card" if tbytes else "")
             + f"; launches in the solve {got}")
         return nlev
 
@@ -2091,10 +2133,10 @@ def phase_precon_more(S):
                          f"and solve; the first solve {t_cold:.3f} s with "
                          f"the routing)", M, Dr, r, got)
     if route != "dia" or r.status != 0 or not r.true_resid <= 1e-9 \
-            or any(lv.tent is None for lv in M.levels):
+            or any(lv.transfer is None for lv in M.levels):
         fail(f"cg -p saamg 96^3: route {route}, status {r.status}, true "
              f"residual {r.true_resid:.3e}, levels "
-             f"{[lv.tent is not None for lv in M.levels]}")
+             f"{[lv.transfer is not None for lv in M.levels]}")
     # one psolve per iteration; per level and cycle J and L once, H twelve
     # times (two sweeps per Gauss-Seidel half, four residuals)
     need_counts("cg -p saamg 96^3", got, {
@@ -2167,7 +2209,7 @@ def phase_precon_more(S):
                          f"{wall:.3f} s)", M, Dr, r, got)
     it = r.iters
     if r.status != 0 or not r.true_resid <= 1e-9 \
-            or any(lv.tent is not None for lv in M.levels):
+            or any(lv.transfer is not None for lv in M.levels):
         fail(f"graph saamg 64^3: status {r.status}, true residual "
              f"{r.true_resid:.3e}")
     # four level-scheduled solves per level and cycle, no lattice kernel
@@ -2271,8 +2313,8 @@ def plain_vcycle(M):
         lv = M.levels[k]
         x = gs(lv, b, True)
         x = x + gs(lv, relax(lv.A, b, x), False)
-        rc = amg._restrict_plain(lv.A, lv.dinv, lv.tent, relax(lv.A, b, x))
-        x = amg._prolong_plain(lv.A, lv.dinv, lv.tent, cycle(k + 1, rc), x)
+        rc = amg._restrict_plain(lv.transfer, relax(lv.A, b, x))
+        x = amg._prolong_plain(lv.transfer, cycle(k + 1, rc), x)
         x = x + gs(lv, relax(lv.A, b, x), True)
         return x + gs(lv, relax(lv.A, b, x), False)
     return lambda b: cycle(0, b)

@@ -8,11 +8,11 @@ far: the three of the Benes shuffle routing (``euler_split``,
 (``iluk_factor``: CSR, level of fill k; ``ilu0_dia``: ILU(0) on the DIA
 diagonals; ``ilut_factor`` and ``iluc_factor``: dual-threshold and Crout
 ILU; ``sainv_factor``: the sparse A-biconjugation of SAINV) and SA-AMG's
-aggregation of a strength graph (``amg_aggregate``).  There is one copy of
-the C++ source: ``lis_tpu/_native/lis_native.cpp``
-is read by path (never imported — importing ``lis_tpu`` pulls in JAX) and
-compiled with g++ into ``build/lis_tpu_torch/`` at the repository root on
-first use, and again whenever the source is newer than the library.
+aggregation of a strength graph (``amg_aggregate``).  The C++ source is
+the port's own copy of lis_tpu's, ``lis_tpu_torch/_native/lis_native.cpp``
+beside this file; it is compiled with g++ into ``build/lis_tpu_torch/`` at
+the repository root on first use, and again whenever the source is newer
+than the library.
 Without a compiler every function returns None and the caller takes its
 pure-Python fallback, as in lis_tpu.
 """
@@ -28,7 +28,8 @@ import numpy as np
 
 _ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
-_SRC = os.path.join(_ROOT, "lis_tpu", "_native", "lis_native.cpp")
+_SRC = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                    "lis_native.cpp")
 _BUILD = os.path.join(_ROOT, "build", "lis_tpu_torch")
 _SO = os.path.join(_BUILD, f"lis_native_{sys.implementation.cache_tag}.so")
 

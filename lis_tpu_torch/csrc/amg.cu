@@ -1,57 +1,59 @@
 // Kernels J and L · lattice_prolong / lattice_restrict — SA-AMG's
-// coarse-grid transfers on a lattice.
+// coarse-grid transfers on a lattice, over the smoothed prolongator that
+// the host assembles at set-up.
 //
-// lis_tpu has no Pallas kernel here: XLA fuses the streamed prolongator of
-// lis_tpu/precon/saamg.py (LatticeTent :298-327, ImplicitP :330-352): a
-// broadcast and crop, a DIA product and elementwise passes for the
-// prolongation, a DIA product of the transpose, a pad and a box sum for
-// the restriction.  PyTorch would run about nine launches and three
-// fine-level temporaries for each.  On a lattice of dims (f0, f1, f2)
-// (slowest to fastest; 1-D and 2-D lattices have leading 1s), the
-// aggregates are boxes of 3 points per dimension, cropped at the far
-// edges, (c0, c1, c2) = ceil(f / 3) of them; wc[c] = 1/sqrt(|box c|).
-// With A the level's square DIA (val[k, i] = A[i, i + off_k]), dinv =
-// 1/diag(A) and w = 2/3:
+// lis_tpu has no Pallas kernel here: XLA fuses its implicit prolongator
+// (lis_tpu/precon/saamg.py: LatticeTent :298-327, ImplicitP :330-352), a
+// box broadcast, a DIA product of the level's A and a box sum, chosen
+// because it rides the TPU's streaming DIA product.  On the H100 that
+// form reads A's 27 diagonals for every fine row (216 B at f64), against
+// about 53 B for the rows of P = (I - w D^-1 A) Pt itself, while a gather
+// from a coarse vector that sits in L2 is cheap.  So here P (n x nc) and
+// P^T (nc x n) are CSR arrays (int32 row pointers and columns, values of
+// the level's real type), built on the host (lis_tpu_torch/ops/amg.py,
+// LatticeTransfer):
 //
-//   J:  out[i] = x[i] + (z[i] - (w*dinv[i]) * sum_k val[k,i] * z[i+off_k]),
-//       z[j] = ec[box(j)] * wc[box(j)]
-//   L:  rc[c] = (sum over box c, lexicographic, of
-//               r[j] - w * sum_k val[k, j-off_k] * (dinv[j-off_k] * r[j-off_k]))
-//               * wc[c]
+//   J:  out[i] = x[i] + sum_t val[t] * ec[col[t]],  t in row i of P
+//   L:  rc[c]  = sum_t val[t] * r[col[t]],          t in row c of P^T
 //
-// Terms whose index falls outside [0, n) are dropped, as kernels E and F
-// drop them.  Every product and sum is rounded on its own (no fused
-// multiply-add) in the order of the plain PyTorch version
-// (lis_tpu_torch/ops/amg.py), so on real data both kernels equal it bit for
-// bit.
+// Bound on the H100: bytes.  J reads P's entries (12 B each at f64), its
+// row pointers, ec and x once and writes out; L reads P^T's entries and
+// row pointers and r once and writes rc.  The gathered vectors come from
+// L1 and L2.
 //
-// Bound on the H100: bytes.  J reads the diagonals, dinv and x and writes
-// out once, (nnd + 3) n elements; L reads the diagonals, dinv and r,
-// (nnd + 2) n elements, and writes the coarse vector.  The coarse vectors
-// and the shifted reads come from L1 and L2.
+// J: one thread per fine row, consecutive threads on consecutive rows.  A
+// lattice row of P holds at most 8 entries (4.5 on average), so a lane
+// that walked its own row would spread each load of the warp over some
+// 150 entries.  Instead the warp first stages the products of its 32
+// rows' entries in shared memory, lane l taking entries l, l + 32, ...
+// of the warp's contiguous span (coalesced), then each lane sums its own
+// row from shared memory in column order.  The stage holds 8 entries a
+// row, the most a lattice row of P has; LatticeTransfer.from_scipy
+// refuses a P with longer rows.  No padding: a row's length comes from
+// its row pointers, so an Inf or NaN in ec reaches only the rows that
+// hold its column.
+// L: a row of P^T holds about 120 entries (at most 125, the 5^3 support
+// of a smoothed box), so a warp takes a coarse row: lane l sums entries
+// l, l + 32, ... (coalesced, r gathered), then the lanes fold in halves
+// (l + 16 onto l, then 8, 4, 2, 1).  Warps take coarse rows in
+// lexicographic order, so the blocks in flight share the same few fine
+// planes of r in L2 (at 192^3 r is 56.6 MB, more than the 50 MB L2).  No
+// atomics: the result is the same every run.
 //
-// J: one thread per fine row, consecutive threads on consecutive rows, so
-// every diagonal is one coalesced stream, as in kernel E.  z is formed on
-// the fly from the neighbour's box, so no fine temporary is stored.  A
-// neighbour's lattice point comes from the row's own point and the
-// offset's digits (d0, d1, d2), 0 <= d2 < f2, 0 <= d1 < f1, with one carry
-// per dimension: no division per term.
-// L: a block takes a tile of kTile coarse points along the fastest
-// dimension at one (c0, c1).  Its threads form z for the up to 9 * 3 kTile
-// fine rows of those boxes (kernel F's term order, coalesced along the
-// fastest dimension) into shared memory; then one thread per coarse point
-// sums its box and scales it.
+// Every product and sum is rounded on its own (no fused multiply-add) in
+// the order of the plain PyTorch versions (lis_tpu_torch/ops/amg.py), so
+// on real and complex data both kernels equal them bit for bit.
 //
-// Types: float or double diagonals, dinv and wc, with vectors of the same
-// type or of the complex type of the same width.
+// Types: float or double values, with vectors of the same type or of the
+// complex type of the same width (multiplied part by part).
 #include "common.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kMaxNnd = 512;
-constexpr int kTile = 32;                 // L: coarse points a block
-constexpr int kTileRows = 9 * 3 * kTile;  // L: fine rows a block
+constexpr int kWarps = kThreads / 32;
+constexpr int kStage = 32 * 8;            // J: products a warp stages
+                                          // (ops/amg.py MAX_ROW = 8)
 
 template <typename T>
 struct alignas(2 * sizeof(T)) Cx {
@@ -62,13 +64,7 @@ __device__ __forceinline__ float mul_(float a, float b) { return __fmul_rn(a, b)
 __device__ __forceinline__ double mul_(double a, double b) { return __dmul_rn(a, b); }
 __device__ __forceinline__ float add_(float a, float b) { return __fadd_rn(a, b); }
 __device__ __forceinline__ double add_(double a, double b) { return __dadd_rn(a, b); }
-__device__ __forceinline__ float sub_(float a, float b) { return __fsub_rn(a, b); }
-__device__ __forceinline__ double sub_(double a, double b) { return __dsub_rn(a, b); }
 
-template <typename T>
-__device__ __forceinline__ Cx<T> mul_(Cx<T> a, T b) {
-    return Cx<T>{mul_(a.re, b), mul_(a.im, b)};
-}
 template <typename T>
 __device__ __forceinline__ Cx<T> mul_(T b, Cx<T> a) {
     return Cx<T>{mul_(b, a.re), mul_(b, a.im)};
@@ -77,197 +73,127 @@ template <typename T>
 __device__ __forceinline__ Cx<T> add_(Cx<T> a, Cx<T> b) {
     return Cx<T>{add_(a.re, b.re), add_(a.im, b.im)};
 }
-template <typename T>
-__device__ __forceinline__ Cx<T> sub_(Cx<T> a, Cx<T> b) {
-    return Cx<T>{sub_(a.re, b.re), sub_(a.im, b.im)};
-}
 
 template <typename T> __device__ __forceinline__ T zero_of(T) { return T(0); }
 template <typename T>
 __device__ __forceinline__ Cx<T> zero_of(Cx<T>) { return Cx<T>{T(0), T(0)}; }
 
-struct Lattice {
-    int64_t n;
-    int f0, f1, f2;   // fine dims
-    int c0, c1, c2;   // coarse dims
-};
-
-// The row's box: coarse index of the lattice point (p0, p1, p2).
-__device__ __forceinline__ int64_t box_of(const Lattice& g, int p0, int p1,
-                                          int p2) {
-    return (int64_t(p0 / 3) * g.c1 + p1 / 3) * g.c2 + p2 / 3;
+template <typename T>
+__device__ __forceinline__ T shfl_down(T v, int d) {
+    return __shfl_down_sync(0xffffffffu, v, d);
+}
+template <typename T>
+__device__ __forceinline__ Cx<T> shfl_down(Cx<T> v, int d) {
+    return Cx<T>{__shfl_down_sync(0xffffffffu, v.re, d),
+                 __shfl_down_sync(0xffffffffu, v.im, d)};
 }
 
 template <typename T, typename U>
 __global__ void __launch_bounds__(kThreads)
-prolong_kernel(const T* __restrict__ val, const int64_t* __restrict__ off,
-               const T* __restrict__ dinv, const T* __restrict__ wc,
-               const U* __restrict__ ec, const U* __restrict__ x,
-               U* __restrict__ out, Lattice g, int nnd, T omega) {
-    __shared__ int64_t offs[kMaxNnd];
-    __shared__ int dig[kMaxNnd][3];
-    for (int k = threadIdx.x; k < nnd; k += kThreads) {
-        // floor division: 0 <= d2 < f2 and 0 <= d1 < f1 for any sign
-        const int64_t o = off[k];
-        int64_t q = o / g.f2, d2 = o - q * g.f2;
-        if (d2 < 0) { d2 += g.f2; --q; }
-        int64_t d0 = q / g.f1, d1 = q - d0 * g.f1;
-        if (d1 < 0) { d1 += g.f1; --d0; }
-        offs[k] = o;
-        dig[k][0] = int(d0);
-        dig[k][1] = int(d1);
-        dig[k][2] = int(d2);
-    }
-    __syncthreads();
-    const int64_t i = blockIdx.x * int64_t(kThreads) + threadIdx.x;
-    if (i >= g.n) return;
-    const uint32_t q = uint32_t(i) / uint32_t(g.f2);
-    const int p2 = int(uint32_t(i) - q * uint32_t(g.f2));
-    const int p0 = int(q / uint32_t(g.f1));
-    const int p1 = int(q - uint32_t(p0) * uint32_t(g.f1));
-    int64_t b = box_of(g, p0, p1, p2);
-    const U zi = mul_(ec[b], wc[b]);
+prolong_kernel(const int* __restrict__ ptr, const int* __restrict__ col,
+               const T* __restrict__ val, const U* __restrict__ ec,
+               const U* __restrict__ x, U* __restrict__ out, int n) {
+    __shared__ U stage[kWarps][kStage];
+    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+    const int64_t r0 = int64_t(blockIdx.x) * kThreads + warp * 32;
+    if (r0 >= n) return;                       // uniform across the warp
+    const int first = int(r0);
+    const int row = first + lane;
+    const bool live = row < n;
+    const int last = min(first + 32, n);
+    const int b = ptr[first], e = ptr[last];
+    const int rb = live ? ptr[row] : 0, re = live ? ptr[row + 1] : 0;
+    U* s = stage[warp];                        // e - b <= kStage
+    for (int t = b + lane; t < e; t += 32) s[t - b] = mul_(val[t], ec[col[t]]);
+    __syncwarp();
     U acc = zero_of(U{});
-#pragma unroll 4
-    for (int k = 0; k < nnd; ++k) {
-        const int64_t j = i + offs[k];
-        if (j < 0 || j >= g.n) continue;
-        int s2 = p2 + dig[k][2], s1 = p1 + dig[k][1], s0 = p0 + dig[k][0];
-        if (s2 >= g.f2) { s2 -= g.f2; ++s1; }
-        if (s1 >= g.f1) { s1 -= g.f1; ++s0; }
-        b = box_of(g, s0, s1, s2);
-        acc = add_(acc, mul_(val[int64_t(k) * g.n + i], mul_(ec[b], wc[b])));
-    }
-    out[i] = add_(x[i], sub_(zi, mul_(mul_(omega, dinv[i]), acc)));
+    for (int t = rb; t < re; ++t) acc = add_(acc, s[t - b]);
+    if (live) out[row] = add_(x[row], acc);
 }
 
 template <typename T, typename U>
 __global__ void __launch_bounds__(kThreads)
-restrict_kernel(const T* __restrict__ val, const int64_t* __restrict__ off,
-                const T* __restrict__ dinv, const T* __restrict__ wc,
-                const U* __restrict__ r, U* __restrict__ rc, Lattice g,
-                int ntile, int nnd, T omega) {
-    __shared__ int64_t offs[kMaxNnd];
-    __shared__ U zs[kTileRows];
-    for (int k = threadIdx.x; k < nnd; k += kThreads) offs[k] = off[k];
-    __syncthreads();
-    const int tile = int(blockIdx.x % unsigned(ntile));
-    const int64_t rest = blockIdx.x / unsigned(ntile);
-    const int q1 = int(rest % g.c1), q0 = int(rest / g.c1);
-    const int first2 = 3 * kTile * tile;           // first fine point, dim 2
-    for (int t = threadIdx.x; t < kTileRows; t += kThreads) {
-        // fine point (3 q0 + a, 3 q1 + b, first2 + e) of the tile's boxes,
-        // with consecutive t on consecutive e
-        const int ab = t / (3 * kTile), e = t - ab * (3 * kTile);
-        const int p0 = 3 * q0 + ab / 3, p1 = 3 * q1 + ab % 3,
-                  p2 = first2 + e;
-        U z = zero_of(U{});
-        if (p0 < g.f0 && p1 < g.f1 && p2 < g.f2) {
-            const int64_t j = (int64_t(p0) * g.f1 + p1) * g.f2 + p2;
-            U acc = zero_of(U{});
-#pragma unroll 4
-            for (int k = 0; k < nnd; ++k) {
-                // row rr of diagonal k lands in column j
-                const int64_t rr = j - offs[k];
-                if (rr < 0 || rr >= g.n) continue;
-                acc = add_(acc, mul_(val[int64_t(k) * g.n + rr],
-                                     mul_(dinv[rr], r[rr])));
-            }
-            z = sub_(r[j], mul_(omega, acc));
-        }
-        zs[t] = z;
-    }
-    __syncthreads();
-    const int q2 = kTile * tile + int(threadIdx.x);
-    if (threadIdx.x >= kTile || q2 >= g.c2) return;
-    U s = zs[3 * threadIdx.x];                      // a = b = e = 0
-    for (int a = 0; a < 3 && 3 * q0 + a < g.f0; ++a)
-        for (int b = 0; b < 3 && 3 * q1 + b < g.f1; ++b)
-            for (int e = 0; e < 3 && 3 * q2 + e < g.f2; ++e)
-                if (a | b | e)
-                    s = add_(s, zs[(3 * a + b) * (3 * kTile) +
-                                   3 * threadIdx.x + e]);
-    const int64_t c = (int64_t(q0) * g.c1 + q1) * g.c2 + q2;
-    rc[c] = mul_(s, wc[c]);
+restrict_kernel(const int* __restrict__ ptr, const int* __restrict__ col,
+                const T* __restrict__ val, const U* __restrict__ r,
+                U* __restrict__ rc, int nc) {
+    const int lane = threadIdx.x & 31;
+    const int64_t c = int64_t(blockIdx.x) * kWarps + (threadIdx.x >> 5);
+    if (c >= nc) return;                       // uniform across the warp
+    const int b = ptr[c], e = ptr[c + 1];
+    U acc = zero_of(U{});
+    for (int t = b + lane; t < e; t += 32) acc = add_(acc, mul_(val[t], r[col[t]]));
+#pragma unroll
+    for (int d = 16; d > 0; d >>= 1) acc = add_(acc, shfl_down(acc, d));
+    if (lane == 0) rc[c] = acc;
 }
 
 template <typename T, typename U>
-void prolong(const void* val, const void* off, const void* dinv,
-             const void* wc, const void* ec, const void* x, void* out,
-             const Lattice& g, int nnd, double omega, cudaStream_t st) {
-    const int64_t blocks = (g.n + kThreads - 1) / kThreads;
+void prolong(const void* ptr, const void* col, const void* val,
+             const void* ec, const void* x, void* out, int n,
+             cudaStream_t st) {
+    const int64_t blocks = (int64_t(n) + kThreads - 1) / kThreads;
     if (blocks == 0) return;
     prolong_kernel<T, U><<<(unsigned)blocks, kThreads, 0, st>>>(
-        static_cast<const T*>(val), static_cast<const int64_t*>(off),
-        static_cast<const T*>(dinv), static_cast<const T*>(wc),
-        static_cast<const U*>(ec), static_cast<const U*>(x),
-        static_cast<U*>(out), g, nnd, T(omega));
+        static_cast<const int*>(ptr), static_cast<const int*>(col),
+        static_cast<const T*>(val), static_cast<const U*>(ec),
+        static_cast<const U*>(x), static_cast<U*>(out), n);
 }
 
 template <typename T, typename U>
-void restrict_(const void* val, const void* off, const void* dinv,
-               const void* wc, const void* r, void* rc, const Lattice& g,
-               int nnd, double omega, cudaStream_t st) {
-    const int ntile = (g.c2 + kTile - 1) / kTile;
-    const int64_t blocks = int64_t(g.c0) * g.c1 * ntile;
+void restrict_(const void* ptr, const void* col, const void* val,
+               const void* r, void* rc, int nc, cudaStream_t st) {
+    const int64_t blocks = (int64_t(nc) + kWarps - 1) / kWarps;
     if (blocks == 0) return;
     restrict_kernel<T, U><<<(unsigned)blocks, kThreads, 0, st>>>(
-        static_cast<const T*>(val), static_cast<const int64_t*>(off),
-        static_cast<const T*>(dinv), static_cast<const T*>(wc),
-        static_cast<const U*>(r), static_cast<U*>(rc), g, ntile, nnd,
-        T(omega));
+        static_cast<const int*>(ptr), static_cast<const int*>(col),
+        static_cast<const T*>(val), static_cast<const U*>(r),
+        static_cast<U*>(rc), nc);
 }
 
-bool valid(const Lattice& g, int64_t nnd) {
-    return nnd >= 0 && nnd <= kMaxNnd && g.f0 > 0 && g.f1 > 0 && g.f2 > 0 &&
-           g.n == int64_t(g.f0) * g.f1 * g.f2 && g.n < (int64_t(1) << 31) &&
-           g.c0 == (g.f0 + 2) / 3 && g.c1 == (g.f1 + 2) / 3 &&
-           g.c2 == (g.f2 + 2) / 3;
+bool valid(int64_t rows, int64_t cols, int64_t nnz) {
+    const int64_t lim = int64_t(1) << 31;
+    return rows >= 0 && cols >= 0 && nnz >= 0 && rows < lim && cols < lim &&
+           nnz < lim;
 }
 
 }  // namespace
 
-// vtype: 0 float, 1 double (val, dinv, wc); utype: the vectors' type,
-// vtype or its complex type (2 complex64, 3 complex128).  val (nnd*n,),
-// off (nnd,) int64, dinv (n,), wc (c0*c1*c2,), ec (c0*c1*c2,), x and
-// out (n,).
-LIS_EXPORT int lis_lattice_prolong(int vtype, int utype, const void* val,
-                                   const void* off, const void* dinv,
-                                   const void* wc, const void* ec,
-                                   const void* x, void* out, int64_t n,
-                                   int64_t nnd, int64_t f0, int64_t f1,
-                                   int64_t f2, int64_t c1, int64_t c2,
-                                   double omega, void* stream) {
-    const Lattice g{n, int(f0), int(f1), int(f2), int((f0 + 2) / 3),
-                    int(c1), int(c2)};
-    if (!valid(g, nnd)) return (int)cudaErrorInvalidValue;
+// vtype: 0 float, 1 double (val); utype: the vectors' type, vtype or its
+// complex type (2 complex64, 3 complex128).  P as CSR: ptr (n + 1,) and
+// col (nnz,) int32, val (nnz,), at most 8 entries a row (kStage / 32);
+// ec (nc,), x and out (n,).
+LIS_EXPORT int lis_lattice_prolong(int vtype, int utype, const void* ptr,
+                                   const void* col, const void* val,
+                                   const void* ec, const void* x, void* out,
+                                   int64_t n, int64_t nc, int64_t nnz,
+                                   void* stream) {
+    if (!valid(n, nc, nnz)) return (int)cudaErrorInvalidValue;
     cudaStream_t st = static_cast<cudaStream_t>(stream);
+    const int rows = int(n);
     switch (vtype * 4 + utype) {
-    case 0 * 4 + 0: prolong<float, float>(val, off, dinv, wc, ec, x, out, g, int(nnd), omega, st); break;
-    case 1 * 4 + 1: prolong<double, double>(val, off, dinv, wc, ec, x, out, g, int(nnd), omega, st); break;
-    case 0 * 4 + 2: prolong<float, Cx<float>>(val, off, dinv, wc, ec, x, out, g, int(nnd), omega, st); break;
-    case 1 * 4 + 3: prolong<double, Cx<double>>(val, off, dinv, wc, ec, x, out, g, int(nnd), omega, st); break;
+    case 0 * 4 + 0: prolong<float, float>(ptr, col, val, ec, x, out, rows, st); break;
+    case 1 * 4 + 1: prolong<double, double>(ptr, col, val, ec, x, out, rows, st); break;
+    case 0 * 4 + 2: prolong<float, Cx<float>>(ptr, col, val, ec, x, out, rows, st); break;
+    case 1 * 4 + 3: prolong<double, Cx<double>>(ptr, col, val, ec, x, out, rows, st); break;
     default: return (int)cudaErrorInvalidValue;
     }
     return (int)cudaGetLastError();
 }
 
-// As lis_lattice_prolong; r (n,), rc (c0*c1*c2,).
-LIS_EXPORT int lis_lattice_restrict(int vtype, int utype, const void* val,
-                                    const void* off, const void* dinv,
-                                    const void* wc, const void* r, void* rc,
-                                    int64_t n, int64_t nnd, int64_t f0,
-                                    int64_t f1, int64_t f2, int64_t c0,
-                                    int64_t c1, int64_t c2, double omega,
-                                    void* stream) {
-    const Lattice g{n, int(f0), int(f1), int(f2), int(c0), int(c1), int(c2)};
-    if (!valid(g, nnd)) return (int)cudaErrorInvalidValue;
+// As lis_lattice_prolong, over P^T: ptr (nc + 1,), col (nnz,), val (nnz,);
+// r (n,), rc (nc,).
+LIS_EXPORT int lis_lattice_restrict(int vtype, int utype, const void* ptr,
+                                    const void* col, const void* val,
+                                    const void* r, void* rc, int64_t nc,
+                                    int64_t n, int64_t nnz, void* stream) {
+    if (!valid(nc, n, nnz)) return (int)cudaErrorInvalidValue;
     cudaStream_t st = static_cast<cudaStream_t>(stream);
+    const int rows = int(nc);
     switch (vtype * 4 + utype) {
-    case 0 * 4 + 0: restrict_<float, float>(val, off, dinv, wc, r, rc, g, int(nnd), omega, st); break;
-    case 1 * 4 + 1: restrict_<double, double>(val, off, dinv, wc, r, rc, g, int(nnd), omega, st); break;
-    case 0 * 4 + 2: restrict_<float, Cx<float>>(val, off, dinv, wc, r, rc, g, int(nnd), omega, st); break;
-    case 1 * 4 + 3: restrict_<double, Cx<double>>(val, off, dinv, wc, r, rc, g, int(nnd), omega, st); break;
+    case 0 * 4 + 0: restrict_<float, float>(ptr, col, val, r, rc, rows, st); break;
+    case 1 * 4 + 1: restrict_<double, double>(ptr, col, val, r, rc, rows, st); break;
+    case 0 * 4 + 2: restrict_<float, Cx<float>>(ptr, col, val, r, rc, rows, st); break;
+    case 1 * 4 + 3: restrict_<double, Cx<double>>(ptr, col, val, r, rc, rows, st); break;
     default: return (int)cudaErrorInvalidValue;
     }
     return (int)cudaGetLastError();

@@ -9,11 +9,10 @@ CPU test tier imports every module on a machine without nvcc.
 
 Calling convention of every C entry point: device pointers and the CUDA
 stream (``torch.cuda.current_stream().cuda_stream``) travel as
-``c_void_p``; sizes as ``c_int64``; flags as ``c_int``; a real scalar as
-``c_double``.  The entry returns ``cudaGetLastError()`` after its launch
-and ``launch`` raises when that is not ``cudaSuccess`` — a refused launch
-(too much shared memory, a bad grid) never runs, and a later synchronize
-would not report it.
+``c_void_p``; sizes as ``c_int64``; flags as ``c_int``.  The entry
+returns ``cudaGetLastError()`` after its launch and ``launch`` raises when
+that is not ``cudaSuccess`` — a refused launch (too much shared memory, a
+bad grid) never runs, and a later synchronize would not report it.
 """
 
 from __future__ import annotations
@@ -35,7 +34,6 @@ _SO = os.path.join(_BUILD, "liblis_tpu_torch_kernels.so")
 _P = ctypes.c_void_p
 _I64 = ctypes.c_int64
 _INT = ctypes.c_int
-_F64 = ctypes.c_double
 
 # C entry point -> argument types (all return int: a cudaError_t)
 _SIGNATURES = {
@@ -55,10 +53,10 @@ _SIGNATURES = {
                       _I64, _I64, _P],
     "lis_trisolve_levels": [_INT, _INT, _P, _P, _P, _P, _P, _P, _P, _P,
                             _I64, _I64, _I64, _P, _P],
-    "lis_lattice_prolong": [_INT, _INT, _P, _P, _P, _P, _P, _P, _P, _I64,
-                            _I64, _I64, _I64, _I64, _I64, _I64, _F64, _P],
-    "lis_lattice_restrict": [_INT, _INT, _P, _P, _P, _P, _P, _P, _I64, _I64,
-                             _I64, _I64, _I64, _I64, _I64, _I64, _F64, _P],
+    "lis_lattice_prolong": [_INT, _INT, _P, _P, _P, _P, _P, _P, _I64, _I64,
+                            _I64, _P],
+    "lis_lattice_restrict": [_INT, _INT, _P, _P, _P, _P, _P, _I64, _I64,
+                             _I64, _P],
 }
 
 _lib = None

@@ -16,10 +16,13 @@ lis_tpu:
 - **Lattice** (a structured operator whose band offsets give its lattice
   dims, ``detect_lattice``): aggregates are 3x boxes per dimension, every
   level keeps the lattice, and its operator routes to DIA.  The smoothed
-  prolongator is never formed: the prolongation is one launch of kernel J
-  and the restriction one of kernel L (``ops/amg.py``).  The SGS smoother
-  runs relaxed sweeps of the level's DIA triangles (kernel H) and each
-  residual b − A·x is one launch of H over all of A's diagonals.
+  prolongator P, which scipy forms for the Galerkin product, is kept on
+  the device with its transpose (``LatticeTransfer``, where lis_tpu
+  applies it without forming it): the prolongation is one launch of
+  kernel J and the restriction one of kernel L (``ops/amg.py``).  The SGS
+  smoother runs relaxed sweeps of the level's DIA triangles (kernel H)
+  and each residual b − A·x is one launch of H over all of A's
+  diagonals.
 - **Graph** (anything else, -saamg_lattice false, -saamg_unsym): greedy
   aggregation on the strength graph, explicit CSR prolongators (lis_tpu
   tries its BES format first; BES is not ported yet, ROADMAP.md queue 3),
@@ -43,7 +46,7 @@ import torch
 from lis_tpu_torch.matrix.base import TensorFields, static
 from lis_tpu_torch.matrix.csr import CSRMatrix
 from lis_tpu_torch.matrix.dia import DIAMatrix, dia_relax, dia_relaxh
-from lis_tpu_torch.ops.amg import (OMEGA, LatticeTent, lattice_prolong,
+from lis_tpu_torch.ops.amg import (OMEGA, LatticeTransfer, lattice_prolong,
                                    lattice_restrict)
 from lis_tpu_torch.ops.trisolve import (TriSolvePlan, make_plan,
                                         sweep_series, trisolve)
@@ -56,7 +59,7 @@ COARSE_MAX = 4096             # rows the dense coarsest solve may have
 class AMGLevel(TensorFields):
     A: object                 # the level operator (DIA on a lattice level)
     dinv: torch.Tensor        # 1/diag(A) (1 where the diagonal is 0)
-    tent: LatticeTent = None  # lattice: P = (I − ω D⁻¹A)·Pt, never formed
+    transfer: LatticeTransfer = None  # lattice: P and Pᵀ for J and L
     P: CSRMatrix = None       # graph: the prolongator level l+1 -> l
     R: CSRMatrix = None       # -saamg_unsym: the restriction (else Pᵀ)
     Ls: DIAMatrix = None      # strict-lower DIA (relaxed-sweep SGS)
@@ -116,10 +119,10 @@ class SAAMGPrecon(TensorFields):
         x = self._presmooth(level, b)
         # the coarse-grid correction
         r = _residual(level.A, b, x)
-        if level.tent is not None:
-            rc = lattice_restrict(level.A, level.dinv, level.tent, r)
+        if level.transfer is not None:
+            rc = lattice_restrict(level.transfer, r)
             ec = self._cycle(lev + 1, rc)
-            x = lattice_prolong(level.A, level.dinv, level.tent, ec, x)
+            x = lattice_prolong(level.transfer, ec, x)
         else:
             rc = (level.R.matvec(r) if level.R is not None
                   else level.P.matvech(r))
@@ -296,6 +299,21 @@ def _dinv_of(A: sp.csr_matrix) -> np.ndarray:
     return 1.0 / np.where(d != 0, d, 1.0)
 
 
+def lattice_prolongator(A: sp.csr_matrix, dims):
+    """The smoothed prolongator of one lattice level (lis_tpu's
+    ``build_hierarchy_lattice`` step): P = (I − ω D⁻¹A)·Pt for the 3x box
+    decimation Pt of ``dims``.  Returns (P, cdims, wc, dinv)."""
+    cdims = tuple((d + 2) // 3 for d in dims)
+    agg = _lattice_agg(dims, cdims)
+    nc = int(np.prod(cdims))
+    wc = 1.0 / np.sqrt(np.bincount(agg, minlength=nc).astype(float))
+    Pt = sp.csr_matrix((wc[agg], (np.arange(A.shape[0]), agg)),
+                       shape=(A.shape[0], nc))
+    dinv = _dinv_of(A)
+    P = (Pt - OMEGA * sp.diags(dinv) @ (A @ Pt)).tocsr()
+    return P, cdims, wc, dinv
+
+
 def build_hierarchy_lattice(A_csr: sp.csr_matrix, fdims,
                             max_levels: int = 12, coarse_size: int = 300):
     """The box-decimation hierarchy on a detected lattice (lis_tpu
@@ -308,14 +326,7 @@ def build_hierarchy_lattice(A_csr: sp.csr_matrix, fdims,
     dims = tuple(fdims)
     while (A.shape[0] > coarse_size and min(dims) >= 3
            and len(levels) < max_levels - 1):
-        cdims = tuple((d + 2) // 3 for d in dims)
-        agg = _lattice_agg(dims, cdims)
-        nc = int(np.prod(cdims))
-        wc = 1.0 / np.sqrt(np.bincount(agg, minlength=nc).astype(float))
-        Pt = sp.csr_matrix((wc[agg], (np.arange(A.shape[0]), agg)),
-                           shape=(A.shape[0], nc))
-        dinv = _dinv_of(A)
-        P = (Pt - OMEGA * sp.diags(dinv) @ (A @ Pt)).tocsr()
+        P, cdims, wc, dinv = lattice_prolongator(A, dims)
         Ac = (P.T @ A @ P).tocsr()
         Ac.sort_indices()
         levels.append((A, P, dims, cdims, wc, dinv))
@@ -402,14 +413,14 @@ def _level_op(m: sp.csr_matrix, device, fine=None):
 
 
 def _lattice_levels(raw_levels, smoother, A_fine):
-    """Device levels of the lattice hierarchy: DIA level operators (kernels
-    J and L need the diagonals: an operator routed elsewhere gets a DIA
-    copy, which a lattice's at most 343 offsets always allow), the tent,
-    and the DIA triangles of the SGS sweeps (level plans if the operator
-    did not route to DIA)."""
+    """Device levels of the lattice hierarchy: DIA level operators (H runs
+    the level's residuals on the diagonals: an operator routed elsewhere
+    gets a DIA copy, which a lattice's at most 343 offsets always allow),
+    the assembled transfers of J and L, and the DIA triangles of the SGS
+    sweeps (level plans if the operator did not route to DIA)."""
     dev = A_fine.device
     levels = []
-    for k, (Al, _P, fd, cd, wc, dinv) in enumerate(raw_levels):
+    for k, (Al, P, _fd, _cd, _wc, dinv) in enumerate(raw_levels):
         Aop = _level_op(Al, dev, A_fine if k == 0 else None)
         routed = getattr(Aop, "format_name", None) == "dia"
         D = Aop if routed else DIAMatrix.from_csr_arrays(
@@ -423,8 +434,7 @@ def _lattice_levels(raw_levels, smoother, A_fine):
                 kw["fwd"], kw["bwd"] = _sgs_plans(Al, dev)
         levels.append(AMGLevel(
             A=D, dinv=torch.from_numpy(dinv).to(dev),
-            tent=LatticeTent(wc=torch.from_numpy(wc).to(dev), fdims=fd,
-                             cdims=cd), **kw))
+            transfer=LatticeTransfer.from_scipy(P, dev), **kw))
     return levels
 
 

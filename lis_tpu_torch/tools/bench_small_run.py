@@ -4,17 +4,15 @@ checkout beside other checkouts, on one CUDA device.
 
 Usage:
     python3 lis_tpu_torch/tools/bench_small_run.py [--root NAME=DIR ...]
-        [--reps N]
 
 ``--root`` names another checkout of the repository (an unpacked
-``git archive`` of an earlier commit) to time beside this one.  Every
-checkout runs in a process of its own, and the list is walked forwards
-and then backwards (a b b a), so that two versions are compared inside one
-call and each is measured twice.  Correctness is chip_smoke.py's business;
-its helpers build the systems and time the calls here.
+``git archive`` of an earlier commit) to time beside this one, each in a
+process of its own, a b b a (``_abba.py``).  Correctness is
+chip_smoke.py's business; its helpers build the systems and time the
+calls here.
 
 A worker builds its checkout's kernels, prints ptxas's report for the run
-kernel, and times with CUDA events (``--reps`` back-to-back calls after 3
+kernel, and times with CUDA events (20 back-to-back calls after 3
 warm-ups): D for the run [128, 1, 128] at M = 2^25 slots, f64 and f32,
 alone and with Kp = 32; then, on chip_smoke.py's system (a + a^T + 32 I,
 n = 2^20, 8 random columns per row, seed 0; real, then with complex128
@@ -27,17 +25,17 @@ output.  Exits non-zero without a CUDA device or when a solve fails.
 
 from __future__ import annotations
 
-import argparse
 import json
 import os
-import subprocess
 import sys
+
+import _abba              # the a b b a runner, beside this file
 
 _HERE = os.path.abspath(__file__)
 _ROOT = os.path.dirname(os.path.dirname(os.path.dirname(_HERE)))
 
 
-def worker(root: str, reps: int) -> None:
+def worker(root: str) -> None:
     sys.path.insert(0, _ROOT)
     from chip_smoke import cuda_ms, system    # this checkout's helpers
     sys.path.insert(0, root)
@@ -73,7 +71,7 @@ def worker(root: str, reps: int) -> None:
                         dtype=torch.float64).to(dtype)
         for kp, key in ((None, f"{tag}_ms"), (32, f"{tag}_kp32_ms")):
             out[key] = cuda_ms(
-                lambda: sh.benes_small_run(x, *tables, Kp=kp), reps)
+                lambda: sh.benes_small_run(x, *tables, Kp=kp))
     del x, idxs, tables
     torch.cuda.empty_cache()
 
@@ -85,7 +83,7 @@ def worker(root: str, reps: int) -> None:
                                       transpose=False).to(dev)
         b = np.ones(n) if solver == "cg" else np.ones(n) * (1 + 1j)
         xv = torch.from_numpy(b).to(dev)
-        out[f"{tag}_matvec_ms"] = cuda_ms(lambda: C.matvec(xv), reps)
+        out[f"{tag}_matvec_ms"] = cuda_ms(lambda: C.matvec(xv))
         per_iter = []
         for _ in range(6 if solver == "cg" else 4):
             r = lis_tpu_torch.solve(
@@ -101,38 +99,5 @@ def worker(root: str, reps: int) -> None:
     print(json.dumps(out), flush=True)
 
 
-def main() -> None:
-    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--root", action="append", default=[],
-                    metavar="NAME=DIR")
-    ap.add_argument("--reps", type=int, default=20)
-    ap.add_argument("--worker", metavar="DIR", help=argparse.SUPPRESS)
-    args = ap.parse_args()
-    if args.worker:
-        return worker(args.worker, args.reps)
-
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True)
-    print(smi.stdout.strip() or "nvidia-smi: no output", flush=True)
-    jobs = []                   # (name, root)
-    for spec in args.root:
-        name, _, root = spec.partition("=")
-        jobs.append((name, os.path.abspath(root)))
-    jobs.append(("this", _ROOT))
-    failed = 0
-    for name, root in jobs + jobs[::-1]:
-        r = subprocess.run([sys.executable, _HERE, "--worker", root,
-                            "--reps", str(args.reps)],
-                           capture_output=True, text=True)
-        last = (r.stdout.strip().splitlines() or [""])[-1]
-        print(f"{name}: {last if r.returncode == 0 else 'FAILED'}",
-              flush=True)
-        if r.returncode != 0:
-            failed += 1
-            print((r.stdout + r.stderr)[-6000:], flush=True)
-    sys.exit(1 if failed else 0)
-
-
 if __name__ == "__main__":
-    main()
+    _abba.main(__file__, worker, __doc__)

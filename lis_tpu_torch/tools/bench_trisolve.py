@@ -4,40 +4,37 @@ serves in this checkout beside other checkouts, on one CUDA device.
 
 Usage:
     python3 lis_tpu_torch/tools/bench_trisolve.py [--root NAME=DIR ...]
-        [--reps N]
 
 ``--root`` names another checkout of the repository (an unpacked
-``git archive`` of an earlier commit) to time beside this one.  Every
-checkout runs in a process of its own, and the list is walked forwards
-and then backwards (a b b a), so that two versions are compared inside one
-call and each is measured twice.  Correctness is chip_smoke.py's business;
-its ``cuda_ms`` times the calls here.
+``git archive`` of an earlier commit) to time beside this one, each in a
+process of its own, a b b a (``_abba.py``).  Correctness is
+chip_smoke.py's business; its ``cuda_ms`` times the calls here.
 
 A worker builds its checkout's kernels, prints ptxas's report for K, and
-times with CUDA events (``--reps`` back-to-back calls after 3 warm-ups):
-K on the level plans of poisson3d27 96³'s (D + L), in f64 and f32, and
-(D + U), f64; K on the lower ILU(1) factor of poisson3d27 48³ (rows of
-up to 31 entries), f64; K on a bidiagonal of 20,000 rows (one level per
-row); and, on poisson3d27 64³ as CSR, the ms/iter of three "-i cg -p
+times with CUDA events (20 back-to-back calls after 3 warm-ups): K on
+the level plans of poisson3d27 96³'s (D + L), in f64 and f32, and (D +
+U), f64; K on the lower ILU(1) factor of poisson3d27 48³ (rows of up to
+31 entries), f64; K on a bidiagonal of 20,000 rows (one level per row; 5
+calls); and, on poisson3d27 64³ as CSR, the ms/iter of three "-i cg -p
 ssor -auto_storage false" and three "-i sor -tol 1e-8" solves (the first
-of each is a warm-up and is left out; the others are listed).  One JSON line
-per worker; the card's nvidia-smi name and power limit head the output.
-Exits non-zero without a CUDA device or when a solve fails.
+of each is a warm-up and is left out; the others are listed).  One JSON
+line per worker; the card's nvidia-smi name and power limit head the
+output.  Exits non-zero without a CUDA device or when a solve fails.
 """
 
 from __future__ import annotations
 
-import argparse
 import json
 import os
-import subprocess
 import sys
+
+import _abba              # the a b b a runner, beside this file
 
 _HERE = os.path.abspath(__file__)
 _ROOT = os.path.dirname(os.path.dirname(os.path.dirname(_HERE)))
 
 
-def worker(root: str, reps: int) -> None:
+def worker(root: str) -> None:
     sys.path.insert(0, _ROOT)
     from chip_smoke import cuda_ms            # this checkout's helper
     sys.path.insert(0, root)
@@ -73,12 +70,10 @@ def worker(root: str, reps: int) -> None:
         plan = ts.make_plan(tri.indptr, tri.indices, tri.data, dinv,
                             lower=lower, device=dev)
         out[f"nlev_{tag}"] = plan.nlev
-        out[f"k96_{tag}_f64_ms"] = cuda_ms(lambda: ts.trisolve(plan, b),
-                                           reps)
+        out[f"k96_{tag}_f64_ms"] = cuda_ms(lambda: ts.trisolve(plan, b))
         if lower:
             p32, b32 = plan.to(dtype=torch.float32), b.float()
-            out["k96_lower_f32_ms"] = cuda_ms(lambda: ts.trisolve(p32, b32),
-                                              reps)
+            out["k96_lower_f32_ms"] = cuda_ms(lambda: ts.trisolve(p32, b32))
             del p32
         del plan
         torch.cuda.empty_cache()
@@ -91,7 +86,7 @@ def worker(root: str, reps: int) -> None:
                       dtype=torch.float64)
     out["nlev_ilu1_48"] = M.lower.nlev
     out["ilu1_48_lower_f64_ms"] = cuda_ms(
-        lambda: ts.trisolve(M.lower, b48), reps)
+        lambda: ts.trisolve(M.lower, b48))
     del M
 
     nb = 20000
@@ -99,8 +94,7 @@ def worker(root: str, reps: int) -> None:
     plan = ts.make_plan(hb.indptr, hb.indices, hb.data, np.full(nb, 0.5),
                         device=dev)
     bb = torch.randn(nb, generator=gen, device=dev, dtype=torch.float64)
-    out["bidiag_20000_ms"] = cuda_ms(lambda: ts.trisolve(plan, bb),
-                                     max(reps // 4, 2))
+    out["bidiag_20000_ms"] = cuda_ms(lambda: ts.trisolve(plan, bb), 5)
 
     A = testmat.poisson3d27(64, 64, 64)
     b64 = np.ones(A.nrows)
@@ -117,38 +111,5 @@ def worker(root: str, reps: int) -> None:
     print(json.dumps(out), flush=True)
 
 
-def main() -> None:
-    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--root", action="append", default=[],
-                    metavar="NAME=DIR")
-    ap.add_argument("--reps", type=int, default=20)
-    ap.add_argument("--worker", metavar="DIR", help=argparse.SUPPRESS)
-    args = ap.parse_args()
-    if args.worker:
-        return worker(args.worker, args.reps)
-
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True)
-    print(smi.stdout.strip() or "nvidia-smi: no output", flush=True)
-    jobs = []                   # (name, root)
-    for spec in args.root:
-        name, _, root = spec.partition("=")
-        jobs.append((name, os.path.abspath(root)))
-    jobs.append(("this", _ROOT))
-    failed = 0
-    for name, root in jobs + jobs[::-1]:
-        r = subprocess.run([sys.executable, _HERE, "--worker", root,
-                            "--reps", str(args.reps)],
-                           capture_output=True, text=True)
-        last = (r.stdout.strip().splitlines() or [""])[-1]
-        print(f"{name}: {last if r.returncode == 0 else 'FAILED'}",
-              flush=True)
-        if r.returncode != 0:
-            failed += 1
-            print((r.stdout + r.stderr)[-6000:], flush=True)
-    sys.exit(1 if failed else 0)
-
-
 if __name__ == "__main__":
-    main()
+    _abba.main(__file__, worker, __doc__)

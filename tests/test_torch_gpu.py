@@ -1053,12 +1053,12 @@ def test_krylov_solver_over_cst_on_the_card(cuda, opts):
 # ---- kernels J and L (SA-AMG's lattice transfers) ---------------------------
 
 def _lattice_level(dims, dtype, seed=0):
-    """A random nonsymmetric stencil on the lattice ``dims`` (3^d points)
-    as a DIA on the CPU, its dinv, and a tent with random wc (the kernels
-    take any wc): the operands of J and L."""
+    """The transfer of a random nonsymmetric stencil on the lattice
+    ``dims`` (3^d points), its smoothed prolongator assembled as on the
+    solve path, on the CPU in the real type of ``dtype``."""
     import scipy.sparse as sp
-    from lis_tpu_torch.matrix.dia import DIAMatrix
-    from lis_tpu_torch.ops.amg import LatticeTent
+    from lis_tpu_torch.ops.amg import LatticeTransfer
+    from lis_tpu_torch.precon.saamg import lattice_prolongator
     rng = np.random.default_rng(seed)
     n = int(np.prod(dims))
     coords = np.unravel_index(np.arange(n), dims)
@@ -1077,47 +1077,35 @@ def _lattice_level(dims, dtype, seed=0):
     a.sort_indices()
     rdt = torch.float32 if dtype in (torch.float32, torch.complex64) \
         else torch.float64
-    D = DIAMatrix.from_csr_arrays(a.indptr, a.indices, a.data, a.shape,
-                                  device="cpu").to(dtype=rdt)
-    dinv = 1.0 / D.get_diagonal()
-    cdims = tuple((f + 2) // 3 for f in dims)
-    wc = torch.from_numpy(rng.uniform(0.2, 1.0, int(np.prod(cdims)))).to(rdt)
-    return D, dinv, LatticeTent(wc=wc, fdims=tuple(dims), cdims=cdims)
+    P = lattice_prolongator(a, tuple(dims))[0]
+    return LatticeTransfer.from_scipy(P, "cpu").to(dtype=rdt)
 
 
-def _jl_against_plain(cuda, dims, dtype, poison=False, seed=0):
+def _jl_against_plain(cuda, T, dtype, poison=False, seed=0):
     """J and L on the card against their plain versions on the card (bit
-    for bit on real data, rtol 1e-13 / 1e-5 on complex vectors) and on the
-    CPU (rtol 1e-13 / 1e-5)."""
+    for bit) and on the CPU (rtol 1e-13 / 1e-5)."""
     from lis_tpu_torch.ops import amg
-    D, dinv, tent = _lattice_level(dims, dtype, seed)
     rng = np.random.default_rng(seed + 1)
-    nc = tent.wc.shape[0]
-    ec, x, r = (_randn(rng, k, dtype) for k in (nc, D.nrows, D.nrows))
+    ec, x, r = (_randn(rng, k, dtype) for k in (T.nc, T.n, T.n))
     if poison:
-        ec[[0, nc // 2]] = float("nan")
-        x[D.nrows // 3] = float("inf")
-        r[[1, D.nrows - 2]] = float("nan")
-        r[D.nrows // 2] = -float("inf")
-    Dc, dc, tc = D.to(cuda), dinv.to(cuda), tent.to(cuda)
+        ec[[0, T.nc // 2]] = float("nan")
+        x[T.n // 3] = float("inf")
+        r[[1, T.n - 2]] = float("nan")
+        r[T.n // 2] = -float("inf")
+    Tc = T.to(cuda)
     before = (amg.lattice_prolong.launches, amg.lattice_restrict.launches)
-    got_j = amg.lattice_prolong(Dc, dc, tc, ec.to(cuda), x.to(cuda))
-    got_l = amg.lattice_restrict(Dc, dc, tc, r.to(cuda))
+    got_j = amg.lattice_prolong(Tc, ec.to(cuda), x.to(cuda))
+    got_l = amg.lattice_restrict(Tc, r.to(cuda))
     torch.cuda.synchronize()
     assert (amg.lattice_prolong.launches, amg.lattice_restrict.launches) \
         == (before[0] + 1, before[1] + 1)
-    on_card = (amg._prolong_plain(Dc, dc, tc, ec.to(cuda), x.to(cuda)),
-               amg._restrict_plain(Dc, dc, tc, r.to(cuda)))
-    on_cpu = (amg._prolong_plain(D, dinv, tent, ec, x),
-              amg._restrict_plain(D, dinv, tent, r))
+    on_card = (amg._prolong_plain(Tc, ec.to(cuda), x.to(cuda)),
+               amg._restrict_plain(Tc, r.to(cuda)))
+    on_cpu = (amg._prolong_plain(T, ec, x), amg._restrict_plain(T, r))
     tol = 1e-5 if dtype in (torch.float32, torch.complex64) else 1e-13
     for got, card, cpu in zip((got_j, got_l), on_card, on_cpu):
-        if dtype.is_complex:
-            torch.testing.assert_close(got, card, rtol=tol, atol=tol,
-                                       equal_nan=True)
-        else:
-            torch.testing.assert_close(got, card, rtol=0, atol=0,
-                                       equal_nan=True)
+        torch.testing.assert_close(got, card, rtol=0, atol=0,
+                                   equal_nan=True)
         torch.testing.assert_close(got.cpu(), cpu, rtol=tol, atol=tol,
                                    equal_nan=True)
     return got_j, got_l
@@ -1134,16 +1122,48 @@ LATTICE_DIMS = [(12, 12, 12), (13, 14, 16), (31, 29, 40), (40, 31), (64, 3),
 def test_lattice_prolong_and_restrict(cuda, dims, dtype):
     """J and L on 1-D, 2-D and 3-D lattices, with cropped edge boxes
     (dims not divisible by 3) and dims of 1; real and complex vectors."""
-    _jl_against_plain(cuda, dims, dtype)
+    _jl_against_plain(cuda, _lattice_level(dims, dtype), dtype)
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", DTYPES, ids=lambda d: str(d)[6:])
 def test_lattice_prolong_and_restrict_nan_inf(cuda, dtype):
-    """NaN and Inf in ec, x and r: the same pattern as the plain version."""
-    got_j, got_l = _jl_against_plain(cuda, (13, 11, 10), dtype, poison=True)
+    """NaN and Inf in ec, x and r: the same pattern as the plain version,
+    and a NaN in ec[0] reaches only the rows that hold column 0 (no padded
+    slot multiplies by zero)."""
+    from lis_tpu_torch.ops import amg
+    T = _lattice_level((13, 11, 10), dtype)
+    got_j, got_l = _jl_against_plain(cuda, T, dtype, poison=True)
     assert got_j.isnan().any() and got_l.isnan().any()
     assert torch.isfinite(got_l).any()
+    ec = torch.ones(T.nc, dtype=dtype)
+    ec[0] = float("nan")
+    got = amg.lattice_prolong(T.to(cuda), ec.to(cuda),
+                              torch.zeros(T.n, dtype=dtype, device=cuda))
+    touch = torch.zeros(T.n, dtype=torch.bool)        # P's rows holding 0
+    touch[T.rcol[T.rptr[0]:T.rptr[1]].long()] = True
+    assert torch.equal(got.isnan().cpu(), touch)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ALL_DTYPES, ids=lambda d: str(d)[6:])
+def test_lattice_transfer_full_stage_long_rows(cuda, dtype):
+    """A P whose rows all hold the most entries J stages (8 a row, 256 a
+    warp: a full stage) and Pᵀ rows of about 600 entries, far past a
+    lattice's 125 (L takes many rounds): both still equal their plain
+    versions bit for bit."""
+    import scipy.sparse as sp
+    from lis_tpu_torch.ops.amg import MAX_ROW, LatticeTransfer
+    rng = np.random.default_rng(7)
+    n, nc, k = 3000, 40, MAX_ROW
+    cols = np.stack([rng.choice(nc, k, replace=False) for _ in range(n)])
+    P = sp.csr_matrix((rng.standard_normal(n * k),
+                       (np.repeat(np.arange(n), k), cols.ravel())),
+                      shape=(n, nc))
+    rdt = torch.float32 if dtype in (torch.float32, torch.complex64) \
+        else torch.float64
+    T = LatticeTransfer.from_scipy(P, "cpu").to(dtype=rdt)
+    _jl_against_plain(cuda, T, dtype, seed=3)
 
 
 @pytest.mark.gpu
@@ -1151,14 +1171,12 @@ def test_lattice_kernels_on_two_streams(cuda):
     """J and L enqueued on two streams at once agree with their plain
     versions."""
     from lis_tpu_torch.ops import amg
-    D, dinv, tent = _lattice_level((31, 29, 40), torch.float64)
-    Dc, dc, tc = D.to(cuda), dinv.to(cuda), tent.to(cuda)
+    Tc = _lattice_level((31, 29, 40), torch.float64).to(cuda)
     rng = np.random.default_rng(4)
-    nc = tent.wc.shape[0]
-    ins = [(_randn(rng, nc, torch.float64).to(cuda),
-            _randn(rng, D.nrows, torch.float64).to(cuda)) for _ in range(2)]
-    want = [(amg._prolong_plain(Dc, dc, tc, ec, x),
-             amg._restrict_plain(Dc, dc, tc, x)) for ec, x in ins]
+    ins = [(_randn(rng, Tc.nc, torch.float64).to(cuda),
+            _randn(rng, Tc.n, torch.float64).to(cuda)) for _ in range(2)]
+    want = [(amg._prolong_plain(Tc, ec, x), amg._restrict_plain(Tc, x))
+            for ec, x in ins]
     streams = [torch.cuda.Stream() for _ in ins]
     for s in streams:
         s.wait_stream(torch.cuda.current_stream())
@@ -1167,8 +1185,8 @@ def test_lattice_kernels_on_two_streams(cuda):
         for k, s in enumerate(streams):
             with torch.cuda.stream(s):
                 ec, x = ins[k]
-                got[k].append((amg.lattice_prolong(Dc, dc, tc, ec, x),
-                               amg.lattice_restrict(Dc, dc, tc, x)))
+                got[k].append((amg.lattice_prolong(Tc, ec, x),
+                               amg.lattice_restrict(Tc, x)))
     torch.cuda.synchronize()
     for k in range(2):
         for gj, gl in got[k]:

@@ -39,3 +39,13 @@ def test_import_without_jax():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.split() == ["[]", "True"], out.stdout
+
+
+def test_host_library_source_is_the_ports_own():
+    """The port builds its host library from its own copy of the C++
+    source: no file it reads lies under lis_tpu/."""
+    from lis_tpu_torch import _native
+    pkg = os.path.join(_ROOT, "lis_tpu_torch") + os.sep
+    src = os.path.realpath(_native._SRC)
+    assert src.startswith(pkg) and os.path.isfile(src)
+    assert not src.startswith(os.path.join(_ROOT, "lis_tpu") + os.sep)

@@ -5,10 +5,14 @@ adjoint, and solves on the lattice and graph paths.
 
 Host outputs must equal lis_tpu's (aggregates exactly; level operators,
 prolongators and restrictions to 1e-14: both run the same scipy
-products).  J and L must agree with lis_tpu's ``ImplicitP`` and with the
-assembled scipy P to rtol 1e-13.  psolve and psolveh must agree with
+products).  The transfers of J and L hold scipy's P exactly; J and L
+must agree with lis_tpu's ``ImplicitP`` and with the assembled scipy P to
+rtol 1e-13, and their plain versions sum in the kernels' order bit for
+bit.  psolve and psolveh must agree with
 lis_tpu's to rtol 1e-12, and solves must take lis_tpu's iteration count.
 """
+
+import dataclasses
 
 import numpy as np
 import pytest
@@ -144,11 +148,13 @@ def test_graph_hierarchy_matches_lis_tpu(name, unsym):
 
 LATTICES = [(12, 12, 12), (13, 14, 16), (25, 17, 19), (20, 23), (50,),
             (3, 4, 5)]
+_IDS = lambda d: "x".join(map(str, d))   # noqa: E731
 
 
 def _level(dims, seed=0):
     """The finest lattice level in both packages: lis_tpu's ImplicitP on
-    its routed DIA, the port's DIA, dinv and tent, and scipy's P."""
+    its routed DIA; the port's transfer and its implicit reference (DIA,
+    dinv and tent); and scipy's P."""
     a = lattice_op(dims, seed)
     (Al, P, fd, cd, wc, dinv), = ts.build_hierarchy_lattice(
         a, dims, max_levels=2, coarse_size=1)[0]
@@ -161,42 +167,137 @@ def _level(dims, seed=0):
     D = DIAMatrix.from_csr_arrays(Al.indptr, Al.indices, Al.data, Al.shape,
                                   device="cpu")
     tent = tamg.LatticeTent(wc=torch.from_numpy(wc), fdims=fd, cdims=cd)
-    return Pj, D, torch.from_numpy(dinv), tent, P
+    T = tamg.LatticeTransfer.from_scipy(P, device="cpu")
+    return Pj, T, (D, torch.from_numpy(dinv), tent), P
 
 
-@pytest.mark.parametrize("dims", LATTICES, ids=lambda d: "x".join(map(str, d)))
+@pytest.mark.parametrize("dims", LATTICES, ids=_IDS)
+def test_transfer_unpacks_to_scipys_P(dims):
+    """The transfer holds scipy's P and Pᵀ exactly, with int32 row
+    pointers and columns, and ``-f single``'s cast keeps them int32."""
+    _, T, _, P = _level(dims)
+    assert (T.n, T.nc) == P.shape
+    Pu = sp.csr_matrix((T.pval.numpy(), T.pcol.numpy(), T.pptr.numpy()),
+                       shape=P.shape)
+    Ru = sp.csr_matrix((T.rval.numpy(), T.rcol.numpy(), T.rptr.numpy()),
+                       shape=P.shape[::-1])
+    assert (Pu != P).nnz == 0 and (Ru != P.T).nnz == 0
+    assert Pu.nnz == Ru.nnz == P.nnz
+    for t in (T.pptr, T.pcol, T.rptr, T.rcol):
+        assert t.dtype == torch.int32
+    T32 = T.to(dtype=torch.float32)
+    assert T32.pval.dtype == T32.rval.dtype == torch.float32
+    assert T32.pcol.dtype == T32.rptr.dtype == torch.int32
+    # a lattice row of P touches at most 8 boxes, a box at most 5^d rows
+    assert int((T.pptr[1:] - T.pptr[:-1]).max()) <= 2 ** len(dims)
+    assert int((T.rptr[1:] - T.rptr[:-1]).max()) <= 5 ** len(dims)
+
+
+@pytest.mark.parametrize("dims", LATTICES, ids=_IDS)
 def test_prolong_and_restrict_match_lis_tpu_and_scipy(dims):
-    Pj, D, dinv, tent, P = _level(dims)
+    """J and L over the assembled P against lis_tpu's ImplicitP and
+    scipy's P; the port's implicit reference against lis_tpu's too."""
+    Pj, T, imp, P = _level(dims)
     n, nc = P.shape
     rng = np.random.default_rng(len(dims))
     ec, x, r = (rng.standard_normal(k) for k in (nc, n, n))
-    got = tamg.lattice_prolong(D, dinv, tent, torch.from_numpy(ec),
+    got = tamg.lattice_prolong(T, torch.from_numpy(ec),
                                torch.from_numpy(x)).numpy()
-    _close(got, x + np.asarray(Pj.matvec(jnp.asarray(ec))), 1e-13)
+    want_j = x + np.asarray(Pj.matvec(jnp.asarray(ec)))
+    _close(got, want_j, 1e-13)
     _close(got, x + P @ ec, 1e-13)
-    got = tamg.lattice_restrict(D, dinv, tent, torch.from_numpy(r)).numpy()
-    _close(got, np.asarray(Pj.matvech(jnp.asarray(r))), 1e-13)
+    _close(tamg.implicit_prolong(*imp, torch.from_numpy(ec),
+                                 torch.from_numpy(x)).numpy(), want_j, 1e-13)
+    got = tamg.lattice_restrict(T, torch.from_numpy(r)).numpy()
+    want_l = np.asarray(Pj.matvech(jnp.asarray(r)))
+    _close(got, want_l, 1e-13)
     _close(got, P.T @ r, 1e-13)
+    _close(tamg.implicit_restrict(*imp, torch.from_numpy(r)).numpy(),
+           want_l, 1e-13)
 
 
-def test_prolong_and_restrict_take_complex_vectors():
+@pytest.mark.parametrize("dims", [(13, 11, 10), (20, 23), (50,)], ids=_IDS)
+def test_prolong_and_restrict_take_complex_vectors(dims):
     """A real level with complex vectors (a complex right-hand side on a
-    real operator): the real and imaginary parts go through P apart."""
-    Pj, D, dinv, tent, P = _level((13, 11, 10))
+    real operator): the real and imaginary parts go through P apart, and
+    each part equals the real transfer of that part bit for bit."""
+    Pj, T, _, P = _level(dims)
     n, nc = P.shape
     rng = np.random.default_rng(5)
     ec = rng.standard_normal(nc) + 1j * rng.standard_normal(nc)
     x = rng.standard_normal(n) + 1j * rng.standard_normal(n)
-    got = tamg.lattice_prolong(D, dinv, tent, torch.from_numpy(ec),
-                               torch.from_numpy(x)).numpy()
-    _close(got, x + P @ ec, 1e-13)
-    got = tamg.lattice_restrict(D, dinv, tent, torch.from_numpy(x)).numpy()
-    _close(got, P.T @ x, 1e-13)
+    got = tamg.lattice_prolong(T, torch.from_numpy(ec), torch.from_numpy(x))
+    _close(got.numpy(), x + P @ ec, 1e-13)
+    _close(got.numpy(), x + np.asarray(Pj.matvec(jnp.asarray(ec))), 1e-13)
+    for part in (np.real, np.imag):
+        assert torch.equal(part(got), tamg.lattice_prolong(
+            T, torch.from_numpy(part(ec).copy()),
+            torch.from_numpy(part(x).copy())))
+    got = tamg.lattice_restrict(T, torch.from_numpy(x))
+    _close(got.numpy(), P.T @ x, 1e-13)
+    _close(got.numpy(), np.asarray(Pj.matvech(jnp.asarray(x))), 1e-13)
+    for part in (np.real, np.imag):
+        assert torch.equal(part(got), tamg.lattice_restrict(
+            T, torch.from_numpy(part(x).copy())))
+
+
+def _kernel_order(T, ec, x, r):
+    """J and L written out as the kernels sum, one scalar at a time: J's
+    row from 0 in column order, then x[i] + sum; L's lane l from 0 over
+    entries l, l + 32, ..., then the lanes folded in halves."""
+    pptr, pcol, pval = (t.numpy() for t in (T.pptr, T.pcol, T.pval))
+    out = np.empty_like(x)
+    for i in range(T.n):
+        acc = 0.0
+        for t in range(pptr[i], pptr[i + 1]):
+            acc = acc + pval[t] * ec[pcol[t]]
+        out[i] = x[i] + acc
+    rptr, rcol, rval = (t.numpy() for t in (T.rptr, T.rcol, T.rval))
+    rc = np.empty(T.nc)
+    for c in range(T.nc):
+        lanes = [0.0] * 32
+        for t in range(rptr[c], rptr[c + 1]):
+            lane = (t - rptr[c]) % 32
+            lanes[lane] = lanes[lane] + rval[t] * r[rcol[t]]
+        for half in (16, 8, 4, 2, 1):
+            lanes = [lanes[k] + lanes[k + half] for k in range(half)]
+        rc[c] = lanes[0]
+    return out, rc
+
+
+@pytest.mark.parametrize("dims", [(7, 8, 9), (20, 23), (50,)], ids=_IDS)
+def test_plain_versions_sum_in_the_kernels_order(dims):
+    """The plain versions equal J's and L's order of sums, written out
+    scalar by scalar, bit for bit (the card's kernels are held to the
+    plain versions bit for bit)."""
+    _, T, _, P = _level(dims)
+    rng = np.random.default_rng(11)
+    ec, x, r = (rng.standard_normal(k) for k in (T.nc, T.n, T.n))
+    want_j, want_l = _kernel_order(T, ec, x, r)
+    got_j = tamg.lattice_prolong(T, torch.from_numpy(ec), torch.from_numpy(x))
+    got_l = tamg.lattice_restrict(T, torch.from_numpy(r))
+    np.testing.assert_array_equal(got_j.numpy(), want_j)
+    np.testing.assert_array_equal(got_l.numpy(), want_l)
+
+
+def test_nan_in_the_coarse_vector_reaches_only_its_rows():
+    """No padded slot multiplies by zero: a NaN or Inf in ec[0] or r[0]
+    reaches exactly the rows that hold column 0."""
+    _, T, _, P = _level((13, 11, 10))
+    ec, x, r = np.ones(T.nc), np.zeros(T.n), np.ones(T.n)
+    ec[0], r[0] = np.nan, np.inf
+    got_j = tamg.lattice_prolong(T, torch.from_numpy(ec), torch.from_numpy(x))
+    got_l = tamg.lattice_restrict(T, torch.from_numpy(r))
+    touch_j = np.asarray(P[:, 0].todense()).ravel() != 0
+    touch_l = np.asarray(P[0, :].todense()).ravel() != 0
+    np.testing.assert_array_equal(got_j.isnan().numpy(), touch_j)
+    np.testing.assert_array_equal(~torch.isfinite(got_l).numpy(), touch_l)
+    assert 0 < touch_j.sum() < T.n and 0 < touch_l.sum() < T.nc
 
 
 def test_tent_box_sums_in_lexicographic_order():
-    """Ptᵀ sums each box's points in lexicographic order (kernel L's
-    order), with the cropped edge boxes of dims not divisible by 3."""
+    """Ptᵀ sums each box's points in lexicographic order, with the cropped
+    edge boxes of dims not divisible by 3 (the implicit reference)."""
     dims, cdims = (4, 5), (2, 2)
     wc = torch.ones(4, dtype=torch.float64)
     tent = tamg.LatticeTent(wc=wc, fdims=dims, cdims=cdims)
@@ -211,12 +312,29 @@ def test_tent_box_sums_in_lexicographic_order():
 
 
 def test_kernel_wrappers_check_their_operands():
-    _, D, dinv, tent, P = _level((12, 12, 12))
-    x = torch.zeros(D.nrows, dtype=torch.float64)
+    _, T, _, P = _level((12, 12, 12))
+    x = torch.zeros(T.n, dtype=torch.float64)
+    ec = torch.zeros(T.nc, dtype=torch.float64)
     with pytest.raises(ValueError, match="lattice_prolong"):
-        tamg.lattice_prolong(D, dinv, tent, x, x)
+        tamg.lattice_prolong(T, x, x)                  # ec of n points
     with pytest.raises(ValueError, match="lattice_restrict"):
-        tamg.lattice_restrict(D, dinv, tent, x[1:])
+        tamg.lattice_restrict(T, x[1:])
+    with pytest.raises(ValueError, match="lattice_prolong"):
+        tamg.lattice_prolong(T, ec.float(), x.float())  # f32 on f64 P
+    with pytest.raises(ValueError, match="lattice_restrict"):
+        tamg.lattice_restrict(T, x.to(torch.complex64))
+    with pytest.raises(ValueError, match="lattice_restrict"):
+        tamg.lattice_restrict(dataclasses.replace(T, rcol=T.rcol.long()), x)
+    with pytest.raises(ValueError, match="2\\^31"):       # int32 indices
+        tamg.LatticeTransfer.from_scipy(sp.coo_matrix((2 ** 31, 4)))
+    # kernel J stages MAX_ROW = 8 entries a row of P, the most a lattice
+    # row holds: rows of 8 pass, a row of 9 is refused
+    full = tamg.LatticeTransfer.from_scipy(sp.csr_matrix(np.ones((4, 8))))
+    assert (full.n, full.nc, full.pcol.numel()) == (4, 8, 32)
+    bad = sp.lil_matrix((4, 12))
+    bad[2, :tamg.MAX_ROW + 1] = 1.0
+    with pytest.raises(ValueError, match="holds 9 entries"):
+        tamg.LatticeTransfer.from_scipy(bad)
 
 
 # ---- the V-cycle ----------------------------------------------------------------
@@ -252,7 +370,7 @@ def test_psolve_and_psolveh_match_lis_tpu(name, opts, lattice):
     Mj = js.create_saamg(J, lis_tpu.SolverOptions.from_string(opts))
     Mt = ts.create_saamg(T, TOptions.from_string(opts))
     assert len(Mt.levels) == len(Mj.levels)
-    assert all((lv.tent is not None) == lattice for lv in Mt.levels)
+    assert all((lv.transfer is not None) == lattice for lv in Mt.levels)
     assert Mt.coarse_inv.shape == Mj.coarse_inv.shape
     if lattice:
         # the finest level reuses the routed operator; every level is DIA
