@@ -160,8 +160,31 @@ Phases (one or more lines each):
    ms/iter, one psolve's time and launches, the finest level's kernel
    times (J and L beside their byte bound) and the device memory of the
    transfers.
+12. the precision modes (``phase quad:`` lines): (a) kernels M
+   (dd_dia_spmv, both directions, on the 96³ poisson3d27 DIA), N
+   (dd_ell_spmv, A and Aᵀ, on phase 3's n = 2^20 system as ELL arrays), O
+   (dd_reduce: sum, dot, nrm2, nrm1) and P (dd_update: axpy, xpay, scal,
+   add, sub) on 96³ vectors, each in f64 pairs and f32 pairs (df) against
+   its plain version, bit-equal, the forward M, N, dot and axpy timed
+   beside the plain version and the bound (no PyTorch call computes
+   double-double arithmetic: library none); (b) ``-i cg -p jacobi -f quad
+   -tol 1e-12`` on poisson3d27 96³ (CSR -> router -> DIA) and 192³ (built
+   in DIA): SUCCESS, DD residual <= 1e-12, true residual <= 1e-11, the
+   count of the same solve over the plain versions of M-P on the card
+   exactly (every M-P wrapper swapped for its plain version, which must
+   launch no kernel), M, O, P launched exactly it + 1, 3 it + 1, 3 it + 1
+   times at 96³, and the torch operations and host reads per iteration
+   counted by a dispatch mode; (c) test5: ``-i bicg -f quad -tol 1e-12
+   -maxiter 500`` on gamma_matrix(200, 2.0), b = A·1: SUCCESS in the CPU's
+   count where ``-f double`` ends MAXITER; (d) -f switch (-switch_tol
+   1e-8), df and switch_df at 96³, each SUCCESS within the limits of (b);
+   (e) ``-i bicgstab -f quad -auto_storage false`` on the n = 2^20 CSR (N,
+   twice per iteration), the oracle's count exactly; (f) the 17 twins with
+   -p jacobi -restart 8 -tol 1e-8 on the 7-point poisson3d 64³ shifted by
+   6·I, in DIA (GMRES, FGMRES and Orthomin restart every 8 steps), each
+   SUCCESS at its plain oracle's count.
 
-Phases 1 to 11 all run at the sizes named here.  The matrices of phases 3
+Phases 1 to 12 all run at the sizes named here.  The matrices of phases 3
 to 6 are built with no ``device`` argument, so they live on the default
 device, the card.  Their CPU oracles (the port's plain path on the CPU,
 whose Benes passes take up to a minute a solve at n = 2^20) run at
@@ -171,7 +194,7 @@ remainder sums with atomics on the card); the card's solves at n = 2^20
 keep every other check.
 
 Launch counts are set to 0 just before each solve of phases 3, 5, 6 and
-8 to 11 and read just after; launches made to compare a kernel with its plain
+8 to 12 and read just after; launches made to compare a kernel with its plain
 version are not counted.  It prints one JSON line of per-kernel results
 (each row's ``timing`` says how its ``ms`` was taken; where that is
 "queued", ``host_ms`` and ``library_host_ms`` are the kernel's and the
@@ -296,7 +319,7 @@ def main() -> None:
     try:
         import lis_tpu_torch
         from lis_tpu_torch.cli import lsolve
-        from lis_tpu_torch.core import vector as v
+        from lis_tpu_torch.core import ddreal as dq, vector as v
         from lis_tpu_torch.matrix import cst as cstm, dia as diam
         from lis_tpu_torch.ops import _cuda, amg, shuffle as sh
         from lis_tpu_torch.ops import trisolve as tsm
@@ -353,7 +376,7 @@ def main() -> None:
     results32 = {}          # the same at f32
 
     def check(name, dtype, shape, got, want, exact, timed=None, rtol=None,
-              queued=False):
+              queued=False, record=True):
         """Hold a kernel's output against its plain version's; with
         ``timed`` = (kernel fn, plain fn, library fn or None, bytes moved,
         additions and multiplications) also time them (the slice's shape:
@@ -387,9 +410,9 @@ def main() -> None:
             rec = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                    "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
                    "timing": "queued" if queued else "host"}
-            if dtype == torch.float64:
+            if record and dtype == torch.float64:
                 results[name] = rec
-            elif dtype == torch.float32:
+            elif record and dtype == torch.float32:
                 results32[name] = rec
             line += (f"; {ms:.4f} ms vs plain {plain_ms:.4f} ms, bound "
                      f"{b_ms:.4f} ms ({b_by}, {100 * b_ms / ms:.0f} %), "
@@ -421,7 +444,9 @@ def main() -> None:
                "dia_relax": diam.dia_relax, "dia_relaxh": diam.dia_relaxh,
                "trisolve": tsm.trisolve,
                "lattice_prolong": amg.lattice_prolong,
-               "lattice_restrict": amg.lattice_restrict}
+               "lattice_restrict": amg.lattice_restrict,
+               "dd_dia_spmv": dq.dd_dia_spmv, "dd_ell_spmv": dq.dd_ell_spmv,
+               "dd_reduce": dq.dd_reduce, "dd_update": dq.dd_update}
     matvec_kernels = ("cst_front", "benes_pass", "benes_pass_rowsum",
                       "benes_small_run")
     total = dict.fromkeys(kernels, 0)     # launches over the counted solves
@@ -473,7 +498,7 @@ def main() -> None:
         need_launches=need_launches, launches_per=launches_per,
         need_exact=need_exact, route_of=route_of, randn=randn, es=es,
         results=results, results32=results32, grids=(96, 192, 64),
-        seed=args.seed)
+        seed=args.seed, gen=gen)
     R = M // 128
     for dtype in (torch.float64, torch.float32, torch.complex128,
                   torch.complex64):
@@ -1326,6 +1351,9 @@ def main() -> None:
     # ---- 11. the remaining preconditioners: SA-AMG (J, L) and the rest ----
     stamp("phase 11")
     phase_precon_more(S)
+    # ---- 12. the precision modes: kernels M-P and the _quad twins ---------
+    stamp("phase 12")
+    phase_quad(S)
     report_results(S, smi_line, total)
 
 def phase_preconditioned(S):
@@ -2291,6 +2319,278 @@ def phase_precon_more(S):
     torch.cuda.empty_cache()
 
 
+def phase_quad(S):
+    """Phase 12: kernels M-P against their plain versions, then the
+    double-double solves (see the docstring)."""
+    import torch
+    import lis_tpu_torch
+    from lis_tpu_torch.core import ddreal as dq
+    from lis_tpu_torch.utils import testmat
+
+    dev, check, randn = S.dev, S.check, S.randn
+    g96, g192, g64 = S.grids
+    f32, f64 = torch.float32, torch.float64
+
+    def tag(msg):
+        print(f"phase quad: {msg}", flush=True)
+
+    def pair(n, dtype):
+        hi = randn(n, f64)
+        lo = hi * (torch.rand(n, generator=S.gen, device=dev,
+                              dtype=f64) - 0.5) * torch.finfo(dtype).eps
+        return dq.DD(hi.to(dtype), lo.to(dtype))
+
+    def flat(v):
+        return torch.cat([v.hi.reshape(-1), v.lo.reshape(-1)])
+
+    def tree_adds(w):
+        """dd_adds of lis_tpu's row tree over w terms."""
+        adds = 0
+        while w > 1:
+            w += w % 2
+            adds += w // 2
+            w //= 2
+        return adds
+
+    # ---- (a) M-P against their plain versions, f64 and df pairs ---------
+    t0 = time.perf_counter()
+    D96 = testmat.poisson3d27_dia(g96, g96, g96)
+    n = D96.nrows
+    nnd = len(D96.offsets)
+    for dtype in (f64, f32):
+        op = dq.make_dd_operator(D96, None if dtype == f64 else f32)
+        x = pair(n, dtype)
+        es = torch.empty((), dtype=dtype).element_size()
+        for trans in (False, True):
+            timed = None if trans else (
+                lambda: dq.dd_dia_spmv(op, x),
+                lambda: dq._dia_plain(op.value, op.offsets, x, op.value_lo,
+                                      False), None,
+                nnd * n * 8 + 4 * n * es,
+                nnd * n * (39 + 2 * (dtype == f32)))
+            check("dd_dia_spmv", dtype, f"{g96}^3 trans={trans}",
+                  flat(dq.dd_dia_spmv(op, x, trans)),
+                  flat(dq._dia_plain(op.value, op.offsets, x, op.value_lo,
+                                     trans)), True, timed)
+        y = pair(n, dtype)
+        a = dq.DD(*(t.reshape(()) for t in pair(1, dtype)))
+        m = 1 << (n - 1).bit_length()
+        for mode in range(4):
+            other = y if mode == 1 else None
+            timed = None if mode != 1 else (
+                lambda: dq.dd_reduce(1, x, y),
+                lambda: dq._reduce_plain(1, x, y), None, 4 * n * es,
+                24 * n + 20 * m)
+            check("dd_reduce", dtype, f"{g96}^3 mode={mode}",
+                  flat(dq.dd_reduce(mode, x, other)),
+                  flat(dq._reduce_plain(mode, x, other)), True, timed,
+                  queued=True)
+        for mode in range(8):   # axpy xpay scal add sub mul div sqrt
+            alpha = None if mode >= 3 else a
+            other = None if mode in (2, 7) else y
+            xin = dq._mul(x, x) if mode == 7 else x
+            timed = None if mode != 0 else (
+                lambda: dq.dd_update(0, a, x, y),
+                lambda: dq._update_plain(0, a, x, y), None, 6 * n * es,
+                44 * n)
+            check("dd_update", dtype, f"{g96}^3 mode={mode}",
+                  flat(dq.dd_update(mode, alpha, xin, other)),
+                  flat(dq._update_plain(mode, alpha, xin, other)), True,
+                  timed, queued=True)
+        b0 = dq.DD(*(t.reshape(()) for t in pair(1, dtype)))
+        check("dd_update", dtype, "0-d division (the scalar algebra)",
+              flat(dq.div(a, b0)), flat(dq._div(a, b0)), True,
+              (lambda: dq.div(a, b0), lambda: dq._div(a, b0), None,
+               6 * es, 60), queued=True, record=False)
+    del op, x, y
+    tag(f"M, O, P at {g96}^3 in {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    a20 = system(1 << 20, 8, S.seed)
+    A20 = lis_tpu_torch.CSRMatrix.from_csr_arrays(a20.indptr, a20.indices,
+                                                  a20.data, a20.shape)
+    n20 = a20.shape[0]
+    op64 = dq.DDOperator.from_matrix(A20)
+    for dtype in (f64, f32):
+        op = op64
+        if dtype == f32:      # the same ELL arrays, values as f32 limbs
+            vh, vl = dq._split_limbs(op64.value, f32)
+            vth, vtl = dq._split_limbs(op64.value_t, f32)
+            op = dq.DDOperator(op64.index, vh, op64.index_t, vth,
+                               op64.nrows, op64.ncols, vl, vtl)
+        w = op.value.shape[1]
+        x = pair(n20, dtype)
+        es = torch.empty((), dtype=dtype).element_size()
+        for idx, val, vlo in ((op.index, op.value, op.value_lo),
+                              (op.index_t, op.value_t, op.value_t_lo)):
+            timed = None if idx is op.index_t else (
+                lambda: dq.dd_ell_spmv(idx, val, x, vlo),
+                lambda: dq._ell_plain(idx, val, x, vlo), None,
+                n20 * w * (4 + 8) + 4 * n20 * es,
+                n20 * w * (19 + 2 * (dtype == f32)) + 20 * n20 * tree_adds(w))
+            check("dd_ell_spmv", dtype,
+                  f"n=2^20 w={w} {'A' if timed else 'At'}",
+                  flat(dq.dd_ell_spmv(idx, val, x, vlo)),
+                  flat(dq._ell_plain(idx, val, x, vlo)), True, timed)
+    del op, op64, x
+    torch.cuda.empty_cache()
+    tag(f"N on the n = 2^20 ELL pair in {time.perf_counter() - t0:.2f} s")
+
+    @contextlib.contextmanager
+    def plain_dd():
+        """Every M-P wrapper swapped for its plain version (the solvers
+        and operators look them up in ddreal at each call)."""
+        swaps = {
+            "dd_update": lambda mode, alpha, x, y: dq._update_plain(
+                mode, alpha, x, y),
+            "dd_reduce": lambda mode, x, y=None: dq._reduce_plain(mode, x,
+                                                                  y),
+            "dd_dia_spmv": lambda A, x, trans=False: dq._dia_plain(
+                A.value, A.offsets, x, A.value_lo, trans),
+            "dd_ell_spmv": lambda index, value, x, value_lo=None:
+                dq._ell_plain(index, value, x, value_lo)}
+        saved = {k: getattr(dq, k) for k in swaps}
+        before = {k: f.launches for k, f in saved.items()}
+        for k, f in swaps.items():
+            setattr(dq, k, f)
+        try:
+            yield
+        finally:
+            for k, f in saved.items():
+                setattr(dq, k, f)
+        if before != {k: f.launches for k, f in saved.items()}:
+            fail("a plain-version oracle launched one of M-P")
+
+    rows = []
+
+    def solve(A, b, opts, what, oracle=True, dd_limit=1e-12,
+              true_limit=1e-11):
+        """The plain oracle (which also warms the torch operations), then
+        the counted solve: SUCCESS, the DD residual and the true residual
+        within their limits, the oracle's count exactly."""
+        it_o = None
+        if oracle:
+            t0 = time.perf_counter()
+            with plain_dd():
+                ro = lis_tpu_torch.solve(A, b, options=opts)
+            torch.cuda.synchronize()
+            it_o, wall_o = ro.iters, time.perf_counter() - t0
+        r, got, wall = S.counted(lambda: lis_tpu_torch.solve(A, b,
+                                                             options=opts))
+        per = 1e3 * r.itime / max(r.iters, 1)
+        dd = {k: got[k] for k in ("dd_dia_spmv", "dd_ell_spmv", "dd_reduce",
+                                  "dd_update")}
+        tag(f"{what} {opts}: route {S.route_of(A, opts)}, status "
+            f"{r.status} iters {r.iters}"
+            + (f" (plain oracle {it_o} in {wall_o:.2f} s)" if oracle else "")
+            + f" resid {r.resid:.3e} true_resid {r.true_resid:.3e} wall "
+            f"{wall:.3f} s itime {r.itime:.4f} s ({per:.4f} ms/iter); "
+            f"M-P launches {dd}")
+        rows.append((what, opts, r.iters, per, sum(dd.values()) / r.iters,
+                     wall))
+        if r.status != lis_tpu_torch.LIS_SUCCESS or not r.resid <= dd_limit \
+                or not r.true_resid <= true_limit:
+            fail(f"{what} {opts}: status {r.status} resid {r.resid:.3e} "
+                 f"true_resid {r.true_resid:.3e}")
+        if oracle and r.iters != it_o:
+            fail(f"{what} {opts}: iters {r.iters}, plain oracle {it_o}")
+        return r, got
+
+    # ---- (b) cg -f quad at 96^3 (CSR -> router -> DIA) and 192^3 ---------
+    S.stamp("phase 12b")
+    A96 = testmat.poisson3d27(g96, g96, g96)
+    b96 = torch.ones(A96.nrows, dtype=f64, device=dev)
+    opts = "-i cg -p jacobi -f quad -tol 1e-12"
+    r, got = solve(A96, b96, opts, f"{g96}^3")
+    it = r.iters
+    # per iteration: the matvec, two dots and nrm2, xpay and two axpys,
+    # and the two DD divisions (beta, alpha)
+    S.need_exact(got, {"dd_dia_spmv": it + 1, "dd_reduce": 3 * it + 1,
+                       "dd_update": 5 * it + 1, "dd_ell_spmv": 0},
+                 f"{g96}^3 {opts}")
+    rd, cnt = dispatched(lambda: lis_tpu_torch.solve(A96, b96, options=opts))
+    kern = 9 * rd.iters + 3
+    tag(f"{g96}^3 {opts}: {kern / rd.iters:.2f} M-P launches, "
+        f"{cnt['ops'] / rd.iters:.1f} torch operations (views, allocations "
+        f"and reads excluded) and {cnt['reads'] / rd.iters:.2f} host reads "
+        f"per iteration ({rd.iters} iterations)")
+    xd = pair(A96.nrows, f64)
+    Dq = dq.make_dd_operator(lis_tpu_torch.auto_storage(A96))
+    one = dq.DD(torch.ones((), dtype=f64, device=dev),
+                torch.zeros((), dtype=f64, device=dev))
+    tag(f"{g96}^3 one iteration's parts (as the host enqueues them): M "
+        f"{cuda_ms(lambda: Dq.matvec(xd)):.4f} ms, 2 dots + nrm2 "
+        f"{3 * cuda_ms(lambda: dq.dot(xd, xd)):.4f} ms, 3 updates "
+        f"{3 * cuda_ms(lambda: dq.axpy(one, xd, xd)):.4f} ms, 2 DD divisions "
+        f"{2 * cuda_ms(lambda: dq.div(one, one)):.4f} ms")
+    D192 = testmat.poisson3d27_dia(g192, g192, g192)
+    b192 = torch.ones(D192.nrows, dtype=f64, device=dev)
+    solve(D192, b192, opts, f"{g192}^3")
+    del D192, b192, Dq, xd
+    torch.cuda.empty_cache()
+
+    # ---- (c) test5: quad converges where double stalls -------------------
+    S.stamp("phase 12c")
+    g = testmat.gamma_matrix(200, 2.0)
+    bg = g.matvec(torch.ones(200, dtype=f64, device=dev))
+    rq = lis_tpu_torch.solve(g, bg, options="-i bicg -f quad -tol 1e-12 "
+                             "-maxiter 500")
+    rdbl = lis_tpu_torch.solve(g, bg, options="-i bicg -f double -tol 1e-12 "
+                               "-maxiter 500")
+    rc = lis_tpu_torch.solve(testmat.gamma_matrix(200, 2.0, device="cpu"),
+                             bg.cpu(), options="-i bicg -f quad -tol 1e-12 "
+                             "-maxiter 500")
+    xerr = (rq.x - 1.0).abs().max().item()
+    tag(f"test5 gamma_matrix(200, 2.0): quad status {rq.status} iters "
+        f"{rq.iters} (CPU {rc.iters}), |x - 1| {xerr:.2e}; double status "
+        f"{rdbl.status} iters {rdbl.iters}")
+    if rq.status != lis_tpu_torch.LIS_SUCCESS or rq.iters != rc.iters \
+            or rdbl.status != lis_tpu_torch.LIS_MAXITER or not xerr < 1e-8:
+        fail("test5: quad must converge in the CPU's count where double "
+             "ends MAXITER")
+
+    # ---- (d) switch, df and switch_df at 96^3 ----------------------------
+    S.stamp("phase 12d")
+    for o in ("-i cg -p jacobi -f switch -switch_tol 1e-8 -tol 1e-12",
+              "-i cg -p jacobi -f df -tol 1e-12",
+              "-i cg -p jacobi -f switch_df -tol 1e-12"):
+        solve(A96, b96, o, f"{g96}^3", oracle=False)
+
+    # ---- (e) N on a real path: bicgstab -f quad on the 2^20 CSR ----------
+    S.stamp("phase 12e")
+    b20 = torch.ones(n20, dtype=f64, device=dev)
+    o = "-i bicgstab -f quad -auto_storage false -tol 1e-12"
+    r, got = solve(A20, b20, o, "n=2^20 csr")
+    S.need_launches(got, ("dd_ell_spmv",), 2 * r.iters, f"n=2^20 {o}")
+    del A20, b20, a20
+    torch.cuda.empty_cache()
+
+    # ---- (f) the 17 twins on 64^3 -----------------------------------------
+    # the 7-point poisson3d shifted by 6·I (diagonal 12): on the unshifted
+    # operator GMRES(40) takes 535 iterations and its plain oracle 55 s
+    S.stamp("phase 12f")
+    P7 = lis_tpu_torch.auto_storage(testmat.poisson3d(g64, g64, g64))
+    val = P7.value.clone()
+    val[P7.offsets.index(0)] += 6.0
+    A64 = dataclasses.replace(P7, value=val)
+    b64 = torch.ones(A64.nrows, dtype=f64, device=dev)
+    t0 = time.perf_counter()
+    for name in QUAD_TWINS:
+        solve(A64, b64, f"-i {name} -p jacobi -restart 8 -f quad -tol 1e-8",
+              f"{g64}^3", dd_limit=1e-8, true_limit=1e-7)
+    tag(f"{g64}^3: the {len(QUAD_TWINS)} twins with their oracles in "
+        f"{time.perf_counter() - t0:.2f} s")
+    tag("table: size, options, iterations, ms/iter, M-P launches/iter, "
+        "solve wall s")
+    for row in rows:
+        tag("row " + json.dumps(row))
+
+
+# the solvers with a _quad twin (lis_tpu_torch/solvers/quad*.py)
+QUAD_TWINS = ("cg", "cr", "bicg", "cgs", "bicgstab", "bicr", "crs",
+              "bicrstab", "gpbicg", "gpbicr", "bicgsafe", "bicrsafe", "tfqmr",
+              "orthomin", "bicgstabl", "gmres", "fgmres")
+
+
 def plain_vcycle(M):
     """The psolve of the lattice SA-AMG preconditioner ``M`` over the plain
     versions of H, J and L (and the coarsest matmul), in the order of
@@ -2466,6 +2766,10 @@ WHERE = {
                         "lis_tpu/precon/saamg.py:341"),
     "lattice_restrict": ("lis_tpu_torch/csrc/amg.cu",
                          "lis_tpu/precon/saamg.py:345"),
+    "dd_dia_spmv": ("lis_tpu_torch/csrc/dd.cu", "lis_tpu/core/ddreal.py:365"),
+    "dd_ell_spmv": ("lis_tpu_torch/csrc/dd.cu", "lis_tpu/core/ddreal.py:299"),
+    "dd_reduce": ("lis_tpu_torch/csrc/dd.cu", "lis_tpu/core/ddreal.py:218"),
+    "dd_update": ("lis_tpu_torch/csrc/dd.cu", "lis_tpu/core/ddreal.py:196"),
 }
 
 

@@ -57,6 +57,12 @@ _SIGNATURES = {
                             _I64, _P],
     "lis_lattice_restrict": [_INT, _INT, _P, _P, _P, _P, _P, _I64, _I64,
                              _I64, _P],
+    "lis_dd_dia_spmv": [_INT, _INT, _P, _P, _P, _P, _P, _P, _P, _I64, _I64,
+                        _I64, _P],
+    "lis_dd_ell_spmv": [_INT, _P, _P, _P, _P, _P, _P, _P, _I64, _I64, _P],
+    "lis_dd_reduce": [_INT, _INT, _P, _P, _P, _P, _I64, _I64, _I64, _P, _P,
+                      _P],
+    "lis_dd_update": [_INT, _INT, _P, _P, _P, _P, _P, _P, _P, _P, _I64, _P],
 }
 
 _lib = None

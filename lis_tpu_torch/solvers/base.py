@@ -172,10 +172,18 @@ def krylov_loop(spec: SolverSpec, tol_eff, state: dict, step,
         # between two host reads a step may run past the loop condition;
         # with a read before every step it cannot, and needs no merge
         state = new if every == 1 or frozen_by_step else {
-            k: torch.where(on, new[k], state[k]) for k in state}
+            k: _merge(on, new[k], state[k]) for k in state}
         if spec.live_print:
             print_rhistory(state["rh"], before, int(state["it"]), it_done)
     return state
+
+
+def _merge(on, new, old):
+    """torch.where(on, new, old), limb by limb for a double-double pair
+    (the _quad solvers' state)."""
+    if isinstance(new, tuple):
+        return type(new)(*(torch.where(on, a, b) for a, b in zip(new, old)))
+    return torch.where(on, new, old)
 
 
 def print_rhistory(rh, before: int, after: int, it_done: bool) -> None:

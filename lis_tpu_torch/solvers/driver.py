@@ -18,9 +18,11 @@ on the scaled and routed operator, as lis_tpu builds it, and a solver's
 prepare hook (GS, SOR) runs after it; ``ptime`` times both (lis_tpu
 times the preconditioner alone).  Every preconditioner of lis_tpu runs
 (none, jacobi, bjacobi, ssor, ilu, ilut, iluc, is, sainv, saamg,
-hybrid).  What lis_tpu does and this package does not yet (the BES and
-BSR formats, the precision modes) raises ``NotImplementedError`` naming
-the ROADMAP.md item that ports it.
+hybrid), at every precision of lis_tpu: ``-f double`` and ``single``,
+and the double-double modes ``quad``, ``switch``, ``df`` and
+``switch_df`` through the 17 ``_quad`` twins.  What lis_tpu does and this
+package does not yet (the BES and BSR formats, ``-reorder``, ``-use_at``)
+raises ``NotImplementedError`` naming the ROADMAP.md item that ports it.
 """
 
 from __future__ import annotations
@@ -34,6 +36,7 @@ import torch
 
 from lis_tpu_torch import config as C
 from lis_tpu_torch.core import vector as v
+from lis_tpu_torch.core.ddreal import DD, make_dd_operator
 from lis_tpu_torch.matrix.base import SparseMatrix
 from lis_tpu_torch.matrix.convert import convert_matrix, is_banded
 from lis_tpu_torch.matrix.css import CSSMatrix
@@ -62,6 +65,8 @@ from lis_tpu_torch.solvers import gpbicg as _gpbicg       # noqa: F401
 from lis_tpu_torch.solvers import idrs as _idrs           # noqa: F401
 from lis_tpu_torch.solvers import minres as _minres       # noqa: F401
 from lis_tpu_torch.solvers import orthomin as _orthomin   # noqa: F401
+from lis_tpu_torch.solvers import quad as _quad           # noqa: F401
+from lis_tpu_torch.solvers import quad_ext as _quad_ext   # noqa: F401
 from lis_tpu_torch.solvers import stationary as _stat     # noqa: F401
 from lis_tpu_torch.solvers import tfqmr as _tfqmr         # noqa: F401
 from lis_tpu_torch.utils.trace import traced
@@ -175,9 +180,6 @@ def _check_ported(opts: SolverOptions) -> None:
     if opts.solver not in SOLVER_FNS:
         raise NotImplementedError(f"solver {opts.solver!r} not implemented; "
                                   f"have {sorted(SOLVER_FNS)}")
-    if opts.precision not in ("double", "single"):
-        raise _not_ported(f"-f {opts.precision}",
-                          "queue 1 item 7 (precision modes)")
     if opts.reorder == "rcm":
         raise _not_ported("-reorder rcm", "queue 1 item 8")
     if opts.use_at:
@@ -237,8 +239,11 @@ def _convert_storage(A, opts):
     if opts.auto_storage:
         # solvers applying A^H every iteration need the CST transpose
         # grid; everything else uses it at most once per solve and rides
-        # the scatter fallback
-        return auto_storage(A, need_at=opts.solver in ("bicg", "bicr"))
+        # the scatter fallback.  lis_tpu routes every double-double mode
+        # as if Aᴴ were needed (its DD operators read no grid)
+        need_at = (opts.solver in ("bicg", "bicr")
+                   or opts.precision not in ("double", "single"))
+        return auto_storage(A, need_at=need_at)
     return A
 
 
@@ -320,24 +325,30 @@ def solve(A: SparseMatrix, b, x0=None, options=None, M=None,
         if opts.adds:
             M = wrap_additive_schwarz(A, M, opts)
     aux = prepare(A, spec) if prepare else None
+    # the DD operator (an ELL copy for any format but DIA) is set-up too
+    dd = _dd_setup(A, b, x0, M, aux, opts) if opts.precision in DD_MODES \
+        else None
     _sync(device)
     ptime = C.wtime() - t_p
 
     # ---- execute -----------------------------------------------------------
     t_i = C.wtime()
-    if opts.precision == "single":
-        # like lis_tpu's _cast32: real float64 tensors drop to float32,
-        # complex ones stay as they are (TensorFields.to casts only real
-        # floating-point leaves)
-        f32 = torch.float32
-        A, b32, x0, M = A.to(dtype=f32), _cast32(b), _cast32(x0), \
-            M.to(dtype=f32)
-        aux = None if aux is None else aux.to(dtype=f32)
+    extra_iters = 0
+    if dd is not None:
+        out, extra_iters = _solve_dd(dd, spec, opts, prepare)
     else:
         b32 = b
-    if prepare:
-        fn = functools.partial(fn, aux=aux)
-    out = fn(A, b32, x0, M, spec)
+        if opts.precision == "single":
+            # like lis_tpu's _cast32: real float64 tensors drop to float32,
+            # complex ones stay as they are (TensorFields.to casts only
+            # real floating-point leaves)
+            f32 = torch.float32
+            A, b32, x0, M = A.to(dtype=f32), _cast32(b), _cast32(x0), \
+                M.to(dtype=f32)
+            aux = None if aux is None else aux.to(dtype=f32)
+        if prepare:
+            fn = functools.partial(fn, aux=aux)
+        out = fn(A, b32, x0, M, spec)
     out = out._replace(x=out.x.to(b.dtype))
     x = out.x
     _sync(device)
@@ -350,7 +361,7 @@ def solve(A: SparseMatrix, b, x0=None, options=None, M=None,
     bn = float(v.nrm2(b0))
     true_resid = float(v.nrm2(rtrue)) / (1.0 if bn == 0 else bn)
 
-    iters = int(out.iters)
+    iters = int(out.iters) + extra_iters
     rh = out.rhistory[: iters + 1].cpu().numpy()
     result = SolveResult(x=x, status=int(out.status), iters=iters,
                          resid=float(out.resid), true_resid=true_resid,
@@ -359,6 +370,62 @@ def solve(A: SparseMatrix, b, x0=None, options=None, M=None,
     if opts.print_ & 2:
         _print_banner(result, n, live=True)
     return result
+
+
+DD_MODES = ("quad", "switch", "df", "switch_df")
+
+
+def _dd_setup(A, b, x0, M, aux, opts):
+    """The operands of the double-double modes (lis_tpu ``solve``,
+    driver.py:486-527): f64 pairs for quad and switch; for df and
+    switch_df the operator and the right-hand side as f32 pairs, x0 and M
+    cast to f32 (and A and aux for switch_df's first phase).  Complex
+    operands and solvers without a _quad twin are refused, with
+    lis_tpu's messages.  Returns (A_dd, b_dd, A, b, x0, M, aux)."""
+    if b.is_complex():
+        # the reference's quad machinery is real-only (src/precision/)
+        raise NotImplementedError(
+            f"-f {opts.precision} does not support complex operands "
+            "(the reference's quad precision is real-only)")
+    if opts.solver + "_quad" not in SOLVER_FNS:
+        raise NotImplementedError(
+            f"no quad variant of {opts.solver!r}; have "
+            f"{sorted(k for k in SOLVER_FNS if k.endswith('_quad'))}")
+    if opts.precision in ("quad", "switch"):
+        return make_dd_operator(A), b, A, b, x0, M, aux
+    f32 = torch.float32
+    b32 = _cast32(b)
+    b_dd = DD(b32, (b - b32.to(b.dtype)).to(f32))
+    A_dd = make_dd_operator(A, limb=f32)
+    if opts.precision == "switch_df":
+        A = A.to(dtype=f32)
+        aux = None if aux is None else aux.to(dtype=f32)
+    return A_dd, b_dd, A, b32, _cast32(x0), M.to(dtype=f32), aux
+
+
+def _solve_dd(dd, spec, opts, prepare):
+    """lis_tpu's DD dispatch (driver.py:528-542): switch and switch_df
+    first run the solver itself (at f32 for switch_df) to -switch_tol /
+    -switch_maxiter, then its _quad twin from that x; the iteration
+    counts add.  Returns (output, the first phase's count)."""
+    A_dd, b_dd, A, b, x0, M, aux = dd
+    extra = 0
+    if opts.precision in ("switch", "switch_df"):
+        sw_maxiter = (opts.switch_maxiter if opts.switch_maxiter > 0
+                      else opts.maxiter)
+        # switch_df's first phase is f32: past about 1e-6 its recursive
+        # residual no longer tracks the true one
+        sw_tol = (opts.switch_tol if opts.precision == "switch"
+                  else max(opts.switch_tol, 1.0e-6))
+        fn = SOLVER_FNS[opts.solver]
+        if prepare:
+            fn = functools.partial(fn, aux=aux)
+        out1 = fn(A, b, x0, M, spec._replace(tol=sw_tol, maxiter=sw_maxiter))
+        x0 = out1.x
+        extra = int(out1.iters)
+    qname = opts.solver + "_quad"
+    out = SOLVER_FNS[qname](A_dd, b_dd, x0, M, spec._replace(solver=qname))
+    return out, extra
 
 
 def _print_banner(res: SolveResult, n: int, file=None, live=False):

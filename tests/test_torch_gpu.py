@@ -1224,3 +1224,123 @@ def test_remaining_preconditioners_on_the_card(cuda, opts):
                                atol=1e-8 * float(want.x.abs().max()))
     if "saamg" in opts and "lattice false" not in opts:
         assert amg.lattice_prolong.launches > before
+
+
+# ---- kernels M-P: the double-double path (csrc/dd.cu) ----------------------
+# Each against its plain version on the card, bit for bit (NaN where the
+# plain version has NaN): f64 pairs and f32 pairs ("df"), odd lengths, the
+# two-pass reduction (above 2^15 padded terms), and a NaN in x[0].
+
+from lis_tpu_torch.core import ddreal as dq  # noqa: E402
+
+
+def _dd_vec(rng, n, dtype, dev, nan=False):
+    eps = torch.finfo(dtype).eps
+    hi = rng.standard_normal(n)
+    hi[::97] = 0.0
+    lo = hi * rng.uniform(-0.5, 0.5, n) * eps
+    hi, lo = (torch.from_numpy(a).to(dtype).to(dev) for a in (hi, lo))
+    if nan:
+        hi[0] = float("nan")
+    return dq.DD(hi, lo)
+
+
+def _dd_same(got, want):
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=0, atol=0, equal_nan=True)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("nan", [False, True])
+@pytest.mark.parametrize("n", [1, 7, 1001, 32768, (1 << 17) + 3])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_dd_reduce_and_update(cuda, dtype, n, nan):
+    rng = np.random.default_rng(n)
+    x = _dd_vec(rng, n, dtype, cuda, nan)
+    y = _dd_vec(rng, n, dtype, cuda)
+    a = dq.DD(*(t.reshape(()) for t in _dd_vec(rng, 1, dtype, cuda)))
+    for mode in range(4):
+        before = dq.dd_reduce.launches
+        got = dq.dd_reduce(mode, x, y if mode == 1 else None)
+        assert dq.dd_reduce.launches == before + 1
+        _dd_same(got, dq._reduce_plain(mode, x, y if mode == 1 else None))
+    for mode in range(8):          # axpy xpay scal add sub mul div sqrt
+        alpha = None if mode >= 3 else a
+        other = None if mode in (2, 7) else y
+        xin = dq._mul(x, x) if mode == 7 else x
+        got = dq.dd_update(mode, alpha, xin, other)
+        _dd_same(got, dq._update_plain(mode, alpha, xin, other))
+    # the scalar algebra: 0-d pairs
+    b = dq.DD(*(t.reshape(()) for t in _dd_vec(rng, 1, dtype, cuda)))
+    for fn, plain in ((dq.add, dq._add), (dq.sub, dq._sub), (dq.mul, dq._mul),
+                      (dq.div, dq._div)):
+        _dd_same(fn(a, b), plain(a, b))
+    _dd_same(dq.sqrt(dq._mul(a, a)), dq._sqrt(dq._mul(a, a)))
+
+
+def _dd_dia(rng, n, offs, dev):
+    vals = rng.standard_normal((len(offs), n))
+    for k, o in enumerate(offs):            # zeros outside the matrix
+        lo, hi = max(0, -o), min(n, n - o)
+        vals[k, :lo] = 0.0
+        vals[k, hi:] = 0.0
+    return lis_tpu_torch.DIAMatrix.from_diagonals(
+        torch.from_numpy(vals), offs, (n, n), int((vals != 0).sum()),
+        device=dev)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("nan", [False, True])
+@pytest.mark.parametrize("limb", [None, torch.float32])
+@pytest.mark.parametrize("n", [5, 1001, 40000])
+def test_dd_dia_spmv(cuda, n, limb, nan):
+    rng = np.random.default_rng(n)
+    D = _dd_dia(rng, n, (-33, -7, -1, 0, 2, 9, 40), cuda)
+    op = dq.make_dd_operator(D, limb)
+    x = _dd_vec(rng, n, limb or torch.float64, cuda, nan)
+    for trans in (False, True):
+        got = dq.dd_dia_spmv(op, x, trans)
+        _dd_same(got, dq._dia_plain(op.value, op.offsets, x, op.value_lo,
+                                    trans))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("nan", [False, True])
+@pytest.mark.parametrize("limb", [None, torch.float32])
+@pytest.mark.parametrize("n", [7, 1001, 40000])
+def test_dd_ell_spmv(cuda, n, limb, nan):
+    rng = np.random.default_rng(n)
+    a = sp.random(n, n, density=min(1.0, 9.0 / n), random_state=n,
+                  format="csr") + sp.eye(n) * 4
+    a = a.tocsr()
+    a.sort_indices()
+    A = lis_tpu_torch.CSRMatrix.from_csr_arrays(a.indptr, a.indices, a.data,
+                                                a.shape, device=cuda)
+    op = dq.make_dd_operator(A, limb)
+    x = _dd_vec(rng, n, limb or torch.float64, cuda, nan)
+    for idx, val, vlo in ((op.index, op.value, op.value_lo),
+                          (op.index_t, op.value_t, op.value_t_lo)):
+        got = dq.dd_ell_spmv(idx, val, x, vlo)
+        _dd_same(got, dq._ell_plain(idx, val, x, vlo))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("limb", [None, torch.float32])
+@pytest.mark.parametrize("w", [129, 300, 1000])
+def test_dd_ell_spmv_long_rows(cuda, w, limb):
+    """Rows past 128 entries: kernel N's shared-memory path (odd and even
+    level counts), and the short rows of the same matrix beside them."""
+    rng = np.random.default_rng(w)
+    n = 2000
+    a = sp.lil_matrix(sp.random(n, n, density=4.0 / n, random_state=w))
+    for r, cnt in ((0, w), (7, w - 1), (n - 1, w // 2 + 1)):
+        a[r, rng.choice(n, cnt, replace=False)] = rng.standard_normal(cnt)
+    a = (a.tocsr() + sp.eye(n) * 4).tocsr()
+    a.sort_indices()
+    A = lis_tpu_torch.CSRMatrix.from_csr_arrays(a.indptr, a.indices, a.data,
+                                                a.shape, device=cuda)
+    op = dq.make_dd_operator(A, limb)
+    assert op.value.shape[1] >= w
+    x = _dd_vec(rng, n, limb or torch.float64, cuda)
+    _dd_same(dq.dd_ell_spmv(op.index, op.value, x, op.value_lo),
+             dq._ell_plain(op.index, op.value, x, op.value_lo))

@@ -111,6 +111,21 @@ def test_cst_route_builds_the_transpose_grid_only_on_need(solver, has_at):
     assert Tr.Kp == Jr.Kp and Tr.n_pad == Jr.n_pad
 
 
+@pytest.mark.parametrize("precision", ["quad", "switch", "df", "switch_df"])
+def test_dd_modes_route_as_if_at_were_needed(precision):
+    """lis_tpu routes every double-double mode as a solver that applies
+    Aᴴ each iteration (driver.py:359-360): cg gets a transpose grid under
+    -f quad, switch, df and switch_df, in both packages."""
+    a, J, T = pair("locality_free")
+    for M in (J, T):
+        M.__dict__.pop("_auto_dia", None)
+    opts = f"-i cg -p jacobi -f {precision}"
+    Jr = jtransform(J, lis_tpu.SolverOptions.from_string(opts))
+    Tr = transform_operator(T, TOptions.from_string(opts))
+    assert Jr.format_name == Tr.format_name == "cst"
+    assert Jr.at is not None and Tr.at is not None
+
+
 def test_route_cache_hit_and_need_at_upgrade():
     a, J, T = pair("locality_free")
     T.__dict__.pop("_auto_dia", None)

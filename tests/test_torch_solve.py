@@ -86,8 +86,8 @@ def test_solve_matches_lis_tpu(grid, storage, solver, precon):
 
 
 @pytest.mark.parametrize("opts,match", [
-    ("-i cg -storage cst -f quad", "queue 1 item 7"),
-    ("-i cg -storage cst -f switch_df", "queue 1 item 7"),
+    ("-i cg -storage msr", "queue 1 item 8"),
+    ("-i cg -storage jad", "queue 1 item 8"),
     ("-i cg -storage cst -reorder rcm", "reorder"),
     ("-i cg -storage cst -use_at true", "use_at"),
     ("-i cg -storage ell", "queue 1 item 8"),
