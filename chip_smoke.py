@@ -165,7 +165,8 @@ Phases (one or more lines each):
    (dd_ell_spmv, A and Aᵀ, on phase 3's n = 2^20 system as ELL arrays), O
    (dd_reduce: sum, dot, nrm2, nrm1) and P (dd_update: axpy, xpay, scal,
    add, sub) on 96³ vectors, each in f64 pairs and f32 pairs (df) against
-   its plain version, bit-equal, the forward M, N, dot and axpy timed
+   its plain version, bit-equal, and O's dot at 192³ (m = 2^23) in f64
+   pairs; the forward M, N, the dots and axpy timed
    beside the plain version and the bound (no PyTorch call computes
    double-double arithmetic: library none); (b) ``-i cg -p jacobi -f quad
    -tol 1e-12`` on poisson3d27 96³ (CSR -> router -> DIA) and 192³ (built
@@ -2403,7 +2404,17 @@ def phase_quad(S):
               (lambda: dq.div(a, b0), lambda: dq._div(a, b0), None,
                6 * es, 60), queued=True, record=False)
     del op, x, y
-    tag(f"M, O, P at {g96}^3 in {time.perf_counter() - t0:.2f} s")
+    # O's dot at 192^3 (m = 2^23), as quad-cg-jacobi-192^3 runs it
+    n192 = g192 ** 3
+    x, y = pair(n192, f64), pair(n192, f64)
+    check("dd_reduce", f64, f"{g192}^3 mode=1", flat(dq.dd_reduce(1, x, y)),
+          flat(dq._reduce_plain(1, x, y)), True,
+          (lambda: dq.dd_reduce(1, x, y), lambda: dq._reduce_plain(1, x, y),
+           None, 4 * n192 * 8, 24 * n192 + 20 * (1 << (n192 - 1).bit_length())),
+          queued=True, record=False)
+    del x, y
+    tag(f"M, O, P at {g96}^3 and O at {g192}^3 in "
+        f"{time.perf_counter() - t0:.2f} s")
     t0 = time.perf_counter()
     a20 = system(1 << 20, 8, S.seed)
     A20 = lis_tpu_torch.CSRMatrix.from_csr_arrays(a20.indptr, a20.indices,

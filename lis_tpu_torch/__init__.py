@@ -9,13 +9,18 @@ lives on the default device, the card (``device="cpu"`` or
 matrix lives.  Every Pallas kernel on a ported path is a hand-written
 CUDA kernel for Hopper (``csrc/``), built with nvcc at first use.
 
-Ported so far: ``solve()`` with cg, cr, bicg, bicr, bicgstab, bicrstab,
-cocg, cocr, gmres, fgmres, jacobi, gs and sor; the preconditioners none,
-jacobi, ssor and ilu (ILU(k)), with additive Schwarz around them
-(``-adds true``); ``-f double`` and ``-f single``; over CSR, DIA, HDI, CSS
-and CST, routed by ``auto_storage`` as in lis_tpu (banded → DIA) unless
-``-storage`` says otherwise; ASCII MatrixMarket I/O; the ``lsolve`` and
-``hpcg`` command lines (``python -m lis_tpu_torch.cli.hpcg 96 96 96``).
+Ported so far: ``solve()`` with all 25 of lis_tpu's solvers (cg, cr,
+bicg, bicr, cgs, crs, bicgstab, bicrstab, bicgstabl, gpbicg, gpbicr,
+bicgsafe, bicrsafe, tfqmr, orthomin, gmres, fgmres, idrs, idr1, minres,
+cocg, cocr, jacobi, gs, sor); all eleven preconditioners (none, jacobi,
+bjacobi, ssor, ilu, ilut, iluc, is, sainv, saamg, hybrid), with additive
+Schwarz around them (``-adds true``); all six precision modes, ``-f
+double``, ``single`` and the double-double ``quad``, ``switch``, ``df``
+and ``switch_df`` (lis_tpu's 17 ``_quad`` twins); over CSR, DIA, HDI,
+CSS and CST, routed by ``auto_storage`` as in lis_tpu (banded → DIA)
+unless ``-storage`` says otherwise; ASCII MatrixMarket I/O; the
+``lsolve`` and ``hpcg`` command lines (``python -m
+lis_tpu_torch.cli.hpcg 96 96 96``).
 """
 
 from lis_tpu_torch.config import (

@@ -319,8 +319,9 @@ def scal(alpha: DD, x: DD) -> DD:
 # ---- kernel O: dd_reduce (the halving-tree reductions) ---------------------
 
 _SUM, _DOT, _NRM2, _NRM1 = range(4)
-_RED_THREADS = 256           # threads of a first-pass block
-_RED_BLOCKS = 128            # first-pass blocks (a power of two)
+_RED_THREADS = 256           # threads of a block of the grid (B)
+_RED_FINAL = 1024            # threads of the single block, up to 2^15 terms
+_RED_BLOCKS = 128            # most blocks of the grid (G), all resident
 
 
 def _pow2(n: int) -> int:
@@ -364,22 +365,27 @@ def _reduce_plain(mode, x: DD, y=None) -> DD:
     return _sqrt(s) if mode == _NRM2 else s
 
 
-def _reduce_plan(n: int) -> int:
-    """First-pass blocks of kernel O for n terms: 0 (one block does it
-    all) up to 2^15 padded terms, else ``_RED_BLOCKS`` blocks of
-    ``_RED_THREADS`` threads, each thread walking m / 2^15 terms."""
+def _reduce_plan(n: int) -> tuple[int, int]:
+    """Kernel O's schedule for n terms: (G, R), G blocks of
+    ``_RED_THREADS`` threads in R groups of G / R.  (0, 0) up to 2^15
+    padded terms: one block of up to ``_RED_FINAL`` threads does it all.
+    Above, each thread walks at least 8 terms, with at most ``_RED_BLOCKS``
+    blocks (a cooperative launch: all resident at once); the groups' size
+    and count are near the square root of G, so that the group trees (G /
+    R partials a position) and the final tree (R a position) take about
+    as long."""
     m = _pow2(n)
-    return 0 if m <= _RED_BLOCKS * _RED_THREADS else _RED_BLOCKS
+    if m <= _RED_FINAL * 32:
+        return 0, 0
+    G = min(_RED_BLOCKS, m // (8 * _RED_THREADS))
+    g = 1 << ((G.bit_length() - 1) // 2)
+    return G, G // g
 
 
-def dd_reduce(mode: int, x: DD, y=None) -> DD:
-    """Kernel O: sum (``_dd_sum``), dot, nrm2 or nrm1 of DD arrays into a
-    0-d DD pair on the device, lis_tpu's halving tree reproduced bit for
-    bit (csrc/dd.cu says how).  Bound on the H100: bytes, each limb read
-    once.  One call is one launch, or two above 2^15 padded terms (the
-    second a single block over the first pass's 2^15 partials)."""
-    if not _on_card(x.hi):
-        return _reduce_plain(mode, x, y)
+def _reduce_launch(mode, x: DD, y, plan) -> DD:
+    """One call of kernel O with the schedule ``plan`` = (G, R), into one
+    allocation: the result (hi, lo), then with G > 0 the block and group
+    partials."""
     dt = x.hi.dtype
     if dt not in DD_DTYPES:
         raise ValueError(f"dd_reduce: dtype {dt} not supported")
@@ -387,15 +393,24 @@ def dd_reduce(mode: int, x: DD, y=None) -> DD:
     ptrs = [_limb(x.hi, "x.hi", dt), _limb(x.lo, "x.lo", dt, n)]
     ptrs += ([0, 0] if y is None else
              [_limb(y.hi, "y.hi", dt, n), _limb(y.lo, "y.lo", dt, n)])
-    blocks = _reduce_plan(n)
-    part = torch.empty(max(2 * blocks * _RED_THREADS, 1), dtype=dt,
-                       device=x.hi.device)
-    out = torch.empty(2, dtype=dt, device=x.hi.device)
+    G, R = plan
+    scratch = torch.empty(2 + 2 * (G + R) * _RED_THREADS if G else 2,
+                          dtype=dt, device=x.hi.device)
     _cuda.launch("lis_dd_reduce", _cuda.DTYPE_CODE[dt], mode, *ptrs, n,
-                 _pow2(n), blocks, part.data_ptr(), out.data_ptr(),
-                 _cuda.stream())
+                 _pow2(n), G, R, scratch.data_ptr(), _cuda.stream())
     dd_reduce.launches += 1
-    return DD(out[0], out[1])
+    return DD(scratch[0], scratch[1])
+
+
+def dd_reduce(mode: int, x: DD, y=None) -> DD:
+    """Kernel O: sum (``_dd_sum``), dot, nrm2 or nrm1 of DD arrays into a
+    0-d DD pair on the device, lis_tpu's halving tree reproduced bit for
+    bit (csrc/dd.cu says how).  Bound on the H100: bytes, each limb read
+    once.  One launch a call (``_reduce_plan``'s schedule), and one
+    allocation: the result and the kernel's scratch."""
+    if not _on_card(x.hi):
+        return _reduce_plain(mode, x, y)
+    return _reduce_launch(mode, x, y, _reduce_plan(x.hi.numel()))
 
 
 dd_reduce.launches = 0
@@ -487,10 +502,31 @@ def dd_dia_spmv(A: "DDDiaOperator", x: DD, trans: bool = False) -> DD:
 
 dd_dia_spmv.launches = 0
 _MAX_NND = 512               # csrc/dd.cu keeps the offsets in shared memory
-# a row longer than 128 entries keeps its terms in a block's shared memory
-# (csrc/dd.cu), 227 KB at most
+# kernel N: rows up to _ELL_STAGE_W entries are staged, _ELL_ROWS at most a
+# block, in about _ELL_STAGE_BYTES of shared memory (the staged kernel takes
+# rows up to 128 entries; past 64 a warp a row measured faster on the H100,
+# PERF.md); a warp a row keeps its row's terms in shared memory, 227 KB at
+# most
+_ELL_STAGE_W = 64
+_ELL_ROWS = 256
+_ELL_STAGE_BYTES = 72 * 1024
 MAX_ELL_WIDTH = {torch.float32: 232448 // 8 - 1,
                  torch.float64: 232448 // 16 - 1}
+
+
+def _ell_rows(w: int, es: int) -> int:
+    """Rows a block of kernel N's staged form for rows of ``w`` entries
+    with limbs of ``es`` bytes: as many as fit their ceil(w/2) staged
+    terms, at a stride of ceil(w/2) | 1 values, in ``_ELL_STAGE_BYTES``,
+    at most ``_ELL_ROWS``."""
+    stride = ((w + 1) // 2) | 1
+    return min(_ELL_ROWS, _ELL_STAGE_BYTES // (2 * stride * es))
+
+
+def _ell_plan(w: int, es: int) -> int:
+    """Kernel N's rows a block: ``_ell_rows`` up to ``_ELL_STAGE_W``
+    entries, else 0 (a warp a row)."""
+    return _ell_rows(w, es) if w <= _ELL_STAGE_W else 0
 
 
 def _row_reduce(p, e) -> DD:
@@ -522,29 +558,42 @@ def _ell_plain(index, value, x: DD, value_lo) -> DD:
     return _row_reduce(p, e)
 
 
-def dd_ell_spmv(index, value, x: DD, value_lo=None) -> DD:
-    """Kernel N: y = A·x in DD for ELL arrays (n, w) (rows padded at the
-    end with index 0 and value 0), one warp a row: the row's TWO_PROD
-    terms, then lis_tpu's row tree (in registers and shuffles up to 128
-    entries a row, in shared memory past that).  Bound on the H100: bytes, the index
-    and value arrays read once (x's gathers from the caches) plus y."""
-    if not _on_card(x.hi):
-        return _ell_plain(index, value, x, value_lo)
+def _ell_launch(index, value, x: DD, value_lo, rows: int) -> DD:
+    """One call of kernel N with ``rows`` rows a block (0: a warp a
+    row)."""
     dt = x.hi.dtype
     n, w = value.shape
     if not 1 <= w <= MAX_ELL_WIDTH[dt]:
         raise ValueError(f"dd_ell_spmv: rows of {w} entries (1 to "
                          f"{MAX_ELL_WIDTH[dt]} at {dt})")
     vlo = 0 if value_lo is None else _limb(value_lo, "value_lo", dt, n * w)
+    nx = x.hi.numel()
+    xpack = torch.empty(2 * nx, dtype=dt, device=x.hi.device)
     yh = torch.empty(n, dtype=dt, device=x.hi.device)
     yl = torch.empty_like(yh)
     _cuda.launch("lis_dd_ell_spmv", _cuda.DTYPE_CODE[dt],
                  _limb(index, "index", torch.int32, n * w),
                  _limb(value, "value", dt, n * w), vlo,
-                 _limb(x.hi, "x.hi", dt), _limb(x.lo, "x.lo", dt),
-                 yh.data_ptr(), yl.data_ptr(), n, w, _cuda.stream())
+                 _limb(x.hi, "x.hi", dt), _limb(x.lo, "x.lo", dt, nx),
+                 xpack.data_ptr(), yh.data_ptr(), yl.data_ptr(), n, nx, w,
+                 rows, _cuda.stream())
     dd_ell_spmv.launches += 1
     return DD(yh, yl)
+
+
+def dd_ell_spmv(index, value, x: DD, value_lo=None) -> DD:
+    """Kernel N: y = A·x in DD for ELL arrays (n, w) (rows padded at the
+    end with index 0 and value 0), lis_tpu's row tree reproduced bit for
+    bit: a block stages the first level of consecutive rows in shared
+    memory from coalesced loads, then a thread a row adds the rest
+    (``_ell_plan``; rows past 64 entries: a warp a row).  A first small
+    launch lays x's limbs side by side, so one gather brings both.  Bound
+    on the H100: bytes, the index and value arrays read once (x's gathers
+    from the caches) plus y."""
+    if not _on_card(x.hi):
+        return _ell_plain(index, value, x, value_lo)
+    return _ell_launch(index, value, x, value_lo,
+                       _ell_plan(value.shape[1], x.hi.element_size()))
 
 
 dd_ell_spmv.launches = 0

@@ -59,9 +59,10 @@ _SIGNATURES = {
                              _I64, _P],
     "lis_dd_dia_spmv": [_INT, _INT, _P, _P, _P, _P, _P, _P, _P, _I64, _I64,
                         _I64, _P],
-    "lis_dd_ell_spmv": [_INT, _P, _P, _P, _P, _P, _P, _P, _I64, _I64, _P],
-    "lis_dd_reduce": [_INT, _INT, _P, _P, _P, _P, _I64, _I64, _I64, _P, _P,
-                      _P],
+    "lis_dd_ell_spmv": [_INT, _P, _P, _P, _P, _P, _P, _P, _P, _I64, _I64,
+                        _I64, _I64, _P],
+    "lis_dd_reduce": [_INT, _INT, _P, _P, _P, _P, _I64, _I64, _I64, _I64,
+                      _P, _P],
     "lis_dd_update": [_INT, _INT, _P, _P, _P, _P, _P, _P, _P, _P, _I64, _P],
 }
 

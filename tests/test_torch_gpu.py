@@ -1229,7 +1229,7 @@ def test_remaining_preconditioners_on_the_card(cuda, opts):
 # ---- kernels M-P: the double-double path (csrc/dd.cu) ----------------------
 # Each against its plain version on the card, bit for bit (NaN where the
 # plain version has NaN): f64 pairs and f32 pairs ("df"), odd lengths, the
-# two-pass reduction (above 2^15 padded terms), and a NaN in x[0].
+# grid reduction (above 2^15 padded terms), and a NaN in x[0].
 
 from lis_tpu_torch.core import ddreal as dq  # noqa: E402
 
@@ -1344,3 +1344,97 @@ def test_dd_ell_spmv_long_rows(cuda, w, limb):
     x = _dd_vec(rng, n, limb or torch.float64, cuda)
     _dd_same(dq.dd_ell_spmv(op.index, op.value, x, op.value_lo),
              dq._ell_plain(op.index, op.value, x, op.value_lo))
+
+
+# Kernel O's schedules (``_reduce_plan``): one block up to 2^15 padded
+# terms, then grids of 32 to 128 blocks; 884,736 is 96^3, 2^23 192^3.
+@pytest.mark.gpu
+@pytest.mark.parametrize("nan", [False, True])
+@pytest.mark.parametrize("n", [2, 1000, 1 << 15, (1 << 15) + 1, 1 << 16,
+                               (1 << 17) + 5, 1 << 19, 884736, 1 << 20,
+                               1 << 23])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_dd_reduce_plans(cuda, dtype, n, nan):
+    rng = np.random.default_rng(n)
+    x = _dd_vec(rng, n, dtype, cuda, nan)
+    y = _dd_vec(rng, n, dtype, cuda)
+    for mode in range(4):
+        other = y if mode == 1 else None
+        before = dq.dd_reduce.launches
+        got = dq.dd_reduce(mode, x, other)
+        assert dq.dd_reduce.launches == before + 1
+        _dd_same(got, dq._reduce_plain(mode, x, other))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_dd_reduce_grids(cuda, dtype):
+    """Grids the C entry accepts beyond the plan's, bit-equal."""
+    rng = np.random.default_rng(11)
+    n = (1 << 20) - 3
+    x = _dd_vec(rng, n, dtype, cuda, nan=False)
+    y = _dd_vec(rng, n, dtype, cuda)
+    want = dq._reduce_plain(1, x, y)
+    for G, R in ((4, 1), (4, 4), (32, 8), (64, 8), (128, 16), (128, 128)):
+        _dd_same(dq._reduce_launch(1, x, y, (G, R)), want)
+
+
+@pytest.mark.gpu
+def test_dd_reduce_on_two_streams(cuda):
+    """O enqueued on two streams at once: each call's partials live in its
+    own scratch and its grid meets at its own barriers, so every result
+    agrees with the plain version."""
+    rng = np.random.default_rng(3)
+    xs = [_dd_vec(rng, 884736, torch.float64, cuda) for _ in range(2)]
+    want = [dq._reduce_plain(2, x) for x in xs]
+    streams = [torch.cuda.Stream() for _ in xs]
+    for s in streams:
+        s.wait_stream(torch.cuda.current_stream())
+    got = [[], []]
+    for _ in range(16):
+        for k, s in enumerate(streams):
+            with torch.cuda.stream(s):
+                got[k].append(dq.dd_reduce(2, xs[k]))
+    torch.cuda.synchronize()
+    for k in range(2):
+        for g in got[k]:
+            _dd_same(g, want[k])
+
+
+def _ell_width(rng, n, w, dev):
+    """A CSR matrix whose longest row has w entries (row lengths 0 to w,
+    so Aᵀ has other widths)."""
+    lens = rng.integers(0, w + 1, n)
+    lens[n // 2] = w
+    ptr = np.concatenate([[0], np.cumsum(lens)])
+    idx = np.concatenate([np.sort(rng.choice(n, k, replace=False))
+                          for k in lens])
+    val = rng.standard_normal(len(idx))
+    return lis_tpu_torch.CSRMatrix.from_csr_arrays(ptr, idx, val, (n, n),
+                                                   device=dev)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("limb", [None, torch.float32])
+@pytest.mark.parametrize("w", [1, 2, 3, 31, 32, 33, 34, 63, 64, 65, 127,
+                               128, 129])
+def test_dd_ell_spmv_widths(cuda, w, limb):
+    """N at every width class, A and Aᵀ, n = 4001 (prime: no plan's rows
+    a block divides it), through the plan and, up to 128 entries, through
+    both the staged and the warp-per-row kernel; one count a call."""
+    rng = np.random.default_rng(w)
+    n = 4001
+    op = dq.make_dd_operator(_ell_width(rng, n, w, cuda), limb)
+    assert op.value.shape[1] == w
+    x = _dd_vec(rng, n, limb or torch.float64, cuda, nan=w == 33)
+    for idx, val, vlo in ((op.index, op.value, op.value_lo),
+                          (op.index_t, op.value_t, op.value_t_lo)):
+        want = dq._ell_plain(idx, val, x, vlo)
+        before = dq.dd_ell_spmv.launches
+        _dd_same(dq.dd_ell_spmv(idx, val, x, vlo), want)
+        assert dq.dd_ell_spmv.launches == before + 1
+        wt = val.shape[1]
+        if wt <= 128:       # the staged kernel's reach, and a warp a row
+            _dd_same(dq._ell_launch(idx, val, x, vlo, dq._ell_rows(
+                wt, x.hi.element_size())), want)
+            _dd_same(dq._ell_launch(idx, val, x, vlo, 0), want)
