@@ -183,9 +183,33 @@ Phases (one or more lines each):
    twice per iteration), the oracle's count exactly; (f) the 17 twins with
    -p jacobi -restart 8 -tol 1e-8 on the 7-point poisson3d 64³ shifted by
    6·I, in DIA (GMRES, FGMRES and Orthomin restart every 8 steps), each
-   SUCCESS at its plain oracle's count.
+   SUCCESS at its plain oracle's count;
+13. the scalar formats, RCM, -use_at and the I/O (``phase formats:``
+   lines): (a) poisson3d27 96³ converted to coo, csc, msr, ell and jad,
+   each matvec and matvech held to the CSR's to rtol 1e-13 and timed
+   from the device's queue beside the CSR gather and the bound (the
+   format's array bytes plus 2n·8 over 3.35 TB/s); (b) ``-i cg -p jacobi
+   -tol 1e-10 -storage X`` for csr and the five: SUCCESS, true residual
+   <= 1e-9, the csr count ±1, G once an iteration; (c) ``-i bicgstab -f
+   quad -tol 1e-12 -storage csr|coo|jad``: the csr count exactly, N 2·it
+   + 1 times; (d) ``-i cg -p ssor -storage ell`` on poisson3d27 64³: the
+   csr count ±1, K twice an iteration; (e) poisson2d 128² (n = 16384) as
+   DNS, 2 GiB, checked as in (b) and its torch.mv timed; (f) poisson3d27
+   64³ scrambled by a seeded symmetric permutation, solved with
+   ``-reorder rcm``: the route and the bandwidth before and after, the
+   unscrambled count ±1 and x to 1e-8; (g) ``-use_at true`` on phase 9's
+   nonsymmetric variant: the explicit Aᴴ's product held to F's (rtol
+   1e-13); BiCG and BiCR + Jacobi on the 64³ DIA, and BiCG + SSOR on the
+   96³ CSR (-auto_storage false: at 96³ BiCG + Jacobi is count-unstable),
+   each at the ``-use_at false`` count ±1, F never launched with it;
+   (h) phase 8a's matrix written as hb, lis and
+   binary MM in both byte orders, b as plain and lisb, each read back
+   through ``lsolve`` with the MM file's count exactly (parse seconds
+   printed), and built by ``MatrixAssembler`` entry by entry to the
+   generator's arrays.  The per-format rows go on a JSON line of their
+   own (``{"formats": [...]}``) before the kernels line.
 
-Phases 1 to 12 all run at the sizes named here.  The matrices of phases 3
+Phases 1 to 13 all run at the sizes named here.  The matrices of phases 3
 to 6 are built with no ``device`` argument, so they live on the default
 device, the card.  Their CPU oracles (the port's plain path on the CPU,
 whose Benes passes take up to a minute a solve at n = 2^20) run at
@@ -195,7 +219,7 @@ remainder sums with atomics on the card); the card's solves at n = 2^20
 keep every other check.
 
 Launch counts are set to 0 just before each solve of phases 3, 5, 6 and
-8 to 12 and read just after; launches made to compare a kernel with its plain
+8 to 13 and read just after; launches made to compare a kernel with its plain
 version are not counted.  It prints one JSON line of per-kernel results
 (each row's ``timing`` says how its ``ms`` was taken; where that is
 "queued", ``host_ms`` and ``library_host_ms`` are the kernel's and the
@@ -1079,6 +1103,7 @@ def main() -> None:
     if Afile.nnz != P2.nnz or not lines[-2].startswith("CG: number of"):
         fail(f"lsolve: nnz {Afile.nnz} vs {P2.nnz}; report {lines[-2:]}")
     it_ls = int(lines[-2].rsplit("=", 1)[1])
+    S.it_ls = it_ls                 # phase 13h reads the file's count
     need_exact(got, {"dia_spmv": it_ls + 1, "krylov_dot": it_ls + 1,
                      "cg_direction": it_ls, "cg_update": it_ls,
                      "cg_finish": it_ls}, "lsolve")
@@ -1355,6 +1380,9 @@ def main() -> None:
     # ---- 12. the precision modes: kernels M-P and the _quad twins ---------
     stamp("phase 12")
     phase_quad(S)
+    # ---- 13. the scalar formats, -reorder rcm, -use_at and the I/O ------
+    stamp("phase 13")
+    phase_formats(S)
     report_results(S, smi_line, total)
 
 def phase_preconditioned(S):
@@ -2596,6 +2624,335 @@ def phase_quad(S):
         tag("row " + json.dumps(row))
 
 
+def phase_formats(S):
+    """Phase 13: the scalar formats coo, csc, msr, ell, jad and dns, the
+    RCM reordering, the explicit transpose and the HB / Lis / PLAIN /
+    binary MatrixMarket I/O (see the docstring).  The formats' matvecs
+    are torch operations (lis_tpu has no Pallas kernel there); the solves
+    run the existing kernels: G, K and N."""
+    import torch
+    import scipy.sparse as sp
+    import lis_tpu_torch
+    from lis_tpu_torch.cli import lsolve
+    from lis_tpu_torch.matrix.base import TensorFields
+    from lis_tpu_torch.matrix.reorder import (bandwidth, permute_symmetric,
+                                              rcm_permutation)
+    from lis_tpu_torch.matrix.useat import with_explicit_transpose
+    from lis_tpu_torch.utils import testmat
+
+    dev, f64 = S.dev, torch.float64
+    g96, g192, g64 = S.grids
+    t_phase = time.perf_counter()
+    S.format_rows = []
+
+    def tag(msg):
+        print(f"phase formats: {msg}", flush=True)
+
+    def nbytes(M):
+        """Bytes of every tensor the format holds."""
+        total = 0
+        for f in dataclasses.fields(M):
+            v = getattr(M, f.name)
+            if isinstance(v, torch.Tensor):
+                total += v.numel() * v.element_size()
+            elif isinstance(v, TensorFields):
+                total += nbytes(v)
+        return total
+
+    def rel_err(got, want):
+        return ((got - want).abs().max() / want.abs().max()).item()
+
+    def solve(M, b, opts):
+        r, got, wall = S.counted(lambda: lis_tpu_torch.solve(M, b,
+                                                             options=opts))
+        per = 1e3 * r.itime / max(r.iters, 1)
+        tag(f"{opts} on {M.format_name} n={M.nrows}: status {r.status} "
+            f"iters {r.iters} true_resid {r.true_resid:.3e} wall {wall:.3f} "
+            f"s ({per:.4f} ms/iter)")
+        return r, got, per
+
+    def near(what, it, it_ref, slack=1):
+        if abs(it - it_ref) > slack:
+            fail(f"{what}: {it} iterations against {it_ref}")
+
+    def cg_step(got, it, what):
+        S.need_exact(got, {"krylov_dot": it + 1, "cg_direction": it,
+                           "cg_update": it, "cg_finish": it,
+                           "dia_spmv": 0}, what)
+
+    # ---- (a) the formats' matvecs at 96^3, f64 -------------------------
+    S.stamp("phase 13a")
+    t0 = time.perf_counter()
+    A96 = testmat.poisson3d27(g96, g96, g96)
+    n, nnz = A96.nrows, A96.nnz
+    tag(f"poisson3d27 {g96}^3 CSR: n={n} nnz={nnz} built in "
+        f"{time.perf_counter() - t0:.2f} s")
+    x, y = S.randn(n, f64), S.randn(n, f64)
+    want_mv, want_mvh = A96.matvec(x), A96.matvech(y)
+    mats = {"csr": A96}
+    for fmt in ("coo", "csc", "msr", "ell", "jad"):
+        t0 = time.perf_counter()
+        mats[fmt] = lis_tpu_torch.convert_matrix(A96, fmt)
+        torch.cuda.synchronize()
+        t_conv = time.perf_counter() - t0
+        M = mats[fmt]
+        err = max(rel_err(M.matvec(x), want_mv),
+                  rel_err(M.matvech(y), want_mvh))
+        if not err <= 1e-13 or M.device != dev:
+            fail(f"{fmt} 96^3: matvec/matvech off the CSR's by {err:.3e}")
+        tag(f"{fmt}: converted on the host and moved in {t_conv:.2f} s; "
+            f"matvec and matvech against the CSR's: max rel err {err:.3e}")
+    for fmt, M in mats.items():            # csr first: the gather
+        mb = nbytes(M)
+        b_ms, b_by = bound_ms(mb + 2 * n * 8, 2 * nnz, f64)
+        ms = cuda_ms(lambda: M.matvec(x), queued=True)
+        msh = cuda_ms(lambda: M.matvech(y), queued=True)
+        S.format_rows.append({"format": fmt, "n": n, "nnz": nnz,
+                              "array_bytes": mb, "matvec_ms": ms,
+                              "matvech_ms": msh, "bound_ms": b_ms,
+                              "bound_by": b_by, "timing": "queued"})
+        csr = S.format_rows[0]
+        tag(f"{fmt} {g96}^3 f64: matvec {ms:.4f} ms, matvech {msh:.4f} ms "
+            f"(queued; the CSR's {csr['matvec_ms']:.4f} / "
+            f"{csr['matvech_ms']:.4f}), bound {b_ms:.4f} ms ({b_by}; "
+            f"{mb / 2**20:.1f} MiB of arrays; {100 * b_ms / ms:.0f} % / "
+            f"{100 * b_ms / msh:.0f} %)")
+
+    # ---- (b) CG + Jacobi per format at 96^3 -----------------------------
+    S.stamp("phase 13b")
+    b96 = torch.ones(n, dtype=f64, device=dev)
+    opts = "-i cg -p jacobi -tol 1e-10 -storage"
+    its = {}
+    for fmt, M in mats.items():
+        r, got, per = solve(M, b96, f"{opts} {fmt}")
+        its[fmt] = r.iters
+        if r.status != 0 or not r.true_resid <= 1e-9:
+            fail(f"cg -storage {fmt}: status {r.status} resid "
+                 f"{r.true_resid:.3e}")
+        near(f"cg -storage {fmt}", r.iters, its["csr"])
+        cg_step(got, r.iters, f"cg -storage {fmt}")
+        next(w for w in S.format_rows if w["format"] == fmt).update(
+            cg_jacobi_iters=r.iters, cg_jacobi_ms_per_iter=per)
+
+    # ---- (c) BiCGSTAB -f quad: the ELL pair of the same CSR, N ----------
+    S.stamp("phase 13c")
+    opts = "-i bicgstab -f quad -tol 1e-12 -storage"
+    for fmt in ("csr", "coo", "jad"):
+        r, got, per = solve(mats[fmt], b96, f"{opts} {fmt}")
+        its["quad " + fmt] = r.iters
+        if r.status != 0 or not r.resid <= 1e-12 \
+                or not r.true_resid <= 1e-11:
+            fail(f"bicgstab quad -storage {fmt}: status {r.status} resid "
+                 f"{r.resid:.3e} true_resid {r.true_resid:.3e}")
+        near(f"bicgstab quad -storage {fmt}", r.iters, its["quad csr"], 0)
+        S.need_exact(got, {"dd_ell_spmv": 2 * r.iters + 1,
+                           "dd_dia_spmv": 0}, f"bicgstab quad {fmt}")
+    del mats, A96, x, y, want_mv, want_mvh, b96
+    torch.cuda.empty_cache()
+
+    # ---- (d) SSOR on an ELL operator at 64^3: K, twice a psolve ---------
+    S.stamp("phase 13d")
+    A64 = testmat.poisson3d27(g64, g64, g64)
+    n64 = A64.nrows
+    E64 = lis_tpu_torch.convert_matrix(A64, "ell")
+    b64 = torch.ones(n64, dtype=f64, device=dev)
+    r_csr, _, _ = solve(A64, b64, "-i cg -p ssor -storage csr")
+    r, got, per = solve(E64, b64, "-i cg -p ssor -storage ell")
+    if r.status != 0 or not r.true_resid <= 1e-7:
+        fail(f"cg -p ssor -storage ell: status {r.status}")
+    near("cg -p ssor -storage ell", r.iters, r_csr.iters)
+    S.need_exact(got, {"trisolve": 2 * r.iters, "dia_relax": 0},
+                 "cg -p ssor -storage ell")
+    del E64
+
+    # ---- (e) DNS: poisson2d at n = 16384, 2 GiB of f64 -------------------
+    S.stamp("phase 13e")
+    P = testmat.poisson2d(128, 128)
+    t0 = time.perf_counter()
+    Dn = lis_tpu_torch.convert_matrix(P, "dns")
+    torch.cuda.synchronize()
+    tag(f"dns n={P.nrows}: {nbytes(Dn) / 2**30:.2f} GiB built in "
+        f"{time.perf_counter() - t0:.2f} s")
+    xd = S.randn(P.nrows, f64)
+    err = rel_err(Dn.matvec(xd), P.matvec(xd))
+    if not err <= 1e-13:
+        fail(f"dns matvec off the CSR's by {err:.3e}")
+    ms = cuda_ms(lambda: Dn.matvec(xd))
+    b_ms, b_by = bound_ms(nbytes(Dn) + 2 * P.nrows * 8,
+                          2 * P.nrows * P.nrows, f64)
+    bp = torch.ones(P.nrows, dtype=f64, device=dev)
+    r_csr, _, _ = solve(P, bp, "-i cg -p jacobi -tol 1e-10 -storage csr")
+    r, got, per = solve(Dn, bp, "-i cg -p jacobi -tol 1e-10 -storage dns")
+    if r.status != 0 or not r.true_resid <= 1e-9:
+        fail(f"cg -storage dns: status {r.status} resid {r.true_resid:.3e}")
+    near("cg -storage dns", r.iters, r_csr.iters)
+    cg_step(got, r.iters, "cg -storage dns")
+    S.format_rows.append({"format": "dns", "n": P.nrows,
+                          "nnz": P.nrows * P.nrows,
+                          "array_bytes": nbytes(Dn), "matvec_ms": ms,
+                          "bound_ms": b_ms, "bound_by": b_by,
+                          "timing": "host", "cg_jacobi_iters": r.iters,
+                          "cg_jacobi_ms_per_iter": per,
+                          "csr_cg_jacobi_iters": r_csr.iters})
+    tag(f"dns matvec (torch.mv) {ms:.4f} ms against the CSR's iters "
+        f"{r_csr.iters}; bound {b_ms:.4f} ms ({b_by}, "
+        f"{100 * b_ms / ms:.0f} %); max rel err {err:.3e}")
+    del Dn, P, xd, bp
+    torch.cuda.empty_cache()
+
+    # ---- (f) -reorder rcm on a scrambled 64^3 ---------------------------
+    S.stamp("phase 13f")
+    ptr, idx, val = A64.to_csr_arrays()
+    a = sp.csr_matrix((val, idx, ptr), shape=A64.shape)
+    perm = np.random.default_rng(S.seed).permutation(n64)
+    t0 = time.perf_counter()
+    s = a[perm][:, perm].tocsr()
+    s.sort_indices()
+    As = lis_tpu_torch.CSRMatrix.from_csr_arrays(s.indptr, s.indices,
+                                                 s.data, s.shape)
+    pr = rcm_permutation(As)
+    Ar = permute_symmetric(As, pr)
+    opts = "-i cg -p jacobi -tol 1e-10"
+    route = S.route_of(Ar, opts)
+    tag(f"scrambled {g64}^3: bandwidth {bandwidth(As)} -> {bandwidth(Ar)} "
+        f"after RCM, route {route} (scramble, RCM and routing "
+        f"{time.perf_counter() - t0:.2f} s)")
+    del Ar
+    bx = S.randn(n64, f64)
+    pd = torch.from_numpy(perm).to(dev)
+    r0, _, _ = solve(A64, bx, opts)
+    r, got, per = solve(As, bx.index_select(0, pd), opts + " -reorder rcm")
+    want = r0.x.index_select(0, pd)
+    xerr = rel_err(r.x, want)
+    tag(f"-reorder rcm: iters {r.iters} against the unscrambled "
+        f"{r0.iters}, x against the unscrambled x permuted: max rel err "
+        f"{xerr:.3e}; launches {dict((k, c) for k, c in got.items() if c)}")
+    if r.status != 0 or not r.true_resid <= 1e-9 or not xerr <= 1e-8:
+        fail(f"-reorder rcm: status {r.status}, x off by {xerr:.3e}")
+    near("-reorder rcm", r.iters, r0.iters)
+    del A64, As, b64, bx, pd, r0, r, want
+    torch.cuda.empty_cache()
+
+    # ---- (g) -use_at on phase 9's nonsymmetric variant ------------------
+    # (lower diagonals x 0.7, upper x 1.3, 28 on the diagonal).  On the
+    # 64^3 DIA, BiCG and BiCR + Jacobi: -use_at false's count ±1, with F
+    # launched there and never with -use_at.  At 96^3 BiCG + Jacobi is
+    # count-unstable (a change of 1e-14 in b moves it by tens of
+    # iterations, or makes it diverge), so there BiCG + SSOR runs on the
+    # CSR form, where both settings take the level-scheduled SSOR (K) and
+    # differ only in how Aᴴ is applied (scatter or explicit gather)
+    S.stamp("phase 13g")
+    for g in (g64, g96):
+        Dd = testmat.poisson3d27_dia(g, g, g)
+        scale = torch.tensor([0.7 if o < 0 else (1.3 if o > 0 else 28 / 26)
+                              for o in Dd.offsets], dtype=f64, device=dev)
+        Dd = dataclasses.replace(Dd, value=Dd.value * scale[:, None])
+        W = with_explicit_transpose(Dd)
+        yd = S.randn(Dd.nrows, f64)
+        err = rel_err(W.matvech(yd), Dd.matvech(yd))
+        tag(f"{g}^3: the explicit Aᴴ's gather against F: max rel err "
+            f"{err:.3e}")
+        if not err <= 1e-13:
+            fail(f"-use_at {g}^3: Aᴴ off F's product by {err:.3e}")
+        ones = torch.ones(Dd.nrows, dtype=f64, device=dev)
+        if g == g64:
+            A, runs = Dd, [f"-i {s} -p jacobi -tol 1e-10"
+                           for s in ("bicg", "bicr")]
+        else:
+            A = lis_tpu_torch.convert_matrix(Dd, "csr")
+            runs = ["-i bicg -p ssor -auto_storage false"]
+        del W
+        for opts in runs:
+            its = {}
+            for mode in ("false", "true"):
+                r, got, per = solve(A, ones, f"{opts} -use_at {mode}")
+                its[mode] = r.iters
+                if r.status != 0 or not r.true_resid <= 1e-9:
+                    fail(f"{opts} -use_at {mode} {g}^3: status "
+                         f"{r.status} resid {r.true_resid:.3e}")
+                on_dia = A.format_name == "dia"
+                if mode == "true" and (got["dia_spmvh"] != 0 or on_dia
+                                       and got["dia_spmv"] < r.iters):
+                    fail(f"{opts} -use_at true {g}^3: F launched "
+                         f"{got['dia_spmvh']} times, E {got['dia_spmv']}")
+                if mode == "false" and on_dia \
+                        and got["dia_spmvh"] < r.iters:
+                    fail(f"{opts} -use_at false {g}^3: F launched "
+                         f"{got['dia_spmvh']} times")
+            near(f"{opts} -use_at true {g}^3", its["true"], its["false"])
+        del Dd, A, ones
+        torch.cuda.empty_cache()
+
+    # ---- (h) the files of phase 8a's matrix through lsolve -------------
+    S.stamp("phase 13h")
+    P2 = testmat.poisson2d(512, 512)
+    argv = ["-i", "cg", "-p", "jacobi", "-tol", "1e-8", "-maxiter", "10000"]
+    with tempfile.TemporaryDirectory() as tmp:
+        def file(name):
+            return os.path.join(tmp, name)
+        t0 = time.perf_counter()
+        lis_tpu_torch.lis_output(file("a.hb"), P2, fmt="hb")
+        lis_tpu_torch.lis_output(file("a.lis"), P2, fmt="lis")
+        lis_tpu_torch.lis_output(file("a_le.mtx"), P2, fmt="mmb")
+        # the writer takes the host's order, as lis_tpu's does: a
+        # big-endian file is written with numpy told the host is one
+        np.little_endian = False
+        try:
+            lis_tpu_torch.write_matrix_market(file("a_be.mtx"), P2,
+                                              binary=True)
+        finally:
+            np.little_endian = sys.byteorder == "little"
+        for name, flag in (("a_le.mtx", "2"), ("a_be.mtx", "1")):
+            with open(file(name), "rb") as fh:
+                size_line = fh.read(200).split(b"\n")[1].split()
+            if size_line[-1] != flag.encode():
+                fail(f"{name}: size line {size_line} lacks isbin {flag}")
+        ones = torch.ones(P2.nrows, dtype=f64, device=dev)
+        lis_tpu_torch.lis_output_vector(file("b.txt"), ones, fmt="plain")
+        lis_tpu_torch.lis_output_vector(file("b.lisb"), ones, fmt="lisb")
+        tag(f"poisson2d 512x512 written as hb, lis, mmb < and >, b as "
+            f"plain and lisb in {time.perf_counter() - t0:.2f} s")
+        for mat, rhs in (("a.hb", "b.txt"), ("a.lis", "b.lisb"),
+                         ("a_le.mtx", "1"), ("a_be.mtx", "1")):
+            t0 = time.perf_counter()
+            Af = lis_tpu_torch.lis_input(file(mat))[0]
+            if rhs != "1":
+                bf = lis_tpu_torch.lis_input_vector(file(rhs))
+                if not torch.equal(bf, ones):
+                    fail(f"{rhs}: the vector read back differs")
+            t_parse = time.perf_counter() - t0
+            same = all(np.array_equal(u, w) for u, w in
+                       zip(Af.to_csr_arrays(), P2.to_csr_arrays()))
+            rhs_arg = file(rhs) if rhs != "1" else rhs
+            out = io.StringIO()
+            with contextlib.redirect_stdout(out):
+                rc, got, wall = S.counted(
+                    lambda: lsolve.main([file(mat), rhs_arg] + argv))
+            last = out.getvalue().splitlines()[-2]
+            it = int(last.rsplit("=", 1)[1])
+            tag(f"lsolve {mat} {rhs}: exit {rc}, iters {it} (the MM file "
+                f"{S.it_ls}), parsed in {t_parse:.2f} s, wall {wall:.2f} s")
+            if rc != 0 or not same or it != S.it_ls:
+                fail(f"lsolve {mat}: exit {rc}, arrays equal {same}, iters "
+                     f"{it} against {S.it_ls}")
+    ptr, idx, val = P2.to_csr_arrays()
+    rows = np.repeat(np.arange(P2.nrows), np.diff(ptr)).tolist()
+    t0 = time.perf_counter()
+    asm = lis_tpu_torch.MatrixAssembler(P2.shape)
+    for i, j, v in zip(rows, idx.tolist(), val.tolist()):
+        asm.set_value(lis_tpu_torch.LIS_INS_VALUE, i, j, v)
+    B = asm.assemble("csr")
+    t_asm = time.perf_counter() - t0
+    same = all(np.array_equal(u, w) for u, w in
+               zip(B.to_csr_arrays(), P2.to_csr_arrays()))
+    tag(f"MatrixAssembler: {len(rows)} set_value calls and assemble in "
+        f"{t_asm:.2f} s on {B.device}, arrays equal to the generator's: "
+        f"{same}")
+    if not same or B.device != dev:
+        fail("MatrixAssembler: the assembled matrix differs")
+    tag(f"phase 13 took {time.perf_counter() - t_phase:.1f} s")
+
+
 # the solvers with a _quad twin (lis_tpu_torch/solvers/quad*.py)
 QUAD_TWINS = ("cg", "cr", "bicg", "cgs", "bicgstab", "bicr", "crs",
               "bicrstab", "gpbicg", "gpbicr", "bicgsafe", "bicrsafe", "tfqmr",
@@ -2790,6 +3147,7 @@ def report_results(S, smi_line, total):
     import torch
     print(f"phase results: launches over the counted solves {total}",
           flush=True)
+    print(json.dumps({"formats": S.format_rows}))
     rows = []
     for name, (src, tpu) in WHERE.items():
         rows.append({"name": name, "route": "cuda", "source": src,

@@ -1,8 +1,10 @@
 """Rebuild port objects from another implementation's arrays.
 
 ``from_numpy_state(kind, arrays, statics)`` builds a ``CSRMatrix``,
-``DIAMatrix``, ``CSTMatrix`` (with its nested ``ShufflePlan``, ``rem`` and
-``at``), ``ShufflePlan`` or ``JacobiPrecon`` from numpy arrays — for instance the
+``COOMatrix``, ``CSCMatrix``, ``MSRMatrix``, ``ELLMatrix``, ``JADMatrix``,
+``DNSMatrix``, ``DIAMatrix``, ``CSTMatrix`` (with its nested
+``ShufflePlan``, ``rem`` and ``at``), ``ShufflePlan`` or ``JacobiPrecon``
+from numpy arrays — for instance the
 leaves of the matching lis_tpu object — so one exact grid can be fed to
 both packages, independently of the port's own grid construction.  The
 object lives on ``device`` (None: the default device, the card).
@@ -21,13 +23,21 @@ import numpy as np
 import torch
 
 from lis_tpu_torch.config import resolve_device
+from lis_tpu_torch.matrix.coo import COOMatrix
+from lis_tpu_torch.matrix.csc import CSCMatrix
 from lis_tpu_torch.matrix.csr import CSRMatrix
 from lis_tpu_torch.matrix.cst import CSTMatrix
 from lis_tpu_torch.matrix.dia import DIAMatrix
+from lis_tpu_torch.matrix.dns import DNSMatrix
+from lis_tpu_torch.matrix.ell import ELLMatrix
+from lis_tpu_torch.matrix.jad import JADMatrix
+from lis_tpu_torch.matrix.msr import MSRMatrix
 from lis_tpu_torch.ops.shuffle import ShufflePlan
 from lis_tpu_torch.precon.jacobi import JacobiPrecon
 
-_KINDS = {"csr": CSRMatrix, "dia": DIAMatrix, "cst": CSTMatrix,
+_KINDS = {"csr": CSRMatrix, "coo": COOMatrix, "csc": CSCMatrix,
+          "msr": MSRMatrix, "ell": ELLMatrix, "jad": JADMatrix,
+          "dns": DNSMatrix, "dia": DIAMatrix, "cst": CSTMatrix,
           "plan": ShufflePlan, "jacobi": JacobiPrecon}
 
 

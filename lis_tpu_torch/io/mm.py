@@ -5,10 +5,11 @@ src/system/lis_input_mm.c:62, CSR fast path :699, and lis_output_mm,
 src/system/lis_output_mm.c:60).  Supports coordinate and array formats,
 real/integer/complex/pattern fields, general/symmetric/skew-symmetric/
 hermitian symmetries, and the Lis extension of b and x vectors appended
-after the matrix entries.  Reading is host-side (numpy, or the native
-parser for plain real coordinate files); the matrix and the vectors land
-on ``device`` (None: the default device, the card).  The Lis binary
-flavour (packed records) is not ported yet (ROADMAP.md queue 1 item 8).
+after the matrix entries, in ASCII or in the Lis binary flavour (packed
+records, the file's endianness flagged on the size line).  Reading is
+host-side (numpy, or the native parser for plain real coordinate files);
+the matrix and the vectors land on ``device`` (None: the default device,
+the card).
 """
 
 from __future__ import annotations
@@ -33,10 +34,42 @@ def _parse_header(line: str):
     return obj, fmt, field, symm
 
 
-def _binary_not_ported():
-    return NotImplementedError(
-        "binary MatrixMarket (the Lis packed-record flavour) is not ported "
-        "to lis_tpu_torch yet (ROADMAP.md queue 1 item 8)")
+# binary record layouts (reference LIS_MM_MATFMT / LIS_MM_VECFMT,
+# include/lis_io.h:104-115: packed {int32 i, int32 j, float64 v} /
+# {int32 i, <pad>, float64 v}); isbin on the size line is endianness + 1
+# (2 = little, 1 = big: lis_output_mm.c:387, lis_input_mm.c)
+_MATFMT = {"<": np.dtype([("i", "<i4"), ("j", "<i4"), ("v", "<f8")]),
+           ">": np.dtype([("i", ">i4"), ("j", ">i4"), ("v", ">f8")])}
+_VECFMT = {"<": np.dtype({"names": ["i", "v"], "formats": ["<i4", "<f8"],
+                          "offsets": [0, 8], "itemsize": 16}),
+           ">": np.dtype({"names": ["i", "v"], "formats": [">i4", ">f8"],
+                          "offsets": [0, 8], "itemsize": 16})}
+
+
+def _read_binary(f, path, nrows, nnz, isb, isx, order):
+    """The packed records after the size line: (rows, cols, vals, b, x),
+    byte-swapped where the file's order is not the host's."""
+    raw = f.read(16 * nnz)
+    if len(raw) < 16 * nnz:
+        raise ValueError(f"{path}: declares {nnz} binary entries but holds "
+                         f"{len(raw) // 16} — truncated file")
+    rec = np.frombuffer(raw, dtype=_MATFMT[order])
+    b = x = None
+    if isb or isx:
+        want = 16 * nrows * (isb + isx)
+        raw = f.read(want)
+        if len(raw) < want:
+            raise ValueError(
+                f"{path}: appended b/x vector section holds "
+                f"{len(raw) // 16} of {nrows * (isb + isx)} records — "
+                f"truncated file")
+        vrec = np.frombuffer(raw, dtype=_VECFMT[order])
+        if isb:
+            b = vrec["v"][:nrows].astype(np.float64)
+        if isx:
+            x = vrec["v"][nrows * isb:].astype(np.float64)
+    return (rec["i"].astype(np.int64) - 1, rec["j"].astype(np.int64) - 1,
+            rec["v"].astype(np.float64), b, x)
 
 
 def _appended_vector(f, path, nrows, name):
@@ -55,7 +88,8 @@ def read_matrix_market(path: str, matrix_type: str = "csr",
     ``device``.
 
     Handles the Lis extension (lis_input_mm.c): an extended size line
-    ``nr nc nnz isb isx`` with appended b/x vectors.  With
+    ``nr nc nnz isb isx [isbin]`` with appended b/x vectors, in ASCII or
+    binary (packed records of either endianness).  With
     ``return_vectors`` the result is ``(matrix, b_or_None, x_or_None)``,
     the vectors as tensors on the same device.
     """
@@ -82,10 +116,12 @@ def read_matrix_market(path: str, matrix_type: str = "csr",
             nrows, ncols, nnz = int(sizes[0]), int(sizes[1]), int(sizes[2])
             isb = int(sizes[3]) if len(sizes) > 3 else 0
             isx = int(sizes[4]) if len(sizes) > 4 else 0
-            if len(sizes) > 5 and int(sizes[5]):
-                raise _binary_not_ported()
+            isbin = int(sizes[5]) if len(sizes) > 5 else 0
             native = None
-            if field in ("real", "integer", "pattern") \
+            if isbin:
+                rows, cols, vals, b, x = _read_binary(
+                    f, path, nrows, nnz, isb, isx, "<" if isbin == 2 else ">")
+            elif field in ("real", "integer", "pattern") \
                     and not (isb or isx or return_vectors):
                 native = _native.mm_parse_coords(path, skip, nnz,
                                                  field == "pattern")
@@ -93,7 +129,7 @@ def read_matrix_market(path: str, matrix_type: str = "csr",
                 rows, cols, vals = native
                 rows = rows.astype(np.int64)
                 cols = cols.astype(np.int64)
-            else:
+            elif not isbin:
                 data = np.loadtxt(f, max_rows=nnz, ndmin=2)
                 if data.shape[0] < nnz:
                     raise ValueError(
@@ -174,9 +210,12 @@ def write_matrix_market(path: str, matrix: SparseMatrix,
                         field: str | None = None, binary: bool = False,
                         b=None, x=None):
     """Write in coordinate/general form (like lis_output_mm), values with
-    17 significant digits; b/x append Lis-extension vectors."""
-    if binary:
-        raise _binary_not_ported()
+    17 significant digits; b/x append Lis-extension vectors.
+
+    ``binary`` writes the Lis binary flavour (LIS_FMT_MMB,
+    lis_output_mm.c:387): the extended size line with isbin = endianness
+    + 1, then packed 16-byte records, in the host's byte order as the
+    reference writes."""
     ptr, index, value = matrix.to_csr_arrays()
     ptr = np.asarray(ptr)
     index = np.asarray(index)
@@ -186,6 +225,27 @@ def write_matrix_market(path: str, matrix: SparseMatrix,
     cplx = np.iscomplexobj(value)
     field = field or ("complex" if cplx else "real")
     isb, isx = int(b is not None), int(x is not None)
+    if binary:
+        if cplx:
+            raise ValueError("binary MM output supports real values only")
+        bo = "<" if np.little_endian else ">"
+        with open(path, "wb") as f:
+            f.write(b"%%MatrixMarket matrix coordinate real general\n")
+            f.write(f"{n} {m} {len(value)} {isb} {isx} "
+                    f"{2 if bo == '<' else 1}\n".encode())
+            rec = np.empty(len(value), dtype=_MATFMT[bo])
+            rec["i"] = rows + 1
+            rec["j"] = index + 1
+            rec["v"] = value
+            f.write(rec.tobytes())
+            for vec in (b, x):
+                if vec is not None:
+                    v = host(vec)
+                    vrec = np.zeros(len(v), dtype=_VECFMT[bo])
+                    vrec["i"] = np.arange(1, len(v) + 1)
+                    vrec["v"] = v
+                    f.write(vrec.tobytes())
+        return
     with open(path, "w") as f:
         f.write(f"%%MatrixMarket matrix coordinate {field} general\n")
         if isb or isx:

@@ -95,6 +95,24 @@ def host(x) -> np.ndarray:
     return np.asarray(x)
 
 
+def as_tensor(a, dtype=None) -> torch.Tensor:
+    """A host array as a CPU tensor (copied only where numpy must, to make
+    it contiguous, writable or of ``dtype``)."""
+    return torch.from_numpy(np.require(host(a), dtype, ["C", "W"]))
+
+
+def conj(v: torch.Tensor) -> torch.Tensor:
+    """Complex conjugate; real tensors pass through."""
+    return v.conj() if v.is_complex() else v
+
+
+def scatter_add(n: int, index: torch.Tensor, prod: torch.Tensor):
+    """A length-n vector of the sums of ``prod`` at ``index`` (``index_add_``:
+    with atomics on a GPU, so the order of a sum's terms may vary)."""
+    y = torch.zeros(n, dtype=prod.dtype, device=prod.device)
+    return y.index_add_(0, index, prod)
+
+
 def canonical_csr(ptr, index, value, shape):
     """Sort column indices within rows, sum duplicates; host-side."""
     import scipy.sparse as sp
@@ -130,10 +148,49 @@ class SparseMatrix(TensorFields):
         device, ``config.default_device()``)."""
         raise NotImplementedError
 
+    def to(self, device=None, dtype=None):
+        out = super().to(device, dtype)
+        cached = getattr(self, "_host_csr", None)
+        if cached is not None and dtype is None:
+            # a format that caches its host CSR arrays (``_host_csr``)
+            # keeps them across a device move, which leaves them unchanged
+            object.__setattr__(out, "_host_csr", cached)
+        return out
+
+    def to_dense(self) -> np.ndarray:
+        """The matrix as a host (nrows, ncols) array, duplicates summed."""
+        ptr, index, value = self.to_csr_arrays()
+        dense = np.zeros(self.shape, dtype=value.dtype)
+        rows = np.repeat(np.arange(self.nrows, dtype=np.int64), np.diff(ptr))
+        np.add.at(dense, (rows, np.asarray(index, dtype=np.int64)), value)
+        return dense
+
     def get_diagonal(self):
         """Diagonal as a tensor on the matrix's device
-        (lis_matrix_get_diagonal, src/matrix/lis_matrix_ops.c:728)."""
-        raise NotImplementedError
+        (lis_matrix_get_diagonal, src/matrix/lis_matrix_ops.c:728), summed
+        on the host from the CSR arrays; formats that hold it override."""
+        ptr, index, value = self.to_csr_arrays()
+        d = np.zeros(self.nrows, dtype=value.dtype)
+        rows = np.repeat(np.arange(self.nrows, dtype=np.int64), np.diff(ptr))
+        isd = np.asarray(index, dtype=np.int64) == rows
+        np.add.at(d, rows[isd], value[isd])
+        return torch.from_numpy(d).to(self.device)
+
+    def _cached_csr(self, build):
+        """``build()``'s host CSR arrays, computed once and kept on the
+        matrix (``_host_csr``, as ``CSRMatrix`` keeps those it was built
+        from), so a conversion, a diagonal or a preconditioner that reads
+        the operator again needs no device-to-host copy."""
+        cached = getattr(self, "_host_csr", None)
+        if cached is None:
+            cached = build()
+            object.__setattr__(self, "_host_csr", cached)
+        return cached
+
+    def _rebuild_kwargs(self) -> dict:
+        """Structure parameters a same-format rebuild must keep (the block
+        formats' block sizes, once ported).  Default: none."""
+        return {}
 
     def _rebuilt(self, ptr, index, value):
         """Same-format rebuild of host CSR arrays on this matrix's device."""
@@ -141,7 +198,19 @@ class SparseMatrix(TensorFields):
         from lis_tpu_torch.matrix.csr import CSRMatrix
         out = CSRMatrix.from_csr_arrays(ptr, index, value, self.shape,
                                         device="cpu")
-        return convert_matrix(out, self.format_name, device=self.device)
+        return convert_matrix(out, self.format_name, device=self.device,
+                              **self._rebuild_kwargs())
+
+    def _rebuilt_scipy(self, a):
+        """Same-format rebuild of a scipy CSR matrix, columns sorted."""
+        a = a.tocsr()
+        a.sort_indices()
+        return self._rebuilt(a.indptr, a.indices, a.data)
+
+    def _scipy(self):
+        import scipy.sparse as sp
+        ptr, index, value = self.to_csr_arrays()
+        return sp.csr_matrix((value, index, ptr), shape=self.shape)
 
     def scale_rows(self, d):
         """Return a same-format matrix with rows scaled by vector d."""
@@ -157,3 +226,16 @@ class SparseMatrix(TensorFields):
         rows = np.repeat(np.arange(self.nrows), np.diff(ptr))
         value = value * dn[rows] * dn[index]
         return self._rebuilt(ptr, index, value)
+
+    def shift_diagonal(self, sigma):
+        """A - sigma I (lis_matrix_shift_diagonal,
+        src/matrix/lis_matrix_ops.c:781; Lis subtracts)."""
+        import scipy.sparse as sp
+        return self._rebuilt_scipy(
+            self._scipy() - sigma * sp.eye(self.nrows, self.ncols,
+                                           format="csr"))
+
+    def axpy(self, alpha, other):
+        """B + alpha A in this matrix's format, B = ``other``
+        (lis_matrix_axpy, src/matrix/lis_matrix_ops.c:489)."""
+        return self._rebuilt_scipy(other._scipy() + alpha * self._scipy())

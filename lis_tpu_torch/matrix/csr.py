@@ -17,7 +17,8 @@ import numpy as np
 import torch
 
 from lis_tpu_torch.config import resolve_device
-from lis_tpu_torch.matrix.base import SparseMatrix, matrix_format, static, host
+from lis_tpu_torch.matrix.base import (SparseMatrix, conj, host,
+                                       matrix_format, scatter_add, static)
 
 
 @matrix_format("csr")
@@ -48,15 +49,6 @@ class CSRMatrix(SparseMatrix):
         object.__setattr__(out, "_host_csr", (ptr, index, value))
         return out.to(resolve_device(device))
 
-    def to(self, device=None, dtype=None):
-        out = super().to(device, dtype)
-        cached = getattr(self, "_host_csr", None)
-        if cached is not None and dtype is None:
-            # host arrays are unchanged by a device move: keep them so
-            # to_csr_arrays() needs no device-to-host copy
-            object.__setattr__(out, "_host_csr", cached)
-        return out
-
     def to_csr_arrays(self):
         cached = getattr(self, "_host_csr", None)
         if cached is not None:
@@ -66,15 +58,12 @@ class CSRMatrix(SparseMatrix):
         return out
 
     def matvec(self, x):
-        prod = self.value * x.index_select(0, self.index)
-        y = torch.zeros(self.nrows, dtype=prod.dtype, device=prod.device)
-        return y.index_add_(0, self.row_ids, prod)
+        return scatter_add(self.nrows, self.row_ids,
+                           self.value * x.index_select(0, self.index))
 
     def matvech(self, x):
-        v = self.value.conj() if self.value.is_complex() else self.value
-        prod = v * x.index_select(0, self.row_ids)
-        y = torch.zeros(self.ncols, dtype=prod.dtype, device=prod.device)
-        return y.index_add_(0, self.index, prod)
+        return scatter_add(self.ncols, self.index,
+                           conj(self.value) * x.index_select(0, self.row_ids))
 
     def transpose(self) -> "CSRMatrix":
         """Aᴴ as a CSR on the same device (lis_tpu ``transpose``,

@@ -308,13 +308,6 @@ class DIAMatrix(SparseMatrix):
                             np.asarray(index, np.int32), value))
         return out
 
-    def to(self, device=None, dtype=None):
-        out = super().to(device, dtype)
-        cached = getattr(self, "_host_csr", None)
-        if cached is not None and dtype is None:
-            object.__setattr__(out, "_host_csr", cached)
-        return out
-
     @property
     def value_2d(self) -> np.ndarray:
         """Host (nnd, n) array of the diagonals."""

@@ -20,8 +20,10 @@ times the preconditioner alone).  Every preconditioner of lis_tpu runs
 (none, jacobi, bjacobi, ssor, ilu, ilut, iluc, is, sainv, saamg,
 hybrid), at every precision of lis_tpu: ``-f double`` and ``single``,
 and the double-double modes ``quad``, ``switch``, ``df`` and
-``switch_df`` through the 17 ``_quad`` twins.  What lis_tpu does and this
-package does not yet (the BES and BSR formats, ``-reorder``, ``-use_at``)
+``switch_df`` through the 17 ``_quad`` twins.  ``-reorder rcm`` solves the
+symmetrically permuted system (b and x0 permuted once on the device, x
+once at exit) and ``-use_at`` gives the BiCG family an explicit Aᴴ.  What
+lis_tpu does and this package does not yet (the BES and block formats)
 raises ``NotImplementedError`` naming the ROADMAP.md item that ports it.
 """
 
@@ -42,6 +44,8 @@ from lis_tpu_torch.matrix.convert import convert_matrix, is_banded
 from lis_tpu_torch.matrix.css import CSSMatrix
 from lis_tpu_torch.matrix.cst import CSTMatrix
 from lis_tpu_torch.matrix.hybrid import HybridMatrix
+from lis_tpu_torch.matrix.reorder import permute_symmetric, rcm_permutation
+from lis_tpu_torch.matrix.useat import with_explicit_transpose
 from lis_tpu_torch.precon.base import NonePrecon, create_precon
 from lis_tpu_torch.precon import hybrid as _phyb         # noqa: F401
 from lis_tpu_torch.precon import ilu as _pilu            # noqa: F401
@@ -171,19 +175,10 @@ class SolveResult:
                 f"resid={self.resid:.6e})")
 
 
-def _not_ported(what: str, item: str):
-    return NotImplementedError(
-        f"{what} is not ported to lis_tpu_torch yet (ROADMAP.md {item})")
-
-
 def _check_ported(opts: SolverOptions) -> None:
     if opts.solver not in SOLVER_FNS:
         raise NotImplementedError(f"solver {opts.solver!r} not implemented; "
                                   f"have {sorted(SOLVER_FNS)}")
-    if opts.reorder == "rcm":
-        raise _not_ported("-reorder rcm", "queue 1 item 8")
-    if opts.use_at:
-        raise _not_ported("-use_at", "queue 1 item 8")
 
 
 def _make_spec(opts: SolverOptions) -> SolverSpec:
@@ -201,7 +196,7 @@ def _effective_scale(opts) -> int:
     assumes a unit diagonal).  lis_tpu checks I+S before the block branch
     of -scale 1 -storage bsr (``_is_bscale``), so -p is always scales by
     the point diagonal; that branch comes with the BSR format (ROADMAP.md
-    queue 1 item 8)."""
+    queue 1 item 8b)."""
     scale = opts.scale
     if scale == 1 and opts.solver == "cg" and opts.precon == "jacobi":
         scale = 2
@@ -241,7 +236,7 @@ def _convert_storage(A, opts):
         # grid; everything else uses it at most once per solve and rides
         # the scatter fallback.  lis_tpu routes every double-double mode
         # as if Aᴴ were needed (its DD operators read no grid)
-        need_at = (opts.solver in ("bicg", "bicr")
+        need_at = (opts.solver in ("bicg", "bicr") or opts.use_at
                    or opts.precision not in ("double", "single"))
         return auto_storage(A, need_at=need_at)
     return A
@@ -287,13 +282,24 @@ def solve(A: SparseMatrix, b, x0=None, options=None, M=None,
     t_total = C.wtime()
     device = A.device
     b = _as_vector(b, device)
-    b0 = b
-    A0 = A
-    n = A.nrows
     if x0 is None or opts.initx_zeros:
         x0 = torch.zeros_like(b)
     else:
         x0 = _as_vector(x0, device)
+
+    # ---- bandwidth-reducing reordering (-reorder rcm, lis_tpu
+    # driver.py:400-411): solve (P A Pᵀ)(P x) = P b; the permutation is
+    # found on the host, b and x0 are permuted once here on the device and
+    # x once at exit -------------------------------------------------------
+    perm = None
+    if opts.reorder == "rcm":
+        p = rcm_permutation(A)
+        A = permute_symmetric(A, p)
+        perm = torch.from_numpy(p.astype(np.int64)).to(device)
+        b, x0 = b.index_select(0, perm), x0.index_select(0, perm)
+    b0 = b
+    A0 = A
+    n = A.nrows
 
     # ---- scaling (lis_solve_kernel :613-721) ------------------------------
     scale = _effective_scale(opts)
@@ -309,6 +315,10 @@ def solve(A: SparseMatrix, b, x0=None, options=None, M=None,
 
     # ---- storage conversion (-storage N) ----------------------------------
     A = _convert_storage(A, opts)
+
+    # ---- explicit Aᴴ for the BiCG family (-use_at) ------------------------
+    if opts.use_at:
+        A = with_explicit_transpose(A)
 
     # ---- preconditioner, on the scaled and routed operator, and the
     # solver's own set-up (the GS/SOR lower solve): both count in ptime ----
@@ -360,6 +370,10 @@ def solve(A: SparseMatrix, b, x0=None, options=None, M=None,
     rtrue = b0 - A0.matvec(x)
     bn = float(v.nrm2(b0))
     true_resid = float(v.nrm2(rtrue)) / (1.0 if bn == 0 else bn)
+    if perm is not None:
+        inv = torch.empty_like(perm)
+        inv[perm] = torch.arange(n, device=device)
+        x = x.index_select(0, inv)
 
     iters = int(out.iters) + extra_iters
     rh = out.rhistory[: iters + 1].cpu().numpy()

@@ -1438,3 +1438,60 @@ def test_dd_ell_spmv_widths(cuda, w, limb):
             _dd_same(dq._ell_launch(idx, val, x, vlo, dq._ell_rows(
                 wt, x.hi.element_size())), want)
             _dd_same(dq._ell_launch(idx, val, x, vlo, 0), want)
+
+
+SCALAR_FORMATS = ["coo", "csc", "msr", "ell", "jad", "dns"]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("fmt", SCALAR_FORMATS)
+def test_storage_cg_jacobi_on_the_card(cuda, fmt):
+    """CG + Jacobi over each scalar format on the card: the torch
+    matvec of the format, the fused step (G once an iteration, no E), the
+    CPU's count ±1 and the card's -storage csr count ±1 (the scatters sum
+    with atomics)."""
+    from lis_tpu_torch.core import vector as v
+    from lis_tpu_torch.matrix import dia
+    from lis_tpu_torch.utils.testmat import poisson2d
+    A_cpu = poisson2d(40, 31, device="cpu")
+    A = A_cpu.to(cuda)
+    b = np.random.default_rng(11).standard_normal(A.nrows)
+    opts = f"-i cg -p jacobi -tol 1e-10 -storage {fmt}"
+    want = lis_tpu_torch.solve(A_cpu, b, options=opts)
+    fns = (dia.dia_spmv, v.krylov_dot, v.cg_direction, v.cg_update,
+           v.cg_finish)
+    before = [f.launches for f in fns]
+    got = lis_tpu_torch.solve(A, b, options=opts)
+    e, g1, g2, g3, g4 = (f.launches - b0 for f, b0 in zip(fns, before))
+    csr = lis_tpu_torch.solve(A, b, options=opts.replace(fmt, "csr"))
+    assert got.x.is_cuda and got.status == want.status == 0
+    assert abs(got.iters - want.iters) <= 1
+    assert abs(got.iters - csr.iters) <= 1
+    assert got.true_resid <= 1e-9
+    torch.testing.assert_close(got.x.cpu(), want.x, rtol=1e-7, atol=1e-9)
+    assert e == 0
+    assert (g1, g2, g3, g4) == (got.iters + 1,) + (got.iters,) * 3
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("fmt", ["coo", "jad", "msr"])
+def test_storage_quad_count_on_the_card(cuda, fmt):
+    """BiCGSTAB -f quad over a scalar format: the ELL pair of the same
+    canonical CSR, so kernel N (twice an iteration and once for the
+    initial residual) gives the -storage csr solve's iterates bit for bit
+    and the CPU's count exactly."""
+    from lis_tpu_torch.core import ddreal as dq
+    from lis_tpu_torch.utils.testmat import poisson2d
+    A_cpu = poisson2d(40, 31, device="cpu")
+    A = A_cpu.to(cuda)
+    b = np.random.default_rng(12).standard_normal(A.nrows)
+    opts = f"-i bicgstab -f quad -tol 1e-12 -storage {fmt}"
+    want = lis_tpu_torch.solve(A_cpu, b, options=opts)
+    before = dq.dd_ell_spmv.launches
+    got = lis_tpu_torch.solve(A, b, options=opts)
+    launches = dq.dd_ell_spmv.launches - before
+    csr = lis_tpu_torch.solve(A, b, options=opts.replace(fmt, "csr"))
+    assert got.status == want.status == 0
+    assert got.iters == want.iters == csr.iters
+    assert launches == 2 * got.iters + 1
+    assert torch.equal(got.x, csr.x)

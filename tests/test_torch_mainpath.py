@@ -11,6 +11,8 @@ double exactly).  On the CPU the port runs the plain versions of kernels
 E, F and G.
 """
 
+import functools
+
 import numpy as np
 import pytest
 import scipy.sparse as sp
@@ -323,32 +325,34 @@ def test_mm_variants_read_like_lis_tpu(tmp_path, name):
 
 
 def test_mm_errors_and_unported_formats(tmp_path):
+    """Malformed files raise the error lis_tpu raises; the formats that
+    raised before the Lis, Harwell-Boeing and binary MatrixMarket I/O was
+    ported now round-trip."""
     path = str(tmp_path / "bad.mtx")
     with open(path, "w") as f:
         f.write("%%MatrixMarket matrix coordinate real general\n"
                 "3 3 4\n1 1 2.0\n2 2 1.0\n")
     with pytest.raises(ValueError, match="truncated"):
         lis_tpu_torch.read_matrix_market(path, device="cpu")
-    with open(path, "w") as f:
-        f.write("not a matrix\n")
-    with pytest.raises(NotImplementedError, match="queue 1 item 8"):
-        lis_tpu_torch.lis_input(path, device="cpu")
-    with open(path, "w") as f:
-        f.write("#LIS A matrix\n")
-    with pytest.raises(NotImplementedError, match="Lis native"):
-        lis_tpu_torch.lis_input(path, device="cpu")
-    with pytest.raises(NotImplementedError, match="Lis native"):
-        lis_tpu_torch.lis_input_vector(path, device="cpu")
+    for text, err in (("not a matrix\n", StopIteration),
+                      ("#LIS A matrix\n", ValueError)):
+        with open(path, "w") as f:
+            f.write(text)
+        for lis_input in (lis_tpu.lis_input, functools.partial(
+                lis_tpu_torch.lis_input, device="cpu")):
+            with pytest.raises(err):
+                lis_input(path)
     with open(path, "w") as f:
         f.write("%%MatrixMarket matrix coordinate real general\n"
                 "2 2 1 0 0 2\n")
-    with pytest.raises(NotImplementedError, match="binary"):
+    with pytest.raises(ValueError, match="truncated"):
         lis_tpu_torch.read_matrix_market(path, device="cpu")
     A = ttm.tridiag(4, device="cpu")
-    with pytest.raises(NotImplementedError, match="binary"):
-        lis_tpu_torch.write_matrix_market(path, A, binary=True)
-    with pytest.raises(NotImplementedError, match="item 8"):
-        lis_tpu_torch.lis_output(path, A, fmt="hb")
+    for fmt in ("mmb", "hb", "lis"):
+        lis_tpu_torch.lis_output(path, A, fmt=fmt)
+        B = lis_tpu_torch.lis_input(path, device="cpu")[0]
+        for got, want in zip(B.to_csr_arrays(), A.to_csr_arrays()):
+            np.testing.assert_array_equal(got, want)
     with pytest.raises(ValueError, match="unsupported"):
         lis_tpu_torch.lis_output(path, A, fmt="nope")
     lis_tpu_torch.lis_output(path, A)

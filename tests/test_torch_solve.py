@@ -86,14 +86,27 @@ def test_solve_matches_lis_tpu(grid, storage, solver, precon):
 
 
 @pytest.mark.parametrize("opts,match", [
-    ("-i cg -storage msr", "queue 1 item 8"),
-    ("-i cg -storage jad", "queue 1 item 8"),
-    ("-i cg -storage cst -reorder rcm", "reorder"),
-    ("-i cg -storage cst -use_at true", "use_at"),
-    ("-i cg -storage ell", "queue 1 item 8"),
-    ("-i cg -storage bes", "queue 1 item 8"),
+    ("-i cg -storage bes", "queue 1 item 8c"),
+    ("-i cg -storage bsr", "queue 1 item 8b"),
+    ("-i cg -storage bsc", "queue 1 item 8b"),
+    ("-i cg -storage vbr", "queue 1 item 8b"),
 ])
 def test_not_ported_paths_raise(opts, match):
     a, J, T, b = system(1 << 15, 5)
     with pytest.raises(NotImplementedError, match=match):
         lis_tpu_torch.solve(T, b, options=opts)
+
+
+@pytest.mark.parametrize("opts", [
+    "-i cg -storage msr",
+    "-i cg -storage jad",
+    "-i cg -storage cst -reorder rcm",
+    "-i cg -storage cst -use_at true",
+    "-i cg -storage ell",
+])
+def test_formerly_unported_paths_match_lis_tpu(opts):
+    """The option strings that raised before the scalar formats, -reorder
+    and -use_at were ported now give lis_tpu's answer."""
+    rj, rt = both(1 << 15, 5, opts)
+    assert rj.status == lis_tpu.LIS_SUCCESS
+    assert_same(rj, rt, rtol=1e-9)
