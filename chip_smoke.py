@@ -208,8 +208,45 @@ Phases (one or more lines each):
    printed), and built by ``MatrixAssembler`` entry by entry to the
    generator's arrays.  The per-format rows go on a JSON line of their
    own (``{"formats": [...]}``) before the kernels line.
+14. the eigensolvers (``phase eigen:`` lines) on poisson3d27 96³ built in
+   DIA, whose spectrum is known: 27 − c_i c_j c_k, c_m = 1 + 2cos(mπ/97),
+   smallest 0.0283093717, next reachable from x0 = ones (all-odd modes)
+   0.1037152789.  First one shift A − 0.5·I on the card
+   (``DIAMatrix.shift_diagonal``) timed beside the host rebuild, their CSR
+   arrays bit-equal.  Then (a) ``-e ii -i cg -etol 1e-8`` (the device
+   loop: E and G); (b) ``-e ii -i cg -ef quad -etol 1e-8`` (the host loop
+   through the driver: M-P), with no host rebuild and no host CSR read in
+   its outer loop; (c) ``-e cg -etol 1e-8``; (d) ``-e li -ss 4 -rval
+   true`` and ``-e si -ss 2 -i cg -etol 1e-8``; (e) ``gesolve -e gii
+   -etol 1e-8`` with B = diag(linspace(1, 2, n)) as a DIA; (f) ``-e rqi
+   -i minres -etol 1e-10 -emaxiter 100`` from (a)'s eigenvector perturbed
+   by a seeded 1e-2 (from ones with its default inner BiCG, which stops
+   unconverged at 1000 steps on the indefinite shifted systems, RQI's
+   count at 96³ rests on rounding: 33-190 outer iterations of about half
+   a second in three runs, 904 in another; at the default -etol 1e-12,
+   under the residual's rounding floor of about 3e-12 at 96³, 1000); (g) ``-e pi -emaxiter 200`` (MAXITER, its history held to the
+   oracle's to 1e-8); (h) ``-e li -ss 2 -rval true`` on phase 4's
+   prebuilt CST (A-D once per matvec) against the same on its CSR
+   (eigenvalues to 1e-10); (i) ``python -m lis_tpu_torch.cli.esolve`` on
+   poisson2d 512x512 written as in phase 8a (``-e li -ss 2 -rval true``,
+   exit 0, the evector file, the in-process eigenvalue).  Each prints its
+   status, outer iterations, eigenvalues and their closed-form error,
+   ||Ax − λBx||/|λ|, ms and kernel launches per outer iteration and its
+   wall.  (a) to (e) and (g) are held to the same gesolve over the plain
+   versions of E, F, G and M-P on the card (the wrappers swapped): status
+   and outer counts exactly, eigenvalues to 1e-10 relative; (b)'s oracle
+   runs at 16³ (a plain DD product costs about 37 ms at 96³), and its 96³
+   count is held to (a)'s.  (a), (b)
+   and a converged (c) are within 1e-8 of 0.0283093717, si's second pair
+   within 1e-7 of the second smallest eigenvalue, gii's eigenvalue in
+   [λ_min/2, λ_min], and RQI's on the spectrum (1e-8 relative), with no
+   oracle; so is a second RQI as users run it, ``-e rqi -etol 1e-8`` from
+   ones with the default inner BiCG, on poisson3d27 32³ (its count rests
+   on rounding).  Li runs with ``-rval
+   true``: refining Ritz pairs in the dense top of these spectra takes 50
+   inverse-iteration steps of up to 1000 inner steps each.
 
-Phases 1 to 13 all run at the sizes named here.  The matrices of phases 3
+Phases 1 to 14 all run at the sizes named here.  The matrices of phases 3
 to 6 are built with no ``device`` argument, so they live on the default
 device, the card.  Their CPU oracles (the port's plain path on the CPU,
 whose Benes passes take up to a minute a solve at n = 2^20) run at
@@ -219,7 +256,7 @@ remainder sums with atomics on the card); the card's solves at n = 2^20
 keep every other check.
 
 Launch counts are set to 0 just before each solve of phases 3, 5, 6 and
-8 to 13 and read just after; launches made to compare a kernel with its plain
+8 to 14 and read just after; launches made to compare a kernel with its plain
 version are not counted.  It prints one JSON line of per-kernel results
 (each row's ``timing`` says how its ``ms`` was taken; where that is
 "queued", ``host_ms`` and ``library_host_ms`` are the kernel's and the
@@ -704,6 +741,7 @@ def main() -> None:
 
     C, _ = cst_pair(a, transpose=False)
     C_s = cst_pair(a_s, transpose=False) + (b_s,)     # the oracle's
+    S.cst = (C, a)                  # phase 14h's operator
 
     def plain_matvec(C, xv):
         """C.matvec(xv) through the kernels' plain versions only."""
@@ -1383,6 +1421,9 @@ def main() -> None:
     # ---- 13. the scalar formats, -reorder rcm, -use_at and the I/O ------
     stamp("phase 13")
     phase_formats(S)
+    # ---- 14. the eigensolvers: esolve / gesolve over the kernels ---------
+    stamp("phase 14")
+    phase_eigen(S)
     report_results(S, smi_line, total)
 
 def phase_preconditioned(S):
@@ -2951,6 +2992,325 @@ def phase_formats(S):
     if not same or B.device != dev:
         fail("MatrixAssembler: the assembled matrix differs")
     tag(f"phase 13 took {time.perf_counter() - t_phase:.1f} s")
+
+
+def phase_eigen(S):
+    """Phase 14: the eigensolvers (``phase eigen:`` lines; see the
+    docstring).  lis_tpu's eigensolvers hold no Pallas kernel: the cases
+    run the existing kernels in their inner solves and products."""
+    import torch
+    import lis_tpu_torch
+    from lis_tpu_torch.core import ddreal as dq, vector as v
+    from lis_tpu_torch.matrix import dia as diam
+    from lis_tpu_torch.matrix.base import SparseMatrix
+    from lis_tpu_torch.utils import testmat
+
+    dev, f64 = S.dev, torch.float64
+    g96 = S.grids[0]
+    t_phase = time.perf_counter()
+
+    def tag(msg):
+        print(f"phase eigen: {msg}", flush=True)
+
+    # the closed-form spectrum of poisson3d27 g³: 27 − c_i c_j c_k with
+    # c_m = 1 + 2 cos(mπ/(g + 1)); from x0 = ones only all-odd (i, j, k)
+    # are reachable
+    c = 1.0 + 2.0 * np.cos(np.arange(1, g96 + 1) * np.pi / (g96 + 1))
+    spectrum = np.sort((27.0 - c[:, None, None] * c[None, :, None]
+                        * c[None, None, :]).ravel())
+    odd = c[0::2]
+    reach = 27.0 - odd[:, None, None] * odd[None, :, None] * odd[None, None, :]
+    lam_min, lam_311 = spectrum[0], 27.0 - c[0] * c[0] * c[2]
+    tag(f"poisson3d27 {g96}^3, closed form: smallest {lam_min:.10f}, next "
+        f"reachable from ones {lam_311:.10f} (ratio {lam_min / lam_311:.3f}), "
+        f"second smallest {spectrum[1]:.10f} (x3), largest "
+        f"{spectrum[-1]:.5f} ({reach.max():.5f} among the reachable)")
+    if abs(lam_min - 0.0283093717) > 1e-9 or abs(lam_311 - 0.1037152789) \
+            > 1e-9:
+        fail("phase 14: the closed-form spectrum disagrees with its "
+             "documented values")
+
+    t0 = time.perf_counter()
+    D = testmat.poisson3d27_dia(g96, g96, g96)
+    n = D.nrows
+    tag(f"{g96}^3 DIA built on the card in {time.perf_counter() - t0:.2f} s")
+
+    # ---- one shift A − σI: on the card, and the host rebuild ------------
+    Ds = D.shift_diagonal(0.5)
+    ms_dev = cuda_ms(lambda: D.shift_diagonal(0.5), reps=5, warm=1)
+    t0 = time.perf_counter()
+    Dh = SparseMatrix.shift_diagonal(dataclasses.replace(D), 0.5)
+    t_host = time.perf_counter() - t0
+    same = all(np.array_equal(p, q) for p, q in
+               zip(Ds.to_csr_arrays(), Dh.to_csr_arrays()))
+    tag(f"one shift A - 0.5 I at {g96}^3: {ms_dev:.3f} ms on the card "
+        f"(DIAMatrix.shift_diagonal, its nnz read included) against "
+        f"{t_host:.2f} s for the host rebuild (scipy, then DIA from CSR); "
+        f"CSR arrays bit-equal: {same}")
+    if not same:
+        fail("the DIA shift on the card differs from the host rebuild")
+    del Ds, Dh
+
+    @contextlib.contextmanager
+    def plain_kernels():
+        """Every wrapper of E, F, G and M-P swapped for its plain version
+        (their callers look them up at each call); fails if a kernel
+        launched meanwhile."""
+        swaps = {
+            (diam, "dia_spmv"): lambda value, off, offsets, x, ncols:
+                diam._spmv_plain(value, offsets, x, ncols),
+            (diam, "dia_spmvh"): lambda value, off, offsets, x:
+                diam._spmvh_plain(value, offsets, x, value.shape[1]),
+            (v, "krylov_dot"): v._krylov_dot_plain,
+            (v, "cg_direction"): v._cg_direction_plain,
+            (v, "cg_update"): v._cg_update_plain,
+            (v, "cg_finish"): v._cg_finish_plain,
+            (dq, "dd_update"): dq._update_plain,
+            (dq, "dd_reduce"): lambda mode, x, y=None: dq._reduce_plain(
+                mode, x, y),
+            (dq, "dd_dia_spmv"): lambda A, x, trans=False: dq._dia_plain(
+                A.value, A.offsets, x, A.value_lo, trans),
+            (dq, "dd_ell_spmv"): lambda index, value, x, value_lo=None:
+                dq._ell_plain(index, value, x, value_lo)}
+        saved = {key: getattr(*key) for key in swaps}
+        before = {k: f.launches for k, f in S.kernels.items()}
+        for (mod, name), f in swaps.items():
+            setattr(mod, name, f)
+        try:
+            yield
+        finally:
+            for (mod, name), f in saved.items():
+                setattr(mod, name, f)
+        if before != {k: f.launches for k, f in S.kernels.items()}:
+            fail("a plain-version oracle of phase 14 launched a kernel")
+
+    rows = []
+
+    def case(what, A, opts, B=None, oracle=True, ref=None, x0=None):
+        """The counted eigensolve; with ``oracle`` the same over the
+        plain versions on the card, held equal in status and outer counts
+        and to 1e-10 relative in the eigenvalues.  Prints the case's
+        line; returns (result, launches, the oracle's result)."""
+        r, got, wall = S.counted(
+            lambda: lis_tpu_torch.gesolve(A, B, options=opts, x0=x0))
+        x = r.evector
+        bx = x if B is None else B.matvec(x)
+        res = float(v.nrm2(A.matvec(x) - r.evalue * bx)) / abs(r.evalue)
+        # outer iterations: SI's sweeps over all its pairs; the Krylov
+        # dimension of LI and AI (every pair reports it)
+        it = max(int(np.sum(r.iters_all)) if "-e si" in opts
+                 else int(r.iters), 1)
+        kern = {k: cnt for k, cnt in got.items() if cnt}
+        err = "" if ref is None else \
+            f" (closed form {ref:.10f}, error {abs(r.evalue - ref):.2e})"
+        line = (f"{what} {opts} n={A.nrows}: status {r.status} outer "
+                f"iterations {list(map(int, r.iters_all))} eigenvalues "
+                f"{[round(float(e), 10) for e in r.evalues]}{err}, "
+                f"||Ax - lambda Bx||/|lambda| {res:.2e}, "
+                f"{1e3 * wall / it:.3f} ms per outer iteration, "
+                f"{sum(kern.values()) / it:.1f} kernel launches per outer "
+                f"iteration {kern}, wall {wall:.2f} s")
+        ro = None
+        if oracle:
+            t0 = time.perf_counter()
+            with plain_kernels():
+                ro = lis_tpu_torch.gesolve(A, B, options=opts, x0=x0)
+            torch.cuda.synchronize()
+            rel = np.abs(r.evalues - ro.evalues).max() / \
+                np.abs(ro.evalues).max()
+            line += (f"; plain oracle: status {ro.status} iterations "
+                     f"{list(map(int, ro.iters_all))}, eigenvalues rel diff "
+                     f"{rel:.1e}, in {time.perf_counter() - t0:.2f} s")
+        tag(line)
+        rows.append({"case": what, "options": opts, "n": A.nrows,
+                     "status": r.status, "iters": it,
+                     "evalue": r.evalue, "ms_per_outer": 1e3 * wall / it,
+                     "launches_per_outer": sum(kern.values()) / it,
+                     "wall_s": wall})
+        if ro is not None and (ro.status != r.status or list(
+                ro.iters_all) != list(r.iters_all) or not rel <= 1e-10):
+            fail(f"phase 14 {what} {opts}: the kernels' run differs from "
+                 f"its plain-version oracle")
+        return r, got, ro
+
+    def near(what, got, want, tol):
+        if not abs(got - want) <= tol:
+            fail(f"phase 14 {what}: eigenvalue {got:.12f}, closed form "
+                 f"{want:.12f}")
+
+    # ---- (a) inverse iteration, the device loop: E and G ----------------
+    S.stamp("phase 14a")
+    r, got, _ = case("(a)", D, "-e ii -i cg -etol 1e-8", ref=lam_min)
+    near("(a)", r.evalue, lam_min, 1e-8)
+    S.need_launches(got, ("dia_spmv", "krylov_dot", "cg_update"), r.iters,
+                    "(a)")
+    xa, iters_a = r.evector, int(r.iters)
+
+    # ---- (b) the host loop through the driver, -ef quad: M-P ------------
+    S.stamp("phase 14b")
+    rebuilds = {"host rebuilds": 0, "host CSR reads": 0}
+    originals = (SparseMatrix._rebuilt, diam.DIAMatrix.to_csr_arrays)
+
+    def counting(fn, key):
+        def wrapped(*args, **kw):
+            rebuilds[key] += 1
+            return fn(*args, **kw)
+        return wrapped
+    SparseMatrix._rebuilt = counting(originals[0], "host rebuilds")
+    diam.DIAMatrix.to_csr_arrays = counting(originals[1], "host CSR reads")
+    try:
+        opts = "-e ii -i cg -ef quad -etol 1e-8"
+        r, got, _ = case("(b)", D, opts, oracle=False, ref=lam_min)
+    finally:
+        SparseMatrix._rebuilt, diam.DIAMatrix.to_csr_arrays = originals
+    tag(f"(b) in its outer loop: {rebuilds}")
+    near("(b)", r.evalue, lam_min, 1e-8)
+    # (b)'s 96^3 count has no plain oracle (that runs at 16^3 below); it
+    # is held to (a)'s, the same iteration with double inner solves, whose
+    # count a 1e-14 change of x0 leaves alone (tools/count_spread.py)
+    if int(r.iters) != iters_a:
+        fail(f"(b): {r.iters} outer iterations against (a)'s {iters_a}")
+    S.need_launches(got, ("dd_dia_spmv", "dd_reduce", "dd_update"), r.iters,
+                    "(b)")
+    if any(rebuilds.values()) or got["dd_ell_spmv"]:
+        fail(f"(b): {rebuilds}, dd_ell_spmv {got['dd_ell_spmv']}: the "
+             f"shifted operator left the card")
+    # its plain oracle at 16^3: a plain DD product at 96^3 takes about
+    # 37 ms (phase 12), and this run makes thousands
+    D16 = testmat.poisson3d27_dia(16, 16, 16)
+    case("(b) 16^3", D16, opts)
+
+    # ---- (c) the CG eigensolver ----------------------------------------
+    S.stamp("phase 14c")
+    r, _, _ = case("(c)", D, "-e cg -etol 1e-8", ref=lam_min)
+    if r.status == lis_tpu_torch.LIS_SUCCESS:
+        near("(c)", r.evalue, lam_min, 1e-8)
+
+    # ---- (d) Lanczos and subspace iteration ----------------------------
+    S.stamp("phase 14d")
+    case("(d)", D, "-e li -ss 4 -rval true")
+    r, _, _ = case("(d)", D, "-e si -ss 2 -i cg -etol 1e-8", ref=lam_min)
+    near("(d) si pair 1", r.evalues[0], lam_min, 1e-8)
+    near("(d) si pair 2", r.evalues[1], spectrum[1], 1e-7)
+
+    # ---- (e) the generalized inverse iteration -------------------------
+    S.stamp("phase 14e")
+    d = torch.linspace(1.0, 2.0, n, dtype=f64, device=dev)[None, :]
+    Bd = diam.DIAMatrix.from_diagonals(d, (0,), D.shape, n)
+    r, _, _ = case("(e)", D, "-e gii -etol 1e-8", B=Bd)
+    if r.status != lis_tpu_torch.LIS_SUCCESS or not \
+            lam_min / 2 <= r.evalue <= lam_min:
+        fail(f"(e): status {r.status}, eigenvalue {r.evalue} outside "
+             f"[lambda_min / 2, lambda_min] (B lies in [I, 2I])")
+    del Bd, d
+
+    # ---- (f) RQI: some eigenpair of the grid ---------------------------
+    # RQI refining (a)'s eigenvector, perturbed by a seeded 1e-2, with the
+    # inner MINRES, to -etol 1e-10: at 96^3 the residual's rounding floor
+    # is about 3e-12, above the default 1e-12 (1000 outer iterations and
+    # 171 s to MAXITER on the card).  From ones with its default inner
+    # BiCG, whose solves of the indefinite shifted systems stop at 1000
+    # steps unconverged, its count rests on rounding (33-190 outer
+    # iterations in three runs, 904 and 487 s in another)
+    S.stamp("phase 14f")
+    noise = S.randn(n, f64)
+    x0 = xa + 1e-2 * noise / v.nrm2(noise)
+
+    def on_spectrum(what, r, spec):
+        k = int(np.abs(spec - r.evalue).argmin())
+        dist = abs(spec[k] - r.evalue) / abs(r.evalue)
+        tag(f"{what} nearest closed-form eigenvalue {spec[k]:.12f} (index "
+            f"{k}), relative distance {dist:.2e}")
+        if r.status != lis_tpu_torch.LIS_SUCCESS or not dist <= 1e-8:
+            fail(f"{what}: status {r.status}, eigenvalue {r.evalue} at "
+                 f"relative distance {dist:.2e} from the spectrum")
+
+    r, _, _ = case("(f)", D, "-e rqi -i minres -etol 1e-10 -emaxiter 100 "
+                   "-initx_ones false", oracle=False, x0=x0)
+    on_spectrum("(f)", r, spectrum)
+    # RQI as users run it, from ones with the default inner BiCG (E and
+    # F), at 32^3: its count rests on rounding, 10-39 outer iterations
+    # under six 1e-14 changes of x0 and 33-190 at 96^3 under three
+    # (tools/count_spread.py --no-cpu), so it has no oracle
+    c32 = 1.0 + 2.0 * np.cos(np.arange(1, 33) * np.pi / 33)
+    D32 = testmat.poisson3d27_dia(32, 32, 32)
+    r, _, _ = case("(f) 32^3", D32, "-e rqi -etol 1e-8", oracle=False)
+    on_spectrum("(f) 32^3", r, (27.0 - c32[:, None, None] * c32[None, :, None]
+                                * c32[None, None, :]).ravel())
+    del D32
+
+    # ---- (g) capped power iteration ------------------------------------
+    S.stamp("phase 14g")
+    r, _, ro = case("(g)", D, "-e pi -emaxiter 200")
+    hist = np.abs(r.rhistory - ro.rhistory) / np.abs(ro.rhistory)
+    tag(f"(g) history against the oracle's: {len(r.rhistory)} entries, "
+        f"largest relative difference {hist.max():.2e}")
+    if r.status != lis_tpu_torch.LIS_MAXITER or not hist.max() <= 1e-8:
+        fail(f"(g): status {r.status}, history differs by {hist.max():.2e}")
+    del D, D16
+    torch.cuda.empty_cache()
+
+    # ---- (h) Lanczos over phase 4's prebuilt CST -----------------------
+    S.stamp("phase 14h")
+    C, a = S.cst
+    A = lis_tpu_torch.CSRMatrix.from_csr_arrays(a.indptr, a.indices, a.data,
+                                                a.shape)
+    xs = S.randn(C.nrows, f64)
+    per = S.launches_per(lambda: C.matvec(xs))
+    # -estorage 15 (cst) and 1 (csr) keep each operator as it is
+    r, got, _ = case("(h)", C, "-e li -ss 2 -rval true -estorage 15",
+                     oracle=False)
+    rc, _, _ = case("(h)", A, "-e li -ss 2 -rval true -estorage 1",
+                    oracle=False)
+    matvecs = int(r.iters) + 2      # the Lanczos steps and two residuals
+    S.need_exact(got, {k: per[k] * matvecs for k in
+                       ("cst_front", "benes_pass", "benes_pass_rowsum",
+                        "benes_small_run")}, "(h)")
+    rel = np.abs(r.evalues - rc.evalues).max() / np.abs(rc.evalues).max()
+    tag(f"(h) CST against the CSR: eigenvalues rel diff {rel:.1e}, A-D "
+        f"once per matvec ({matvecs} matvecs, "
+        f"{ {k: c for k, c in per.items() if c} } each)")
+    if not rel <= 1e-10 or r.status != rc.status:
+        fail(f"(h): the CST's eigenvalues differ from the CSR's by {rel}")
+    del A, xs
+
+    # ---- (i) the esolve command line on phase 8a's file ----------------
+    S.stamp("phase 14i")
+    root = os.path.dirname(os.path.abspath(__file__))
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "poisson2d_512.mtx")
+        evp = os.path.join(tmp, "evector.mtx")
+        P2 = testmat.poisson2d(512, 512)
+        lis_tpu_torch.write_matrix_market(path, P2)
+        argv = [path, evp, "-e", "li", "-ss", "2", "-rval", "true"]
+        t0 = time.perf_counter()
+        out = subprocess.run(
+            [sys.executable, "-m", "lis_tpu_torch.cli.esolve"] + argv,
+            cwd=root, env=dict(os.environ, PYTHONPATH=root),
+            capture_output=True, text=True, timeout=300)
+        wall = time.perf_counter() - t0
+        nvec = -1
+        if os.path.exists(evp):
+            with open(evp) as f:
+                nvec = len(f.read().splitlines()) - 2
+    lines = out.stdout.splitlines()
+    want = lis_tpu_torch.esolve(P2, options=" ".join(argv[2:]))
+    tag(f"(i) python -m lis_tpu_torch.cli.esolve poisson2d_512.mtx "
+        f"evector.mtx {' '.join(argv[2:])}: exit {out.returncode} in "
+        f"{wall:.2f} s, {len(lines)} lines ({lines[:1]}), evector file of "
+        f"{nvec} entries; in-process eigenvalue {want.evalue:.15e}")
+    got_ev = float(lines[0].split("=")[1]) if lines else float("nan")
+    if out.returncode != 0 or nvec != P2.nrows or \
+            not abs(got_ev - want.evalue) <= 1e-12 * abs(want.evalue):
+        fail(f"(i): exit {out.returncode}, {nvec} entries, "
+             f"{out.stdout[-500:]} {out.stderr[-2000:]}")
+    del P2
+
+    tag("table: case, options, n, status, outer iterations, eigenvalue, "
+        "ms per outer iteration, kernel launches per outer iteration, wall s")
+    for row in rows:
+        tag("row " + json.dumps(row))
+    tag(f"phase 14 in {time.perf_counter() - t_phase:.2f} s")
 
 
 # the solvers with a _quad twin (lis_tpu_torch/solvers/quad*.py)

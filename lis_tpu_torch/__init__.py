@@ -21,8 +21,12 @@ and ``switch_df`` (lis_tpu's 17 ``_quad`` twins); ``-reorder rcm`` and
 HDI, and CSS and CST, routed by ``auto_storage`` as in lis_tpu (banded →
 DIA) unless ``-storage`` says otherwise; ``MatrixAssembler``
 (lis_matrix_set_value / lis_matrix_assemble); MatrixMarket (ASCII and
-binary), Harwell-Boeing, Lis native and PLAIN I/O; the ``lsolve`` and
-``hpcg`` command lines (``python -m lis_tpu_torch.cli.hpcg 96 96 96``).
+binary), Harwell-Boeing, Lis native and PLAIN I/O; ``esolve()`` and
+``gesolve()`` with all eight of lis_tpu's eigensolvers (pi, ii, rqi, cg,
+cr, si, li, ai) and their generalized forms (gpi, ..., gai) for Ax = λx
+and Ax = λBx; the ``lsolve``, ``hpcg``, ``esolve``, ``esolver``,
+``gesolve`` and ``gesolver`` command lines (``python -m
+lis_tpu_torch.cli.hpcg 96 96 96``).
 """
 
 from lis_tpu_torch.config import (
@@ -39,7 +43,7 @@ from lis_tpu_torch.config import (
     default_device,
     set_default_device,
 )
-from lis_tpu_torch.runtime.options import SolverOptions
+from lis_tpu_torch.runtime.options import SolverOptions, EsolverOptions
 from lis_tpu_torch.matrix.base import SparseMatrix
 from lis_tpu_torch.matrix.csr import CSRMatrix
 from lis_tpu_torch.matrix.coo import COOMatrix
@@ -57,6 +61,7 @@ from lis_tpu_torch.matrix.assembly import (MatrixAssembler, LIS_INS_VALUE,
                                            LIS_ADD_VALUE)
 from lis_tpu_torch.solvers.driver import (solve, SolveResult, auto_storage,
                                           transform_operator)
+from lis_tpu_torch.esolvers.driver import esolve, gesolve, EsolveResult
 from lis_tpu_torch.io import (read_matrix_market, write_matrix_market,
                               read_vector_mm, lis_input, lis_input_vector,
                               lis_output, lis_output_vector,
@@ -69,11 +74,13 @@ __all__ = [
     "LIS_SUCCESS", "LIS_FAILS", "LIS_ILL_OPTION", "LIS_BREAKDOWN",
     "LIS_OUT_OF_MEMORY", "LIS_MAXITER", "LIS_ERR_NOT_IMPLEMENTED",
     "LIS_ERR_FILE_IO", "wtime", "initialize", "default_device",
-    "set_default_device", "SolverOptions", "SparseMatrix", "CSRMatrix",
+    "set_default_device", "SolverOptions", "EsolverOptions", "SparseMatrix",
+    "CSRMatrix",
     "COOMatrix", "CSCMatrix", "MSRMatrix", "ELLMatrix", "JADMatrix",
     "DNSMatrix", "CSTMatrix", "DIAMatrix", "HybridMatrix", "CSSMatrix",
     "convert_matrix", "MatrixAssembler", "LIS_INS_VALUE", "LIS_ADD_VALUE",
     "solve", "SolveResult", "auto_storage", "transform_operator",
+    "esolve", "gesolve", "EsolveResult",
     "read_matrix_market", "write_matrix_market", "read_vector_mm",
     "lis_input", "lis_input_vector", "lis_output", "lis_output_vector",
     "read_harwell_boeing", "write_harwell_boeing", "read_lis_file",

@@ -383,6 +383,54 @@ class DIAMatrix(SparseMatrix):
                     d[lo:hi] * d[lo + off:hi + off]).to(out.dtype)
         return dataclasses.replace(self, value=out)
 
+    def _with_value(self, value, offsets) -> "DIAMatrix":
+        """This matrix's shape with new diagonals, nnz counted on the
+        device (one read)."""
+        return DIAMatrix.from_diagonals(
+            value, offsets, self.shape, int(torch.count_nonzero(value)))
+
+    def shift_diagonal(self, sigma):
+        """A − σI on the device: σ comes off the offset-0 row, and a row
+        is added (in offset order) where A has none and σ ≠ 0.  The
+        eigensolvers shift once per outer iteration, where the host
+        rebuild of ``SparseMatrix.shift_diagonal`` would cost seconds at
+        96³; the result's ``to_csr_arrays`` equals that rebuild's: a − σ
+        on the diagonal, entries that become 0 dropped."""
+        offsets, value = self.offsets, self.value
+        if 0 not in offsets:
+            if sigma == 0:
+                return self._with_value(value, offsets)
+            k = int(np.searchsorted(offsets, 0)) if offsets == tuple(
+                sorted(offsets)) else len(offsets)
+            value = torch.cat([value[:k], value.new_zeros((1, self.nrows)),
+                               value[k:]])
+            offsets = offsets[:k] + (0,) + offsets[k:]
+        k = offsets.index(0)
+        lo, hi = _rows_of(0, self.nrows, self.ncols)
+        value = value.to(torch.result_type(value, sigma), copy=True)
+        value[k, lo:hi] -= sigma
+        return self._with_value(value, offsets)
+
+    def axpy(self, alpha, other):
+        """B + αA on the device, B = ``other`` (lis_matrix_axpy): the
+        diagonals of both, B's first and αA added to them, on the union of
+        their offsets (sorted).  The generalized shift A − σB of II and
+        RQI is ``B.axpy(-σ, A)``.  Another format, or another shape, takes
+        the host rebuild."""
+        if not isinstance(other, DIAMatrix) or other.shape != self.shape:
+            return super().axpy(alpha, other)
+        offsets = tuple(sorted(set(self.offsets) | set(other.offsets)))
+        row = {o: k for k, o in enumerate(offsets)}
+        dt = torch.promote_types(self.value.dtype, other.value.dtype)
+        value = self.value.new_zeros((len(offsets), self.nrows),
+                                     dtype=torch.result_type(
+                                         torch.empty((), dtype=dt), alpha))
+        for k, off in enumerate(other.offsets):
+            value[row[off]] = other.value[k]
+        for k, off in enumerate(self.offsets):
+            value[row[off]] += alpha * self.value[k]
+        return self._with_value(value, offsets)
+
     def matvec(self, x):
         return dia_spmv(self.value, self.off, self.offsets, x, self.ncols)
 

@@ -4,21 +4,26 @@ of its right-hand side, on the CPU or on the card.
 
 Usage:
     python3 lis_tpu_torch/tools/count_spread.py [--grid N] [--runs K]
-        [--nonsym] [--device cpu|cuda] OPTIONS...
+        [--nonsym] [--device cpu|cuda] [--no-cpu] OPTIONS...
 
 Each OPTIONS string (e.g. "-i bicgstab -p is -tol 1e-10") is solved on
 poisson3d27 N³ (default 64; ``--nonsym``: its nonsymmetric variant with
 the lower diagonals × 0.7, the upper × 1.3 and 28 on the diagonal, as in
 chip_smoke.py's phases 10 and 11) for b = 1 and for K − 1 copies of b
-with each entry changed by a relative 1e-14 (numpy seed 0).  It prints
-the counts and statuses, one line per option string.  The card sums in
+with each entry changed by a relative 1e-14 (numpy seed 0).  An OPTIONS
+string that names an eigensolver (``-e ii -i cg -etol 1e-8``) is an
+eigensolve (``esolve``) instead, from x0 = 1 and its changed copies
+(``-initx_ones false``).  It prints the counts and statuses, one line per
+option string, and for an eigensolve also each run's eigenvalue and
+largest pair residual.  The card sums in
 another order than the CPU, so a check that holds the card's count to
 the CPU's ±1 is only meaningful where this spread is at most 1.
 
 On another device than the CPU it also solves b = 1 on the CPU and
 prints where the two residual histories part: the first iteration
 whose relative residuals differ by more than a relative 1e-3, and their
-relative difference at iterations 1, 2, 4, 8, ...
+relative difference at iterations 1, 2, 4, 8, ...  ``--no-cpu`` leaves
+that CPU solve out (a grid too large for the host).
 """
 
 from __future__ import annotations
@@ -40,6 +45,7 @@ def main(argv=None) -> None:
     ap.add_argument("--runs", type=int, default=4)
     ap.add_argument("--nonsym", action="store_true")
     ap.add_argument("--device", default="cpu")
+    ap.add_argument("--no-cpu", action="store_true")
     ap.add_argument("options", nargs="+")
     args = ap.parse_args(argv)
 
@@ -55,21 +61,33 @@ def main(argv=None) -> None:
     Ad = A.to(args.device)
     rng = np.random.default_rng(0)
     for opts in args.options:
-        counts, statuses = [], []
+        counts, statuses, evalues, resids = [], [], [], []
+        eigen = "-e" in opts.split()
         for k in range(args.runs):
             b = np.ones(A.nrows)
             if k:
                 b = b * (1 + 1e-14 * rng.standard_normal(A.nrows))
             bd = torch.from_numpy(b).to(args.device)
-            r = lis_tpu_torch.solve(Ad, bd, options=opts)
+            if eigen:
+                def run(M, v):
+                    return lis_tpu_torch.esolve(
+                        M, options=opts + " -initx_ones false", x0=v)
+            else:
+                def run(M, v):
+                    return lis_tpu_torch.solve(M, v, options=opts)
+            r = run(Ad, bd)
             counts.append(r.iters)
             statuses.append(r.status)
-            if k == 0 and args.device != "cpu":
-                _part(r.rhistory, lis_tpu_torch.solve(
-                    A, torch.from_numpy(b), options=opts).rhistory)
+            if eigen:
+                evalues.append(float(r.evalue))
+                resids.append(float(np.max(r.resids_all)))
+            if k == 0 and args.device != "cpu" and not args.no_cpu:
+                _part(r.rhistory, run(A, torch.from_numpy(b)).rhistory)
         print(f"{g}^3{' nonsym' if args.nonsym else ''} {args.device} "
               f"{opts}: counts {counts}, statuses {statuses}, spread "
-              f"{max(counts) - min(counts)}", flush=True)
+              f"{max(counts) - min(counts)}"
+              + (f", eigenvalues {evalues}, residuals {resids}" if eigen
+                 else ""), flush=True)
 
 
 def _part(hd, hc) -> None:

@@ -179,6 +179,74 @@ def test_dia_single_cast_keeps_offsets():
     close(S.matvec(torch.from_numpy(x)), a.astype(np.float32) @ x, 1e-5)
 
 
+def _same_csr(got, want):
+    """Equal host CSR arrays: structure, dtype and values bit for bit."""
+    for g, w in zip(got.to_csr_arrays(), want.to_csr_arrays()):
+        assert g.dtype == w.dtype and np.array_equal(g, w)
+
+
+SHIFTED = {"poisson2d": MATRICES["poisson2d"],
+           "complex_banded": MATRICES["complex_banded"],
+           "wide": MATRICES["wide"], "tall": MATRICES["tall"],
+           "no_diagonal": lambda: banded(60, (-3, 1, 7), 4),
+           "no_diagonal_complex": lambda: banded(60, (-3, 1, 7), 5,
+                                                 cplx=True)}
+
+
+@pytest.mark.parametrize("sigma", [0.0, 1.5, -0.25])
+@pytest.mark.parametrize("name", sorted(SHIFTED))
+def test_dia_shift_diagonal_on_the_device_equals_the_host_rebuild(name,
+                                                                   sigma):
+    """DIAMatrix.shift_diagonal subtracts σ from the offset-0 row (adding
+    the row where A has none and σ ≠ 0): its CSR arrays equal those of
+    the host rebuild (SparseMatrix.shift_diagonal: scipy, then a DIA from
+    CSR) bit for bit, and its product is A·x − σx."""
+    from lis_tpu_torch.matrix.base import SparseMatrix
+    a = SHIFTED[name]()
+    T = DIAMatrix.from_csr_arrays(a.indptr, a.indices, a.data, a.shape,
+                                  device="cpu")
+    got = T.shift_diagonal(sigma)
+    assert isinstance(got, DIAMatrix) and got.device == T.device
+    _same_csr(got, SparseMatrix.shift_diagonal(T, sigma))
+    assert got.nnz == len(got.to_csr_arrays()[2])
+    assert (0 in got.offsets) == (0 in T.offsets or sigma != 0)
+    assert list(got.offsets) == sorted(got.offsets)
+    x = vec(a.shape[1], 7, dtype=a.dtype)
+    want = a @ x - sigma * np.eye(*a.shape, dtype=a.dtype) @ x
+    close(got.matvec(torch.from_numpy(x)), want, 1e-13)
+
+
+def test_dia_shift_diagonal_that_cancels_the_diagonal():
+    """Entries that become 0 leave the CSR arrays, as in the host
+    rebuild."""
+    from lis_tpu_torch.matrix.base import SparseMatrix
+    a = sp.diags([np.full(30, 2.0), np.ones(29)], [0, 1]).tocsr()
+    T = DIAMatrix.from_csr_arrays(a.indptr, a.indices, a.data, a.shape,
+                                  device="cpu")
+    got = T.shift_diagonal(2.0)
+    _same_csr(got, SparseMatrix.shift_diagonal(T, 2.0))
+    assert got.nnz == 29
+
+
+@pytest.mark.parametrize("alpha", [-0.7, 2.0])
+@pytest.mark.parametrize("cplx", [False, True])
+def test_dia_axpy_of_two_dias_equals_the_host_rebuild(alpha, cplx):
+    """B.axpy(α, A) = A + αB (the generalized shift A − σB of II and RQI)
+    on the union of the offsets, bit for bit as the host rebuild."""
+    from lis_tpu_torch.matrix.base import SparseMatrix
+    a = banded(80, (-5, -1, 0, 2), 6, cplx=cplx)
+    b = banded(80, (-1, 0, 1, 9), 7, cplx=cplx)
+    A, B = (DIAMatrix.from_csr_arrays(m.indptr, m.indices, m.data, m.shape,
+                                      device="cpu") for m in (a, b))
+    for X, Y in ((A, B), (B, A)):
+        got = X.axpy(alpha, Y)
+        assert isinstance(got, DIAMatrix)
+        _same_csr(got, SparseMatrix.axpy(X, alpha, Y))
+    x = vec(80, 8, dtype=a.dtype)
+    close(B.axpy(alpha, A).matvec(torch.from_numpy(x)), (a + alpha * b) @ x,
+          1e-13)
+
+
 @pytest.mark.parametrize("shape", [(6, 7, 8), (2, 3, 4), (1, 5, 2),
                                    (9, 1, 1)])
 def test_poisson3d27_dia_equals_converted(shape):

@@ -1495,3 +1495,50 @@ def test_storage_quad_count_on_the_card(cuda, fmt):
     assert got.iters == want.iters == csr.iters
     assert launches == 2 * got.iters + 1
     assert torch.equal(got.x, csr.x)
+
+
+# ---- the eigensolvers on a card DIA ----------------------------------------
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("opts", ["-e ii -i cg -etol 1e-8",
+                                  "-e ii -i cg -ef quad -etol 1e-8",
+                                  "-e li -ss 2 -etol 1e-8",
+                                  "-e gii -etol 1e-8"])
+def test_esolve_on_a_card_dia(cuda, opts):
+    """esolve / gesolve on poisson3d27 16³ built in DIA on the card: the
+    inner solves run kernels E and G (CG), M-P (-ef quad) or E and F
+    (BiCG), and the status, counts, eigenvalues and pair residuals are
+    those of the same eigensolve on the CPU, which runs the kernels' plain
+    versions (eigenvalues to 1e-10 relative, residuals to 1e-3).
+
+    ``-e li -ss 2`` ends MAXITER on the CPU and in lis_tpu alike: its
+    second Ritz pair (31.205) is refined by 50 fixed-shift inverse
+    iterations in a dense part of the spectrum and stops at a residual of
+    5.76e-6, above 10·etol; the first pair reaches 1.7e-9."""
+    from lis_tpu_torch.core import ddreal as dq, vector as v
+    from lis_tpu_torch.matrix import dia
+    from lis_tpu_torch.utils.testmat import poisson3d27_dia
+    A = poisson3d27_dia(16, 16, 16)
+    A_cpu = A.to("cpu")
+    B = B_cpu = None
+    if "gii" in opts:
+        d = torch.linspace(1.0, 2.0, A.nrows, dtype=torch.float64)[None, :]
+        B = dia.DIAMatrix.from_diagonals(d, (0,), A.shape, A.nrows,
+                                         device=cuda)
+        B_cpu = B.to("cpu")
+    want = lis_tpu_torch.gesolve(A_cpu, B_cpu, options=opts)
+    fns = (dia.dia_spmv, dia.dia_spmvh, v.krylov_dot, dq.dd_dia_spmv)
+    before = [f.launches for f in fns]
+    got = lis_tpu_torch.gesolve(A, B, options=opts)
+    e, f, g1, m = (fn.launches - b0 for fn, b0 in zip(fns, before))
+    assert got.evector.is_cuda
+    assert got.status == want.status == (4 if "-ss 2" in opts else 0)
+    assert list(got.iters_all) == list(want.iters_all)
+    np.testing.assert_allclose(got.evalues, want.evalues, rtol=1e-10)
+    np.testing.assert_allclose(got.resids_all, want.resids_all, rtol=1e-3)
+    if "quad" in opts:
+        assert m > got.iters
+    elif "-i cg" in opts:
+        assert e > got.iters and g1 > got.iters and f == 0
+    else:
+        assert e > 0 and f > 0

@@ -26,6 +26,10 @@ import lis_tpu_torch.solvers.cgs, lis_tpu_torch.solvers.tfqmr
 import lis_tpu_torch.solvers.orthomin, lis_tpu_torch.solvers.gpbicg
 import lis_tpu_torch.solvers.bicgsafe, lis_tpu_torch.solvers.minres
 import lis_tpu_torch.solvers.bicgstabl, lis_tpu_torch.solvers.idrs
+import lis_tpu_torch.esolvers.driver, lis_tpu_torch.esolvers.power
+import lis_tpu_torch.esolvers.cgcr, lis_tpu_torch.esolvers.subspace
+import lis_tpu_torch.cli.esolve, lis_tpu_torch.cli.esolver
+import lis_tpu_torch.cli.gesolve, lis_tpu_torch.cli.gesolver
 import lis_tpu_torch.ops._cuda as cu
 bad = sorted(m for m in sys.modules
              if m.split('.')[0] in ('jax', 'jaxlib', 'lis_tpu'))
