@@ -245,8 +245,41 @@ Phases (one or more lines each):
    on rounding).  Li runs with ``-rval
    true``: refining Ritz pairs in the dense top of these spectra takes 50
    inverse-iteration steps of up to 1000 inner steps each.
+15. BES and the block formats (``phase bes:`` lines): (a) the symmetric
+   windowed(2^20, 40) (tests/test_torch_route.py's, seed --seed; 12.7 M
+   nonzeros), which the router sends to BES (W = 256, a 2 GiB f64 slab):
+   kernels Q (bes_spmv) and R (bes_spmvh) against their plain versions to
+   rtol 1e-13 (f64, a complex128 x on the real slab, a complex128 slab) and
+   1e-5 (f32), timed beside the plain version, ``torch.sparse`` CSR @ x on
+   the same operator, the port's CSR gather and the bound (T·W·R + T·s +
+   W + n elements); Q and R on a strided 2^20 x 2^17 slab (stride 16) and
+   a multi-BES of at least three parts (one launch a part); (b) with no
+   -storage: CG + Jacobi -tol 1e-10 (route bes, SUCCESS, true residual
+   <= 1e-9, Q exactly iters + 1 times, the count of the same solve over
+   the plain versions of Q and R on the card exactly), beside -storage
+   csr; BiCG (Q and R each iteration) and BiCGSTAB + Jacobi on the
+   nonsymmetric windowed(2^20, 40), and BiCGSTAB with a complex b, each
+   within ±1 of -storage csr; (c) CG -f df (f64 accumulation through Q)
+   held to its plain oracle's count, and CG -f quad (the ELL pair, N),
+   equal to -f quad -storage csr's count; (d) the SA-AMG graph path on
+   poisson3d27 64³: multi-BES prolongators, one psolve launching Q and R
+   as its slab parts imply and held to its plain-BES version (1e-12), a
+   counted CG solve; (e) kron(poisson3d 7-point 64³, a 3x3 SPD block):
+   n = 786,432, 16.5 M nonzeros, as BSR (bnr 3), BSC and VBR (the
+   automatic partition, uniform: its fast BSR), matvec and matvech held to
+   the CSR's (1e-13) and timed beside the bound and torch.sparse; CG +
+   bjacobi on BSR, CG + Jacobi on BSC and VBR (each the -storage csr
+   count ±1); BiCG + Jacobi on BSR (the BSR matvech) and BiCGSTAB -scale
+   1 -storage bsr (against the CSR solve of the same block-scaled system),
+   each within 5 % of the CSR's count, whose spread under 1e-14 changes
+   of b is printed (about 320 and 100 steps there rest on rounding: the
+   CSR's own count moved 103 -> 107 between two runs); and CG + block
+   ILU(0) on BSR at
+   32³ (and at 64³ where the 32³ set-up, scaled, stays under 30 s): K
+   twice a psolve, the count of the same solve over K's plain version ±1.
+   Tolerance -tol 1e-8, true residual <= 1e-7.
 
-Phases 1 to 14 all run at the sizes named here.  The matrices of phases 3
+Phases 1 to 15 all run at the sizes named here.  The matrices of phases 3
 to 6 are built with no ``device`` argument, so they live on the default
 device, the card.  Their CPU oracles (the port's plain path on the CPU,
 whose Benes passes take up to a minute a solve at n = 2^20) run at
@@ -256,7 +289,7 @@ remainder sums with atomics on the card); the card's solves at n = 2^20
 keep every other check.
 
 Launch counts are set to 0 just before each solve of phases 3, 5, 6 and
-8 to 14 and read just after; launches made to compare a kernel with its plain
+8 to 15 and read just after; launches made to compare a kernel with its plain
 version are not counted.  It prints one JSON line of per-kernel results
 (each row's ``timing`` says how its ``ms`` was taken; where that is
 "queued", ``host_ms`` and ``library_host_ms`` are the kernel's and the
@@ -306,17 +339,19 @@ def system(n: int, k: int, seed: int, kind: str = "spd"):
     return a
 
 
-def windowed(n: int, w: int, seed: int):
+def windowed(n: int, w: int, seed: int, symmetric: bool = False):
     """30·I plus 6 random columns per row within ±w of the diagonal,
-    nonsymmetric (scipy CSR): a pattern neither banded nor fit for the
-    CST grid, which the router sends to CSS."""
+    nonsymmetric, or symmetrised a + aᵀ + 30·I (scipy CSR; the matrix of
+    tests/test_torch_route.py::windowed): a pattern that is not banded,
+    which the router sends to BES where w is small (w = 40) and to CSS
+    where it is wide (w = 2000)."""
     import scipy.sparse as sp
     rng = np.random.default_rng(seed)
     rows = np.repeat(np.arange(n), 6)
     cols = np.clip(rows + rng.integers(-w, w, n * 6), 0, n - 1)
     a = sp.coo_matrix((rng.standard_normal(n * 6), (rows, cols)),
                       shape=(n, n)).tocsr()
-    a = (a + sp.eye(n) * 30).tocsr()
+    a = ((a + a.T if symmetric else a) + sp.eye(n) * 30).tocsr()
     a.sort_indices()
     return a
 
@@ -382,7 +417,7 @@ def main() -> None:
         import lis_tpu_torch
         from lis_tpu_torch.cli import lsolve
         from lis_tpu_torch.core import ddreal as dq, vector as v
-        from lis_tpu_torch.matrix import cst as cstm, dia as diam
+        from lis_tpu_torch.matrix import bes as besm, cst as cstm, dia as diam
         from lis_tpu_torch.ops import _cuda, amg, shuffle as sh
         from lis_tpu_torch.ops import trisolve as tsm
         from lis_tpu_torch.runtime.options import SolverOptions
@@ -508,7 +543,8 @@ def main() -> None:
                "lattice_prolong": amg.lattice_prolong,
                "lattice_restrict": amg.lattice_restrict,
                "dd_dia_spmv": dq.dd_dia_spmv, "dd_ell_spmv": dq.dd_ell_spmv,
-               "dd_reduce": dq.dd_reduce, "dd_update": dq.dd_update}
+               "dd_reduce": dq.dd_reduce, "dd_update": dq.dd_update,
+               "bes_spmv": besm.bes_spmv, "bes_spmvh": besm.bes_spmvh}
     matvec_kernels = ("cst_front", "benes_pass", "benes_pass_rowsum",
                       "benes_small_run")
     total = dict.fromkeys(kernels, 0)     # launches over the counted solves
@@ -1424,6 +1460,9 @@ def main() -> None:
     # ---- 14. the eigensolvers: esolve / gesolve over the kernels ---------
     stamp("phase 14")
     phase_eigen(S)
+
+    stamp("phase 15")
+    phase_bes(S)
     report_results(S, smi_line, total)
 
 def phase_preconditioned(S):
@@ -3498,7 +3537,531 @@ WHERE = {
     "dd_ell_spmv": ("lis_tpu_torch/csrc/dd.cu", "lis_tpu/core/ddreal.py:299"),
     "dd_reduce": ("lis_tpu_torch/csrc/dd.cu", "lis_tpu/core/ddreal.py:218"),
     "dd_update": ("lis_tpu_torch/csrc/dd.cu", "lis_tpu/core/ddreal.py:196"),
+    "bes_spmv": ("lis_tpu_torch/csrc/bes.cu", "lis_tpu/matrix/bes.py:184"),
+    "bes_spmvh": ("lis_tpu_torch/csrc/bes.cu", "lis_tpu/matrix/bes.py:193"),
 }
+
+
+def phase_bes(S):
+    """Phase 15: BES (kernels Q and R) on the default route and the block
+    formats BSR, BSC and VBR (see the docstring).  Q and R are held to
+    their plain versions and timed; every solve is held to its reference
+    (the plain versions of Q and R on the card, -storage csr, or the
+    plain version of K), and prints its wall and ms/iter."""
+    import torch
+    import scipy.sparse as sp
+    import lis_tpu_torch
+    from lis_tpu_torch.matrix import bes as besm
+    from lis_tpu_torch.matrix.base import TensorFields
+    from lis_tpu_torch.ops import trisolve as tsm
+    from lis_tpu_torch.precon import ilu as pilu, saamg as psa
+    from lis_tpu_torch.runtime.options import SolverOptions
+    from lis_tpu_torch.solvers import driver as drv
+    from lis_tpu_torch.utils import testmat
+
+    dev, f64, c128 = S.dev, torch.float64, torch.complex128
+    t_phase = time.perf_counter()
+
+    def tag(msg):
+        print(f"phase bes: {msg}", flush=True)
+
+    def solve(mat, b, opts, **kw):
+        r, got, wall = S.counted(lambda: lis_tpu_torch.solve(
+            mat, b, options=opts, **kw))
+        per = 1e3 * r.itime / max(r.iters, 1)
+        tag(f"{opts} on a {mat.format_name} input n={mat.nrows}: status "
+            f"{r.status} "
+            f"iters {r.iters} true_resid {r.true_resid:.3e}; wall {wall:.3f} s "
+            f"(ptime {r.ptime:.3f}), {per:.4f} ms/iter; launches "
+            f"{ {k: c for k, c in got.items() if c} }")
+        return r, got, wall, per
+
+    def ok(what, r, resid):
+        if r.status != 0 or not r.true_resid <= resid:
+            fail(f"{what}: status {r.status}, true residual "
+                 f"{r.true_resid:.3e} (limit {resid:.0e})")
+
+    def near(what, it, it_ref, slack=1):
+        if abs(it - it_ref) > slack:
+            fail(f"{what}: {it} iterations against {it_ref}")
+
+    @contextlib.contextmanager
+    def plain_bes():
+        """Q and R swapped for their plain versions (the oracle's solves);
+        fails if a kernel launches meanwhile."""
+        q, r = besm.bes_spmv, besm.bes_spmvh
+        before = (q.launches, r.launches)
+        besm.bes_spmv = lambda sl, x, *a: besm._spmv_plain(sl, x, *a)
+        besm.bes_spmvh = lambda sl, x, *a: besm._spmvh_plain(sl, x, *a)
+        try:
+            yield
+        finally:
+            besm.bes_spmv, besm.bes_spmvh = q, r
+        if (q.launches, r.launches) != before:
+            fail("the plain-version oracle of BES launched Q or R")
+
+    def nbytes(M):
+        total = 0
+        for f in dataclasses.fields(M):
+            v = getattr(M, f.name)
+            vs = v if isinstance(v, tuple) else (v,)
+            for e in vs:
+                if isinstance(e, torch.Tensor):
+                    total += e.numel() * e.element_size()
+                elif isinstance(e, TensorFields):
+                    total += nbytes(e)
+        return total
+
+    # ---- (a) Q and R against their plain versions on the routed BES -------
+    S.stamp("phase 15a")
+    n = 1 << 20
+    t0 = time.perf_counter()
+    a = windowed(n, 40, S.seed, symmetric=True)
+    A = lis_tpu_torch.CSRMatrix.from_csr_arrays(a.indptr, a.indices, a.data,
+                                                a.shape)
+    torch.cuda.synchronize()
+    t_make = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    B = lis_tpu_torch.auto_storage(A, need_at=False)
+    torch.cuda.synchronize()
+    t_route = time.perf_counter() - t0
+    if B.format_name != "bes" or B.slab.device != dev:
+        fail(f"windowed(2^20, 40): routed to {B.format_name}, not bes")
+    T, W, R = B.slab.shape
+    s, c0 = B.s, B.c0
+    tag(f"windowed(2^20, 40) (test_torch_route.windowed, seed {S.seed}): "
+        f"n={n} nnz={a.nnz}, made in {t_make:.2f} s; routed to bes in "
+        f"{t_route:.2f} s: W={W} c0={c0} T={T} stride={s}, fill blowup "
+        f"{B.fill_blowup:.2f}, slab {B.slab.numel() * 8 / 2**30:.2f} GiB, "
+        f"remainder {0 if B.rem is None else B.rem.nnz} entries")
+    crow = torch.from_numpy(a.indptr.astype(np.int64)).to(dev)
+    col = torch.from_numpy(a.indices.astype(np.int64)).to(dev)
+    Asp = torch.sparse_csr_tensor(crow, col, torch.from_numpy(a.data).to(
+        dev), a.shape)
+    at = a.T.tocsr()
+    at.sort_indices()
+    ATsp = torch.sparse_csr_tensor(
+        torch.from_numpy(at.indptr.astype(np.int64)).to(dev),
+        torch.from_numpy(at.indices.astype(np.int64)).to(dev),
+        torch.from_numpy(at.data).to(dev), a.shape)
+    x = S.randn(n, f64)
+    xs = x[:, None]
+    for got, want in ((torch.sparse.mm(Asp, xs)[:, 0],
+                       besm._spmv_plain(B.slab, x, c0, s, n, n)),
+                      (torch.sparse.mm(ATsp, xs)[:, 0],
+                       besm._spmvh_plain(B.slab, x, c0, s, n, n))):
+        lerr = ((got - want).abs().max() / want.abs().max()).item()
+        if lerr > 1e-12:
+            fail(f"the library CSR disagrees with the plain BES by {lerr:.2e}")
+
+    def q_r(slab, xq, tag_, rtol, timed):
+        e = slab.element_size()
+        if timed:
+            # the library call on the f64 operator (none at f32)
+            f64_ = slab.dtype == f64
+            nb = (T * W * R + T * s + W + n) * e
+            tq = (lambda: besm.bes_spmv(slab, xq, c0, s, n, n),
+                  lambda: besm._spmv_plain(slab, xq, c0, s, n, n),
+                  (lambda: torch.sparse.mm(Asp, xs)) if f64_ else None, nb,
+                  2 * T * W * R)
+            tr = (lambda: besm.bes_spmvh(slab, xq, c0, s, n, n),
+                  lambda: besm._spmvh_plain(slab, xq, c0, s, n, n),
+                  (lambda: torch.sparse.mm(ATsp, xs)) if f64_ else None, nb,
+                  2 * T * W * R)
+        # timed from the device's queue, and as the host enqueues each
+        # call (the record's host_ms)
+        S.check("bes_spmv", slab.dtype, tag_,
+                besm.bes_spmv(slab, xq, c0, s, n, n),
+                besm._spmv_plain(slab, xq, c0, s, n, n), False,
+                tq if timed else None, rtol=rtol, queued=timed)
+        S.check("bes_spmvh", slab.dtype, tag_,
+                besm.bes_spmvh(slab, xq, c0, s, n, n),
+                besm._spmvh_plain(slab, xq, c0, s, n, n), False,
+                tr if timed else None, rtol=rtol, queued=timed)
+
+    shape = f"T={T} W={W} R={R}"
+    q_r(B.slab, x, shape, 1e-13, True)
+    gather = cuda_ms(lambda: A.matvec(x))
+    gather_h = cuda_ms(lambda: A.matvech(x))
+    for name in ("bes_spmv", "bes_spmvh"):
+        S.results[name]["csr_gather_ms"] = gather if name == "bes_spmv" \
+            else gather_h
+    tag(f"the port's CSR gather on the same operator: matvec {gather:.4f} "
+        f"ms, matvech {gather_h:.4f} ms")
+    q_r(B.slab, S.randn(n, c128), shape + " x complex128", 1e-13, False)
+    s32 = B.slab.to(torch.float32)
+    q_r(s32, x.to(torch.float32), shape, 1e-5, True)
+    del s32
+    sc = B.slab.to(c128) * (1 - 0.5j)
+    q_r(sc, S.randn(n, c128), shape, 1e-13, False)
+    del sc
+    torch.cuda.empty_cache()
+
+    # a strided (rectangular) BES: a prolongator-like 2^20 x 2^17
+    nc = n // 8
+    rows = np.repeat(np.arange(n), 3)
+    cols = np.clip(rows // 8 + np.tile([-1, 0, 1], n), 0, nc - 1)
+    p = sp.coo_matrix((np.random.default_rng(S.seed).uniform(0.5, 1, 3 * n),
+                       (rows, cols)), shape=(n, nc)).tocsr()
+    p.sort_indices()
+    P = besm.BESMatrix.from_csr_arrays(p.indptr, p.indices, p.data, p.shape)
+    ec, r_ = S.randn(nc, f64), S.randn(n, f64)
+    tag(f"strided BES {n} x {nc}: stride {P.s}, W={P.W} c0={P.c0}, "
+        f"remainder {0 if P.rem is None else P.rem.nnz}")
+    if P.s == P.R or P.rem is not None:
+        fail("the strided case is not a strided slab")
+    for fn, plain, v, what in ((besm.bes_spmv, besm._spmv_plain, ec, "Q"),
+                               (besm.bes_spmvh, besm._spmvh_plain, r_, "R")):
+        S.check(f"bes_spmv{'h' if what == 'R' else ''}", f64,
+                f"strided s={P.s} W={P.W}",
+                fn(P.slab, v, P.c0, P.s, n, nc),
+                plain(P.slab, v, P.c0, P.s, n, nc), False, rtol=1e-13)
+    del P, p, ec, r_
+
+    # a multi-BES of three bands, at least three parts
+    nm = 1 << 18
+    rng = np.random.default_rng(S.seed + 1)
+    rows = np.repeat(np.arange(nm), 6)
+    band = np.tile([-(nm // 4), -(nm // 4), 0, 0, nm // 4, nm // 4], nm)
+    cols = np.clip(rows + band + rng.integers(-40, 40, 6 * nm), 0, nm - 1)
+    m3 = (sp.coo_matrix((rng.standard_normal(6 * nm), (rows, cols)),
+                        shape=(nm, nm)) + 30 * sp.eye(nm)).tocsr()
+    m3.sort_indices()
+    MB = lis_tpu_torch.multi_bes_from_csr(m3.indptr, m3.indices, m3.data,
+                                          m3.shape)
+    if MB.format_name != "mbes" or len(MB.parts) < 3:
+        fail(f"the three-band matrix gave {MB.format_name} of "
+             f"{len(getattr(MB, 'parts', (MB,)))} parts")
+    xm = S.randn(nm, f64)
+    for meth, plain in (("matvec", besm._spmv_plain),
+                        ("matvech", besm._spmvh_plain)):
+        per = S.launches_per(lambda: getattr(MB, meth)(xm))
+        name = "bes_spmv" if meth == "matvec" else "bes_spmvh"
+        if per[name] != len(MB.parts):
+            fail(f"multi-BES {meth}: {per[name]} launches of {name} for "
+                 f"{len(MB.parts)} parts")
+        want = sum(plain(q.slab, xm, q.c0, q.s, nm, nm) for q in MB.parts)
+        if MB.rem is not None:
+            want = want + getattr(MB.rem, meth)(xm)
+        got = getattr(MB, meth)(xm)
+        err = ((got - want).abs().max() / want.abs().max()).item()
+        if err > 1e-13:
+            fail(f"multi-BES {meth} off its plain version by {err:.2e}")
+    tag(f"multi-BES of {len(MB.parts)} parts (W {[q.W for q in MB.parts]}, "
+        f"c0 {[q.c0 for q in MB.parts]}), fill blowup "
+        f"{MB.fill_blowup:.2f}, remainder "
+        f"{0 if MB.rem is None else MB.rem.nnz}: matvec and matvech launch "
+        f"Q / R once a part, within 1e-13 of the plain versions")
+    del MB, m3, Asp, ATsp
+    torch.cuda.empty_cache()
+
+    # ---- (b) the default route: CG, BiCG, BiCGSTAB, a complex b ----------
+    S.stamp("phase 15b")
+    bv = np.ones(n)
+    opts = "-i cg -p jacobi -tol 1e-10"
+    lis_tpu_torch.solve(A, bv, options=opts)     # warm: the first calls
+    r, got, wall, per = solve(A, bv, opts)
+    ok("cg bes", r, 1e-9)
+    if S.route_of(A, opts) != "bes":
+        fail("cg: the default route is not bes")
+    S.need_exact(got, {"bes_spmv": r.iters + 1, "bes_spmvh": 0,
+                       "cg_update": r.iters}, "cg bes")
+    with plain_bes():
+        ro = lis_tpu_torch.solve(A, bv, options=opts)
+    err = ((r.x - ro.x).abs().max() / ro.x.abs().max()).item()
+    if ro.iters != r.iters or ro.status != 0 or err > 1e-8:
+        fail(f"cg bes: {r.iters} iterations against the plain oracle's "
+             f"{ro.iters}, x off by {err:.2e}")
+    rc, _, wall_c, per_c = solve(A, bv, opts + " -storage csr")
+    ok("cg csr", rc, 1e-9)
+    near("cg bes against csr", r.iters, rc.iters)
+    tag(f"cg + jacobi 2^20: bes {wall:.3f} s ({per:.4f} ms/iter, {r.iters} "
+        f"iterations; the plain oracle's {ro.iters}, x within {err:.1e}) "
+        f"against -storage csr {wall_c:.3f} s ({per_c:.4f} ms/iter, "
+        f"{rc.iters} iterations)")
+    del ro, rc
+
+    t0 = time.perf_counter()
+    an = windowed(n, 40, S.seed, symmetric=False)
+    An = lis_tpu_torch.CSRMatrix.from_csr_arrays(an.indptr, an.indices,
+                                                 an.data, an.shape)
+    tag(f"the nonsymmetric windowed(2^20, 40) made in "
+        f"{time.perf_counter() - t0:.2f} s")
+    for solver, mv, mvh in (("bicg", 1, 1), ("bicgstab", 2, 0)):
+        o = f"-i {solver} -p jacobi -tol 1e-10"
+        r, got, wall, per = solve(An, bv, o)
+        ok(f"{solver} bes", r, 1e-9)
+        if S.route_of(An, o) != "bes":
+            fail(f"{solver}: the default route is not bes")
+        S.need_launches(got, ["bes_spmv"], mv * r.iters, f"{solver} bes")
+        if mvh:
+            S.need_launches(got, ["bes_spmvh"], mvh * r.iters,
+                            f"{solver} bes")
+        rc, _, wall_c, per_c = solve(An, bv, o + " -storage csr")
+        near(f"{solver} bes against csr", r.iters, rc.iters)
+        tag(f"{solver} + jacobi 2^20: bes {per:.4f} ms/iter against csr "
+            f"{per_c:.4f}")
+    bz = (S.randn(n, c128)).cpu().numpy()
+    o = "-i bicgstab -p jacobi -tol 1e-10"
+    r, got, wall, per = solve(An, bz, o)
+    ok("bicgstab complex b on the real bes", r, 1e-9)
+    if not r.x.is_complex():
+        fail("bicgstab complex b: x is not complex")
+    S.need_launches(got, ["bes_spmv"], 2 * r.iters, "bicgstab complex b")
+    del An, an
+    torch.cuda.empty_cache()
+
+    # ---- (c) the double-double modes on the BES route ----------------------
+    S.stamp("phase 15c")
+    o = "-i cg -p jacobi -f df -tol 1e-12"
+    r, got, wall, per = solve(A, bv, o)
+    if r.status != 0 or not r.resid <= 1e-12 or not r.true_resid <= 1e-11:
+        fail(f"cg df bes: status {r.status} resid {r.resid:.3e} true "
+             f"{r.true_resid:.3e}")
+    S.need_launches(got, ["bes_spmv"], r.iters, "cg df bes")
+    with plain_bes():
+        ro = lis_tpu_torch.solve(A, bv, options=o)
+    if ro.iters != r.iters or ro.status != 0:
+        fail(f"cg df bes: {r.iters} iterations against the plain oracle's "
+             f"{ro.iters}")
+    o = "-i cg -p jacobi -f quad -tol 1e-12"
+    r, got, wall, per = solve(A, bv, o)
+    if r.status != 0 or not r.resid <= 1e-12 or not r.true_resid <= 1e-11:
+        fail(f"cg quad bes: status {r.status} resid {r.resid:.3e} true "
+             f"{r.true_resid:.3e}")
+    S.need_exact(got, {"bes_spmv": 0, "dd_ell_spmv": r.iters + 1},
+                 "cg quad bes (the ELL pair)")
+    rc, _, _, _ = solve(A, bv, o + " -storage csr")
+    if rc.iters != r.iters or rc.status != 0:
+        fail(f"cg quad: bes route {r.iters} iterations, -storage csr "
+             f"{rc.iters}")
+    tag(f"-f df on bes: {ro.iters} = the plain oracle's; -f quad on the "
+        f"bes route {r.iters} = -storage csr's {rc.iters}")
+    del A, B, a, ro, rc, x, xs
+    torch.cuda.empty_cache()
+
+    # ---- (d) SA-AMG graph path at 64^3: multi-BES prolongators ------------
+    S.stamp("phase 15d")
+    g64 = S.grids[2]
+    A64 = testmat.poisson3d27(g64, g64, g64)
+    opts = "-i cg -p saamg -saamg_lattice false -tol 1e-10"
+    D64 = lis_tpu_torch.auto_storage(A64)
+    t0 = time.perf_counter()
+    M = psa.create_saamg(D64, SolverOptions.from_string(opts))
+    torch.cuda.synchronize()
+    t_h = time.perf_counter() - t0
+    def parts(m):
+        """Slab parts of a BES or multi-BES, 0 for any other format."""
+        if m.format_name not in ("bes", "mbes"):
+            return 0
+        return len(getattr(m, "parts", (m,)))
+
+    def desc(m):
+        return f"{m.format_name} {m.nrows}x{m.ncols}" + (
+            f" ({parts(m)} parts, blowup {m.fill_blowup:.1f}, remainder "
+            f"{0 if m.rem is None else m.rem.nnz})" if parts(m) else "")
+
+    tag(f"graph hierarchy 64^3 in {t_h:.2f} s: prolongators "
+        + ", ".join(desc(lv.P) for lv in M.levels) + "; level operators "
+        + ", ".join(desc(lv.A) for lv in M.levels))
+    if not any(parts(lv.P) for lv in M.levels):
+        fail("graph saamg 64^3: no prolongator took the multi-BES rule")
+    # a V-cycle: R once a slab part of each P (the restriction Pᵀ), Q once
+    # a part of each P (the prolongation) and four times a part of a BES
+    # level operator (its four residuals)
+    n_r = sum(parts(lv.P) for lv in M.levels)
+    n_q = n_r + sum(4 * parts(lv.A) for lv in M.levels)
+    rv = S.randn(D64.nrows, f64)
+    per_ps = S.launches_per(lambda: M.psolve(rv))
+    if per_ps["bes_spmv"] != n_q or per_ps["bes_spmvh"] != n_r:
+        fail(f"graph saamg psolve: Q {per_ps['bes_spmv']}, R "
+             f"{per_ps['bes_spmvh']} launches, expected {n_q} and {n_r}")
+    z = M.psolve(rv)
+    with plain_bes():
+        zo = M.psolve(rv)
+    err = ((z - zo).abs().max() / zo.abs().max()).item()
+    if err > 1e-12:
+        fail(f"graph saamg psolve off its plain-BES version by {err:.2e}")
+    r, got, wall, per = solve(D64, np.ones(D64.nrows), opts, M=M)
+    ok("graph saamg 64^3", r, 1e-9)
+    # one psolve an iteration (as phase 11 counts them): Q and R once a
+    # slab part of a prolongator
+    S.need_exact(got, {"bes_spmv": n_q * r.iters,
+                       "bes_spmvh": n_r * r.iters}, "graph saamg 64^3")
+    tag(f"graph saamg 64^3: one psolve launches Q {n_q} and R {n_r} times, "
+        f"within {err:.1e} of its plain-BES version; {per:.4f} ms/iter")
+    del M, D64, A64, rv, z, zo
+    torch.cuda.empty_cache()
+
+    # ---- (e) the block formats: kron(poisson3d 7-point g^3, B) -------------
+    S.stamp("phase 15e")
+    blk = np.array([[4.0, 1.0, 0.5], [1.0, 3.0, 0.25], [0.5, 0.25, 2.0]])
+
+    def elastic(g):
+        pp, pi, pv = testmat.poisson3d(g, g, g, device="cpu").to_csr_arrays()
+        m = sp.kron(sp.csr_matrix((pv, pi, pp)), blk).tocsr()
+        m.sort_indices()
+        return m
+
+    t0 = time.perf_counter()
+    e64 = elastic(g64)
+    E = lis_tpu_torch.CSRMatrix.from_csr_arrays(e64.indptr, e64.indices,
+                                                e64.data, e64.shape)
+    ne = E.nrows
+    be = np.ones(ne)
+    tag(f"kron(poisson3d 7-point {g64}^3, B 3x3): n={ne} nnz={E.nnz}, made "
+        f"in {time.perf_counter() - t0:.2f} s")
+    mats = {}
+    for fmt, kw in (("bsr", {"bnr": 3}), ("bsc", {"bnr": 3}), ("vbr", {})):
+        t0 = time.perf_counter()
+        mats[fmt] = lis_tpu_torch.convert_matrix(E, fmt, **kw)
+        torch.cuda.synchronize()
+        tag(f"{fmt}: converted in {time.perf_counter() - t0:.2f} s"
+            + (f" ({len(mats[fmt].slabs)} windows {mats[fmt].c0s}, spill "
+               f"{mats[fmt].has_spill})" if fmt == "bsr" else "")
+            + (f" (partition of {len(mats[fmt].row_part) - 1} blocks, "
+               f"fast bsr {mats[fmt].fast is not None})"
+               if fmt == "vbr" else ""))
+    xe, ye = S.randn(ne, f64), S.randn(ne, f64)
+    want_mv, want_mvh = E.matvec(xe), E.matvech(ye)
+    csr_ms = cuda_ms(lambda: E.matvec(xe), queued=True)
+    csr_msh = cuda_ms(lambda: E.matvech(ye), queued=True)
+    # the library: torch.sparse CSR @ x on A and on Aᵀ, built untimed
+    et = e64.T.tocsr()
+    et.sort_indices()
+    lib = []
+    for m, v in ((e64, xe), (et, ye)):
+        sp_t = torch.sparse_csr_tensor(
+            torch.from_numpy(m.indptr.astype(np.int64)).to(dev),
+            torch.from_numpy(m.indices.astype(np.int64)).to(dev),
+            torch.from_numpy(m.data).to(dev), m.shape)
+        v2 = v[:, None]
+        lib.append(cuda_ms(lambda: torch.sparse.mm(sp_t, v2), queued=True))
+        del sp_t
+    del et
+    for fmt, M in mats.items():
+        err = max(((M.matvec(xe) - want_mv).abs().max()
+                   / want_mv.abs().max()).item(),
+                  ((M.matvech(ye) - want_mvh).abs().max()
+                   / want_mvh.abs().max()).item())
+        if err > 1e-13:
+            fail(f"{fmt}: matvec/matvech off the CSR's by {err:.3e}")
+        mb = nbytes(M)
+        b_ms, b_by = bound_ms(mb + 2 * ne * 8, 2 * E.nnz, f64)
+        ms = cuda_ms(lambda: M.matvec(xe), queued=True)
+        msh = cuda_ms(lambda: M.matvech(ye), queued=True)
+        S.format_rows.append({"format": fmt, "n": ne, "nnz": E.nnz,
+                              "array_bytes": mb, "matvec_ms": ms,
+                              "matvech_ms": msh, "bound_ms": b_ms,
+                              "bound_by": b_by, "timing": "queued",
+                              "csr_matvec_ms": csr_ms,
+                              "csr_matvech_ms": csr_msh,
+                              "library_ms": lib[0], "library_h_ms": lib[1]})
+        tag(f"{fmt} f64: matvec {ms:.4f} ms, matvech {msh:.4f} ms (queued; "
+            f"the CSR's {csr_ms:.4f} / {csr_msh:.4f}, torch.sparse "
+            f"{lib[0]:.4f} / {lib[1]:.4f}), bound {b_ms:.4f} ms "
+            f"({b_by}; {mb / 2**20:.1f} MiB of arrays; "
+            f"{100 * b_ms / ms:.0f} % / {100 * b_ms / msh:.0f} %); "
+            f"against the CSR's {err:.1e}")
+    del xe, ye, want_mv, want_mvh
+    tol = "-tol 1e-8"
+    refs = {}
+    for o in ("-i cg -p bjacobi -storage_block 3", "-i cg -p jacobi"):
+        r, _, _, _ = solve(E, be, f"{o} {tol} -storage csr")
+        ok(o + " csr", r, 1e-7)
+        refs[o] = r.iters
+    for M, o, ref in (
+            (mats["bsr"], "-i cg -p bjacobi -storage bsr -storage_block 3",
+             "-i cg -p bjacobi -storage_block 3"),
+            (mats["bsc"], "-i cg -p jacobi -storage bsc -storage_block 3",
+             "-i cg -p jacobi"),
+            (mats["vbr"], "-i cg -p jacobi -storage vbr", "-i cg -p jacobi")):
+        r, got, _, _ = solve(M, be, f"{o} {tol}")
+        ok(o, r, 1e-7)
+        near(o, r.iters, refs[ref])
+    def spread_near(what, it, mat, b, opts):
+        """it held within 5 % of the CSR solve's count: the counts of BiCG
+        and BiCGSTAB on this operator (100-330 steps) rest on rounding, the
+        CSR's own moving between runs (its index_add_ sums with atomics)
+        and under 1e-14 changes of b, which are printed as the spread."""
+        spread = []
+        for k in (0, 1, 2):
+            bk = b if k == 0 else b * (1 + 1e-14 * torch.from_numpy(
+                np.random.default_rng(k).standard_normal(b.shape[0])).to(
+                    b.device))
+            spread.append(lis_tpu_torch.solve(mat, bk, options=opts).iters)
+        tag(f"{what}: {it} iterations; the CSR's {spread[0]}, and "
+            f"{spread[1:]} under 1e-14 changes of b")
+        if abs(it - spread[0]) > max(1, 0.05 * spread[0]):
+            fail(f"{what}: {it} iterations against the CSR's {spread[0]}")
+
+    bet = torch.ones(ne, dtype=f64, device=dev)
+    # BiCG + Jacobi: the BSR matvech each iteration
+    o = "-i bicg -p jacobi"
+    r, _, _, _ = solve(mats["bsr"], bet, f"{o} -storage bsr -storage_block 3 "
+                       f"{tol}")
+    ok(o + " bsr", r, 1e-7)
+    spread_near("bicg + jacobi bsr", r.iters, E, bet, f"{o} {tol} -storage "
+                "csr")
+    # -scale 1 -storage bsr against the CSR solve of the same scaled system
+    o = "-i bicgstab -scale 1 -storage bsr -storage_block 3"
+    r, _, _, _ = solve(E, bet, f"{o} {tol}")
+    ok(o, r, 1e-7)
+    E2, binv = drv._bscale_operator(E, 3)
+    spread_near("bicgstab -scale 1 -storage bsr", r.iters, E2,
+                drv._block_matvec(binv, bet), f"-i bicgstab {tol} -storage "
+                "csr")
+    del E2, binv, mats
+
+    # block ILU(0): the set-up is lis_tpu's loop over block rows on the host
+    def bilu(g, Eg, bg):
+        M = lis_tpu_torch.convert_matrix(Eg, "bsr", bnr=3)
+        o = f"-i cg -p ilu -storage bsr -storage_block 3 {tol}"
+        t0 = time.perf_counter()
+        P = pilu.create_iluk(M, SolverOptions.from_string(o))
+        torch.cuda.synchronize()
+        t_set = time.perf_counter() - t0
+        r, got, wall, per = solve(M, bg, o, M=P)
+        ok(f"block ilu {g}^3", r, 1e-7)
+        S.need_exact(got, {"trisolve": 2 * r.iters}, f"block ilu {g}^3")
+        plain = pilu.trisolve
+        pilu.trisolve = tsm._trisolve_plain
+        try:
+            k0 = tsm.trisolve.launches
+            ro = lis_tpu_torch.solve(M, bg, options=o, M=P)
+            if tsm.trisolve.launches != k0:
+                fail("the plain-K oracle of block ILU launched K")
+        finally:
+            pilu.trisolve = plain
+        near(f"block ilu {g}^3 against the plain-K oracle", r.iters,
+             ro.iters)
+        tag(f"block ILU(0) {g}^3: set-up {t_set:.2f} s on the host "
+            f"(levels {P.lower.nlev} / {P.upper.nlev}); {r.iters} "
+            f"iterations at {per:.4f} ms/iter, K twice a psolve; the "
+            f"plain-K oracle {ro.iters}")
+        return t_set
+
+    g32 = g64 // 2
+    e32 = elastic(g32)
+    E32 = lis_tpu_torch.CSRMatrix.from_csr_arrays(e32.indptr, e32.indices,
+                                                  e32.data, e32.shape)
+    t32 = bilu(g32, E32, np.ones(E32.nrows))
+    est = t32 * (ne / E32.nrows)
+    if est <= BILU_SETUP_LIMIT_S:
+        bilu(g64, E, be)
+    else:
+        tag(f"block ILU(0) at {g64}^3 not run: its set-up would take about "
+            f"{est:.1f} s ({t32:.2f} s at {g32}^3 times {ne // E32.nrows}), "
+            f"over {BILU_SETUP_LIMIT_S:.0f} s")
+    del E, E32
+    torch.cuda.empty_cache()
+    wall = time.perf_counter() - t_phase
+    print(f"phase time: phase 15 took {wall:.1f} s", flush=True)
+
+
+# block ILU's set-up is lis_tpu's Python loop over the block rows: at 64^3
+# it runs only where the 32^3 set-up, scaled by the size, stays under this
+BILU_SETUP_LIMIT_S = 30.0
 
 
 def report_results(S, smi_line, total):

@@ -17,12 +17,14 @@ bjacobi, ssor, ilu, ilut, iluc, is, sainv, saamg, hybrid), with additive
 Schwarz around them (``-adds true``); all six precision modes, ``-f
 double``, ``single`` and the double-double ``quad``, ``switch``, ``df``
 and ``switch_df`` (lis_tpu's 17 ``_quad`` twins); ``-reorder rcm`` and
-``-use_at``; the scalar formats CSR, COO, CSC, MSR, ELL, JAD, DNS, DIA and
-HDI, and CSS and CST, routed by ``auto_storage`` as in lis_tpu (banded →
-DIA) unless ``-storage`` says otherwise; ``MatrixAssembler``
-(lis_matrix_set_value / lis_matrix_assemble); MatrixMarket (ASCII and
-binary), Harwell-Boeing, Lis native and PLAIN I/O; ``esolve()`` and
-``gesolve()`` with all eight of lis_tpu's eigensolvers (pi, ii, rqi, cg,
+``-use_at``; every storage format of lis_tpu: the scalar formats CSR,
+COO, CSC, MSR, ELL, JAD, DNS, DIA and HDI, the block formats BSR, BSC and
+VBR (block ILU, block Jacobi, ``-scale 1 -storage bsr``), and BES,
+multi-BES, CSS and CST, routed by ``auto_storage`` as in lis_tpu (banded →
+DIA, general banded sparsity → BES) unless ``-storage`` says otherwise;
+``MatrixAssembler`` (lis_matrix_set_value / lis_matrix_assemble);
+MatrixMarket (ASCII and binary), Harwell-Boeing, Lis native and PLAIN
+I/O; ``esolve()`` and ``gesolve()`` with all eight of lis_tpu's eigensolvers (pi, ii, rqi, cg,
 cr, si, li, ai) and their generalized forms (gpi, ..., gai) for Ax = λx
 and Ax = λBx; the ``lsolve``, ``hpcg``, ``esolve``, ``esolver``,
 ``gesolve`` and ``gesolver`` command lines (``python -m
@@ -52,6 +54,11 @@ from lis_tpu_torch.matrix.msr import MSRMatrix
 from lis_tpu_torch.matrix.ell import ELLMatrix
 from lis_tpu_torch.matrix.jad import JADMatrix
 from lis_tpu_torch.matrix.dns import DNSMatrix
+from lis_tpu_torch.matrix.bsr import BSRMatrix
+from lis_tpu_torch.matrix.bsc import BSCMatrix
+from lis_tpu_torch.matrix.vbr import VBRMatrix
+from lis_tpu_torch.matrix.bes import (BESMatrix, MultiBESMatrix,
+                                      multi_bes_from_csr)
 from lis_tpu_torch.matrix.cst import CSTMatrix
 from lis_tpu_torch.matrix.dia import DIAMatrix
 from lis_tpu_torch.matrix.hybrid import HybridMatrix
@@ -77,7 +84,9 @@ __all__ = [
     "set_default_device", "SolverOptions", "EsolverOptions", "SparseMatrix",
     "CSRMatrix",
     "COOMatrix", "CSCMatrix", "MSRMatrix", "ELLMatrix", "JADMatrix",
-    "DNSMatrix", "CSTMatrix", "DIAMatrix", "HybridMatrix", "CSSMatrix",
+    "DNSMatrix", "BSRMatrix", "BSCMatrix", "VBRMatrix", "BESMatrix",
+    "MultiBESMatrix", "multi_bes_from_csr", "CSTMatrix", "DIAMatrix",
+    "HybridMatrix", "CSSMatrix",
     "convert_matrix", "MatrixAssembler", "LIS_INS_VALUE", "LIS_ADD_VALUE",
     "solve", "SolveResult", "auto_storage", "transform_operator",
     "esolve", "gesolve", "EsolveResult",

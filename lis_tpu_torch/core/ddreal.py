@@ -30,8 +30,13 @@ and takes the plain version beside it for a CPU tensor:
 ``neg``, ``where``, ``is_zero`` and ``to_float`` are torch operations, and
 a solver loop reads the host only for its condition.  There is no
 ``axis_name`` (the distributed reduction waits for ROADMAP.md queue 1
-item 13) and no BES or multi-BES operator (item 8): every operator that
-is not DIA takes the ELL pair.
+item 13).  A DIA operator stays DIA; a BES or multi-BES operator under
+f32 limbs keeps its slabs (``DDBesOperator``, ``DDF64Operator``: one f64
+accumulation through kernels Q and R, then the split into limbs, as in
+lis_tpu); every other operator, and BES under f64 limbs, takes the ELL
+pair.  lis_tpu gives BES its f64 accumulation under f64 limbs too, where
+it is a plain f64 matvec (the low limb of its result is 0); the port does
+not copy that.
 """
 
 from __future__ import annotations
@@ -694,10 +699,58 @@ class DDDiaOperator:
                    None if vlo is None else vlo.contiguous())
 
 
+class DDF64Operator:
+    """A format's own matvec at f64 for f32 limbs (lis_tpu ``DDBesOperator``
+    and ``DDF64Operator``, ddreal.py:426-526): x is formed as hi + lo in
+    f64, the product accumulates in f64 (unit roundoff 2^-53, tighter than
+    the f32 pair's 2^-48) and the result is split back into f32 limbs.
+    For BES and multi-BES this keeps the slab path (kernels Q and R at
+    f64); only f32 limbs may take it."""
+
+    def __init__(self, A64):
+        self.A64 = A64              # the operator with f64 values
+
+    @property
+    def nrows(self):
+        return self.A64.nrows
+
+    @property
+    def ncols(self):
+        return self.A64.ncols
+
+    @property
+    def device(self):
+        return self.A64.device
+
+    def _mv(self, x: DD, transpose: bool) -> DD:
+        f64 = torch.float64
+        xs = x.hi.to(f64) + x.lo.to(f64)
+        y = self.A64.matvech(xs) if transpose else self.A64.matvec(xs)
+        h = y.to(x.hi.dtype)
+        return DD(h, (y - h.to(f64)).to(x.hi.dtype))
+
+    def matvec(self, x: DD) -> DD:
+        return self._mv(x, False)
+
+    def matvech(self, x: DD) -> DD:
+        return self._mv(x, True)
+
+    @classmethod
+    def from_matrix(cls, A, limb=None) -> "DDF64Operator":
+        if limb != torch.float32:
+            raise ValueError("DDF64Operator: f64 accumulation serves f32 "
+                             "limbs only; f64 limbs take the ELL pair")
+        return cls(A.to(dtype=torch.float64))
+
+
 def make_dd_operator(A, limb=None):
-    """Wrap a matrix for DD iterations: DIA stays DIA (kernel M), every
-    other format takes the ELL gather pair (kernel N).  With
+    """Wrap a matrix for DD iterations: DIA stays DIA (kernel M); BES and
+    multi-BES under f32 limbs keep their slabs at f64 (kernels Q and R);
+    every other case takes the ELL gather pair (kernel N).  With
     ``limb=torch.float32`` the values are carried as f32 pairs."""
-    if getattr(A, "format_name", None) == "dia":
+    fmt = getattr(A, "format_name", None)
+    if fmt == "dia":
         return DDDiaOperator.from_matrix(A, limb)
+    if fmt in ("bes", "mbes") and limb == torch.float32:
+        return DDF64Operator.from_matrix(A, limb)
     return DDOperator.from_matrix(A, limb)

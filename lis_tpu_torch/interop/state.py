@@ -2,9 +2,11 @@
 
 ``from_numpy_state(kind, arrays, statics)`` builds a ``CSRMatrix``,
 ``COOMatrix``, ``CSCMatrix``, ``MSRMatrix``, ``ELLMatrix``, ``JADMatrix``,
-``DNSMatrix``, ``DIAMatrix``, ``CSTMatrix`` (with its nested
-``ShufflePlan``, ``rem`` and ``at``), ``ShufflePlan`` or ``JacobiPrecon``
-from numpy arrays — for instance the
+``DNSMatrix``, ``DIAMatrix``, ``BSRMatrix``, ``BSCMatrix``, ``VBRMatrix``
+(with its nested ``fast``), ``BESMatrix``, ``MultiBESMatrix`` (its
+``parts`` a sequence of ``("bes", arrays, statics)`` triples),
+``CSTMatrix`` (with its nested ``ShufflePlan``, ``rem`` and ``at``),
+``ShufflePlan`` or ``JacobiPrecon`` from numpy arrays — for instance the
 leaves of the matching lis_tpu object — so one exact grid can be fed to
 both packages, independently of the port's own grid construction.  The
 object lives on ``device`` (None: the default device, the card).
@@ -23,6 +25,9 @@ import numpy as np
 import torch
 
 from lis_tpu_torch.config import resolve_device
+from lis_tpu_torch.matrix.bes import BESMatrix, MultiBESMatrix
+from lis_tpu_torch.matrix.bsc import BSCMatrix
+from lis_tpu_torch.matrix.bsr import BSRMatrix
 from lis_tpu_torch.matrix.coo import COOMatrix
 from lis_tpu_torch.matrix.csc import CSCMatrix
 from lis_tpu_torch.matrix.csr import CSRMatrix
@@ -32,12 +37,15 @@ from lis_tpu_torch.matrix.dns import DNSMatrix
 from lis_tpu_torch.matrix.ell import ELLMatrix
 from lis_tpu_torch.matrix.jad import JADMatrix
 from lis_tpu_torch.matrix.msr import MSRMatrix
+from lis_tpu_torch.matrix.vbr import VBRMatrix
 from lis_tpu_torch.ops.shuffle import ShufflePlan
 from lis_tpu_torch.precon.jacobi import JacobiPrecon
 
 _KINDS = {"csr": CSRMatrix, "coo": COOMatrix, "csc": CSCMatrix,
           "msr": MSRMatrix, "ell": ELLMatrix, "jad": JADMatrix,
           "dns": DNSMatrix, "dia": DIAMatrix, "cst": CSTMatrix,
+          "bsr": BSRMatrix, "bsc": BSCMatrix, "vbr": VBRMatrix,
+          "bes": BESMatrix, "mbes": MultiBESMatrix,
           "plan": ShufflePlan, "jacobi": JacobiPrecon}
 
 
@@ -45,14 +53,18 @@ def _tensor(a):
     return torch.from_numpy(np.array(a))      # a writable copy
 
 
+def _nested(value):
+    return isinstance(value, tuple) and len(value) == 3 \
+        and isinstance(value[0], str)
+
+
 def _field(value):
     if value is None:
         return None
-    if isinstance(value, tuple) and len(value) == 3 \
-            and isinstance(value[0], str):
+    if _nested(value):
         return from_numpy_state(*value, device="cpu")
     if isinstance(value, (list, tuple)):
-        return tuple(_tensor(a) for a in value)
+        return tuple(_field(a) if _nested(a) else _tensor(a) for a in value)
     return _tensor(value)
 
 

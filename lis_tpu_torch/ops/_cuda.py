@@ -64,6 +64,10 @@ _SIGNATURES = {
     "lis_dd_reduce": [_INT, _INT, _P, _P, _P, _P, _I64, _I64, _I64, _I64,
                       _P, _P],
     "lis_dd_update": [_INT, _INT, _P, _P, _P, _P, _P, _P, _P, _P, _I64, _P],
+    "lis_bes_spmv": [_INT, _INT, _P, _P, _P, _P, _I64, _I64, _I64, _I64,
+                     _I64, _I64, _I64, _P],
+    "lis_bes_spmvh": [_INT, _INT, _P, _P, _P, _P, _I64, _I64, _I64, _I64,
+                      _I64, _I64, _I64, _P],
 }
 
 _lib = None
@@ -166,7 +170,7 @@ def stream() -> int:
 
 
 # the complex codes serve lane_shuffle, which moves whole elements, the DIA
-# products and sweeps, and the triangular solve
+# and BES products, the DIA sweeps and the triangular solve
 DTYPE_CODE = {torch.float32: 0, torch.float64: 1, torch.complex64: 2,
               torch.complex128: 3}
 

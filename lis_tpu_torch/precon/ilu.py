@@ -21,9 +21,13 @@ operator's device.
   DIA; fill > 0; ILUT and ILUC whose factors do not fit): exact
   level-scheduled solves (``ops/trisolve.py``, kernel K), with the
   conjugate-transposed factors for psolveh.
-
-The block ILU of BSR/VBR operators waits for those formats (ROADMAP.md
-queue 1 item 8).
+- ``BlockILUPrecon`` and ``VBlockILUPrecon``: block ILU(k) of a BSR or a
+  VBR operator, M = (I + L)·D·(I + Û), Û = D⁻¹U, factored block by block
+  in lis_tpu's Python loops on the host.  Each apply is two unit
+  triangular solves of the block-expanded factors on level plans (two
+  launches of K) around the block D⁻¹: one batched torch product over
+  (nr, bnr, bnr) for BSR, diagonal streams (DIA, kernel E) or a padded
+  batched product for the variable blocks of VBR.
 """
 
 from __future__ import annotations
@@ -34,7 +38,7 @@ import numpy as np
 import scipy.sparse as sp
 import torch
 
-from lis_tpu_torch.matrix.base import TensorFields, static
+from lis_tpu_torch.matrix.base import TensorFields, conj, static
 from lis_tpu_torch.matrix.dia import DIAMatrix
 from lis_tpu_torch.ops.trisolve import (TriSolvePlan, make_plan,
                                         sweep_series, trisolve)
@@ -376,6 +380,13 @@ def create_iluk(A, opts):
     fill = getattr(opts, "ilu_fill", 0)
     ns = int(getattr(opts, "ssor_sweeps", 2))
     dev = A.device
+    fmt = getattr(A, "format_name", None)
+    if fmt == "bsr":
+        return _create_bilu(A, fill)
+    if fmt == "vbr":
+        vb = _create_vbilu(A, fill)
+        if vb is not None:
+            return vb
     if getattr(A, "format_name", None) == "dia" and fill == 0 \
             and not A.value.is_complex():
         from lis_tpu_torch import _native
@@ -471,3 +482,286 @@ def create_iluc(A, opts):
     """Crout ILU (reference lis_precon_iluc.c:67): row-of-U/column-of-L
     factorisation with -iluc_drop / -iluc_rate, distinct from ILUT."""
     return _create_threshold(A, opts, "iluc_factor", _factor_iluc)
+
+
+# ---- block ILU of BSR and VBR operators ---------------------------------------
+
+def _promoted_einsum(eq, b, z):
+    dt = torch.promote_types(b.dtype, z.dtype)
+    return torch.einsum(eq, b.to(dt), z.to(dt))
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class BlockILUPrecon(TensorFields):
+    """Block ILU(k) of a BSR operator (lis_tpu ``BlockILUPrecon``,
+    ilu.py:438-469; reference lis_precon_iluk.c:1289 symbolic, :1670
+    numeric, :1990 psolve): M = (I + L)·D·(I + Û) with block factors,
+    Û = D⁻¹U.  An apply is a level-scheduled unit solve of the expanded
+    L, one batched (nr, bnr, bnr) product with D⁻¹, and a unit solve of
+    the expanded Û."""
+    lower: TriSolvePlan       # expanded L (unit diagonal)
+    upper: TriSolvePlan       # expanded Û = D⁻¹U (unit diagonal)
+    lower_t: TriSolvePlan     # Ûᴴ (unit lower)
+    upper_t: TriSolvePlan     # Lᴴ (unit upper)
+    dinv: torch.Tensor        # (nr, bnr, bnr) inverted diagonal blocks
+    n: int = static()         # the unpadded size
+    bnr: int = static()
+
+    def _apply(self, r, lo, d, up):
+        N = d.shape[0] * self.bnr
+        rp = r if r.shape[0] == N else torch.cat([r, r.new_zeros(N - r.shape[0])])
+        z = trisolve(lo, rp)
+        w = _promoted_einsum("tij,tj->ti", d, z.view(-1, self.bnr))
+        return trisolve(up, w.reshape(-1))[: self.n]
+
+    def psolve(self, r):
+        return self._apply(r, self.lower, self.dinv, self.upper)
+
+    def psolveh(self, r):
+        dh = self.dinv.transpose(1, 2)
+        return self._apply(r, self.lower_t, dh.conj() if dh.is_complex()
+                           else dh, self.upper_t)
+
+
+def _bilu_symbolic(bptr, bindex, nr, fill):
+    """Level-of-fill pattern at block granularity (lis_tpu
+    ``_bilu_symbolic``; the reference's lis_symbolic_fact_bsr,
+    lis_precon_iluk.c:1289): one ascending pivot pass per row, a fill
+    entry kept where lev(j) + lev(U_jk) + 1 <= fill."""
+    import heapq
+    upat = []
+    rows = []
+    for i in range(nr):
+        lev = {int(j): 0 for j in bindex[bptr[i]:bptr[i + 1]]}
+        lev.setdefault(i, 0)
+        heap = [c for c in lev if c < i]
+        heapq.heapify(heap)
+        seen = set()
+        while heap:
+            j = heapq.heappop(heap)
+            if j in seen:
+                continue
+            seen.add(j)
+            lj = lev[j]
+            for k, lu in upat[j].items():
+                lv = lj + lu + 1
+                if lv <= fill:
+                    if k not in lev:
+                        if k < i:
+                            heapq.heappush(heap, k)
+                        lev[k] = lv
+                    elif lv < lev[k]:
+                        lev[k] = lv
+        rows.append(sorted(lev))
+        upat.append({k: v for k, v in lev.items() if k > i})
+    return rows
+
+
+def _block_ikj(patt, stored, sizes, dtype):
+    """Block IKJ elimination on the symbolic pattern (lis_tpu
+    ``_factor_bilu`` and the loop of ``_create_vbilu``; the reference's
+    lis_numerical_fact_bsr / _vbr): L_ij <- A_ij·D_j⁻¹, row updates
+    −L_ij·U_jk kept on the pattern, D_i inverted after its row (pinv where
+    singular; a missing diagonal block is the identity).  Returns
+    (L rows, U rows, the D⁻¹ blocks)."""
+    Dinv, Lrows, Urows = [], [], []
+    for i in range(len(patt)):
+        row = {c: np.zeros((sizes[i], sizes[c]), dtype=dtype)
+               for c in patt[i]}
+        row.update(stored[i])
+        for j in (c for c in patt[i] if c < i):
+            Lij = row[j] @ Dinv[j]
+            row[j] = Lij
+            for k, Ujk in Urows[j].items():
+                tgt = row.get(k)
+                if tgt is not None:
+                    tgt -= Lij @ Ujk
+        d = row.get(i)
+        if d is None:
+            d = np.eye(sizes[i], dtype=dtype)
+        try:
+            Dinv.append(np.linalg.inv(d))
+        except np.linalg.LinAlgError:
+            Dinv.append(np.linalg.pinv(d))
+        Urows.append({k: v for k, v in row.items() if k > i})
+        Lrows.append({k: v for k, v in row.items() if k < i})
+    return Lrows, Urows, Dinv
+
+
+def _blocks_to_strict_csr(rows, nr, bnr, dtype):
+    indptr, indices, data = [0], [], []
+    for row in rows:
+        for c in sorted(row):
+            indices.append(c)
+            data.append(row[c])
+        indptr.append(len(indices))
+    if not indices:
+        return sp.csr_matrix((nr * bnr, nr * bnr), dtype=dtype)
+    m = sp.bsr_matrix((np.asarray(data, dtype=dtype),
+                       np.asarray(indices, np.int32),
+                       np.asarray(indptr, np.int32)),
+                      shape=(nr * bnr, nr * bnr)).tocsr()
+    m.eliminate_zeros()
+    m.sort_indices()
+    return m
+
+
+def _create_bilu(A, fill):
+    """Block ILU(fill) of a BSR operator (lis_tpu ``_create_bilu``,
+    ilu.py:556-578): padded rows get a unit diagonal so every D block is
+    regular."""
+    p, i, v = A.to_csr_arrays()
+    N = A.nr * A.bnr
+    a = sp.csr_matrix((v, i, p), shape=A.shape)
+    a.resize((N, N))
+    if N > A.nrows:
+        pad_d = np.arange(A.nrows, N)
+        a = (a + sp.coo_matrix((np.ones(len(pad_d)), (pad_d, pad_d)),
+                               shape=(N, N))).tocsr()
+    b = sp.bsr_matrix(a, blocksize=(A.bnr, A.bnr))
+    b.sort_indices()
+    dtype = b.data.dtype if np.iscomplexobj(b.data) else np.float64
+    patt = _bilu_symbolic(b.indptr, b.indices, A.nr, fill)
+    stored = [{int(b.indices[q]): b.data[q].astype(dtype)
+               for q in range(b.indptr[t], b.indptr[t + 1])}
+              for t in range(A.nr)]
+    Lrows, Urows, Dinv = _block_ikj(patt, stored, [A.bnr] * A.nr, dtype)
+    Dinv = np.asarray(Dinv, dtype=dtype).reshape(A.nr, A.bnr, A.bnr)
+    Ut_rows = [{k: Dinv[t] @ blk for k, blk in Urows[t].items()}
+               for t in range(A.nr)]
+    L = _blocks_to_strict_csr(Lrows, A.nr, A.bnr, dtype)
+    U = _blocks_to_strict_csr(Ut_rows, A.nr, A.bnr, dtype)
+    lo, up, lo_t, up_t = _unit_factor_plans(L, U, A.device)
+    return BlockILUPrecon(lower=lo, upper=up, lower_t=lo_t, upper_t=up_t,
+                          dinv=torch.from_numpy(Dinv).to(A.device),
+                          n=A.nrows, bnr=A.bnr)
+
+
+def _unit_factor_plans(L, U, device):
+    """Level plans of the unit factors (I + L), (I + Û) and of their
+    conjugate transposes, from strictly triangular CSR parts."""
+    n = L.shape[0]
+    ones = np.ones(n, dtype=L.dtype)
+    LH = L.conj().T.tocsr()
+    UH = U.conj().T.tocsr()
+    LH.sort_indices()
+    UH.sort_indices()
+    return (make_plan(L.indptr, L.indices, L.data, ones, lower=True,
+                      device=device),
+            make_plan(U.indptr, U.indices, U.data, ones, lower=False,
+                      device=device),
+            make_plan(UH.indptr, UH.indices, UH.data, ones, lower=True,
+                      device=device),
+            make_plan(LH.indptr, LH.indices, LH.data, ones, lower=False,
+                      device=device))
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class VBlockILUPrecon(TensorFields):
+    """Variable-block ILU(k) of a VBR operator (lis_tpu ``VBlockILUPrecon``,
+    ilu.py:598-644; reference lis_precon_iluk.c:2220-2905): blocks sized
+    by the VBR partition.  D⁻¹ (variable block sizes) applies as the
+    diagonals of its scalar expansion (``dL``, ``dU``, ``dd``) where the
+    largest block is at most 64, else as a product of the blocks padded
+    to the largest (``pbinv``, ``pidx``).  The reference leaves the
+    transposed apply unimplemented; lis_tpu and the port have it."""
+    lower: TriSolvePlan
+    upper: TriSolvePlan
+    lower_t: TriSolvePlan
+    upper_t: TriSolvePlan
+    dL: object                # strict-lower DIA of the expanded D⁻¹
+    dU: object                # strict-upper DIA
+    dd: object                # its diagonal
+    pbinv: object             # (nbl, mb, mb) padded D⁻¹ blocks, or None
+    pidx: object              # (nbl, mb) row of each slot, n for padding
+
+    def _pad_apply(self, binv, x):
+        xp = torch.cat([x, x.new_zeros(1)])
+        z = _promoted_einsum("kij,kj->ki", binv, xp[self.pidx])
+        out = torch.zeros(x.shape[0] + 1, dtype=z.dtype, device=z.device)
+        return out.index_add_(0, self.pidx.reshape(-1), z.reshape(-1))[:-1]
+
+    def _dinv(self, x):
+        if self.pbinv is not None:
+            return self._pad_apply(self.pbinv, x)
+        return self.dL.matvec(x) + self.dU.matvec(x) + self.dd * x
+
+    def _dinvh(self, x):
+        if self.pbinv is not None:
+            return self._pad_apply(conj(self.pbinv).transpose(1, 2), x)
+        return self.dL.matvech(x) + self.dU.matvech(x) + conj(self.dd) * x
+
+    def psolve(self, r):
+        return trisolve(self.upper, self._dinv(trisolve(self.lower, r)))
+
+    def psolveh(self, r):
+        return trisolve(self.upper_t, self._dinvh(trisolve(self.lower_t, r)))
+
+
+def _create_vbilu(A, fill):
+    """Block ILU(fill) of a VBR operator (lis_tpu ``_create_vbilu``,
+    ilu.py:647-735); None where the row and column partitions differ or
+    every block is 1x1 (the scalar ILU is the same and cheaper)."""
+    part = tuple(A.row_part)
+    if part != tuple(A.col_part) or A.shape[0] != A.shape[1]:
+        return None
+    sizes = np.diff(np.asarray(part))
+    if not len(sizes) or sizes.max() <= 1:
+        return None
+    nr = len(part) - 1
+    p, i, v = A.to_csr_arrays()
+    a = sp.csr_matrix((v, i, p), shape=A.shape)
+    bptr, bindex = np.asarray(A.bptr), np.asarray(A.bindex)
+    dtype = np.complex128 if np.iscomplexobj(v) else np.float64
+    stored = [{} for _ in range(nr)]
+    for bi in range(nr):
+        r0, r1 = part[bi], part[bi + 1]
+        for q in range(bptr[bi], bptr[bi + 1]):
+            bj = int(bindex[q])
+            stored[bi][bj] = a[r0:r1, part[bj]:part[bj + 1]] \
+                .toarray().astype(dtype)
+    patt = _bilu_symbolic(bptr, bindex, nr, fill)
+    Lrows, Urows, Dinv = _block_ikj(patt, stored, sizes, dtype)
+    n = A.shape[0]
+
+    def expand(rows_of_blocks):
+        rr, cc, vv = [], [], []
+        for bi, row in enumerate(rows_of_blocks):
+            for bj, blk in row.items():
+                ri, ci = np.nonzero(blk)
+                rr.append(ri + part[bi])
+                cc.append(ci + part[bj])
+                vv.append(blk[ri, ci])
+        if not rr:
+            return sp.csr_matrix((n, n), dtype=dtype)
+        m = sp.coo_matrix((np.concatenate(vv),
+                           (np.concatenate(rr), np.concatenate(cc))),
+                          shape=(n, n)).tocsr()
+        m.sort_indices()
+        return m
+
+    Ut_rows = [{k: Dinv[t] @ blk for k, blk in Urows[t].items()}
+               for t in range(nr)]
+    dev = A.device
+    lo, up, lo_t, up_t = _unit_factor_plans(expand(Lrows), expand(Ut_rows),
+                                            dev)
+    mb = int(sizes.max())
+    if mb <= 64:
+        # small blocks: the 2·mb − 1 diagonals of D⁻¹'s scalar expansion
+        Dx = expand([{bi: Dinv[bi]} for bi in range(nr)])
+        dLo, dUp, dd = _dia_from_csr(Dx.indptr, Dx.indices, Dx.data, n, dev)
+        return VBlockILUPrecon(lower=lo, upper=up, lower_t=lo_t,
+                               upper_t=up_t, dL=dLo, dU=dUp,
+                               dd=torch.from_numpy(dd).to(dev), pbinv=None,
+                               pidx=None)
+    # a large block would cost 2·mb − 1 length-n diagonals: pad the blocks
+    # to mb and apply one batched product instead (memory nr·mb² <= n·mb)
+    pidx = np.full((nr, mb), n, np.int64)
+    pbinv = np.zeros((nr, mb, mb), dtype=dtype)
+    for k in range(nr):
+        pidx[k, :sizes[k]] = np.arange(part[k], part[k + 1])
+        pbinv[k, :sizes[k], :sizes[k]] = Dinv[k]
+    return VBlockILUPrecon(lower=lo, upper=up, lower_t=lo_t, upper_t=up_t,
+                           dL=None, dU=None, dd=None,
+                           pbinv=torch.from_numpy(pbinv).to(dev),
+                           pidx=torch.from_numpy(pidx).to(dev))

@@ -5,9 +5,8 @@ Port of ``lis_tpu/precon/jacobi.py`` (reference lis_precon_create_jacobi
 inverted-block-diagonal version :221,255): z = D⁻¹ r, one elementwise
 multiply on the device; block Jacobi inverts the dense diagonal blocks of
 size -storage_block on the host and applies them as one batched product
-on the device (lis_tpu: an ``einsum``, outside any Pallas kernel).  A BSR
-operator's own block size waits for the BSR format (ROADMAP.md queue 1
-item 8).
+on the device (lis_tpu: an ``einsum``, outside any Pallas kernel); a BSR
+operator's own block size comes first, as in lis_tpu (jacobi.py:84-90).
 """
 
 from __future__ import annotations
@@ -98,9 +97,9 @@ def _diag_blocks(A, bs: int) -> np.ndarray:
 
 @register_precon("bjacobi")
 def create_bjacobi(A, opts):
-    """Block Jacobi with dense diagonal blocks of size -storage_block
-    (default 2)."""
-    bs = getattr(opts, "storage_block", 2) or 2
+    """Block Jacobi with dense diagonal blocks of a BSR operator's block
+    size, else of size -storage_block (default 2)."""
+    bs = getattr(A, "bnr", None) or getattr(opts, "storage_block", 2) or 2
     binv = inv_blocks(_diag_blocks(A, bs))
     return BlockJacobiPrecon(binv=torch.from_numpy(binv).to(A.device),
                              n=A.nrows)

@@ -24,9 +24,10 @@ lis_tpu:
   and each residual b − A·x is one launch of H over all of A's
   diagonals.
 - **Graph** (anything else, -saamg_lattice false, -saamg_unsym): greedy
-  aggregation on the strength graph, explicit CSR prolongators (lis_tpu
-  tries its BES format first; BES is not ported yet, ROADMAP.md queue 3),
-  level operators through ``auto_storage``, and exact level-scheduled SGS
+  aggregation on the strength graph, explicit prolongators as multi-BES
+  slabs where they fit (kernels Q and R, as lis_tpu's
+  ``_fast_prolongator``) and as CSR otherwise, level operators through
+  ``auto_storage`` (which may pick BES too), and exact level-scheduled SGS
   (kernel K).  With -saamg_unsym the adjoint cycle runs on the transposed
   hierarchy.
 
@@ -60,7 +61,7 @@ class AMGLevel(TensorFields):
     A: object                 # the level operator (DIA on a lattice level)
     dinv: torch.Tensor        # 1/diag(A) (1 where the diagonal is 0)
     transfer: LatticeTransfer = None  # lattice: P and Pᵀ for J and L
-    P: CSRMatrix = None       # graph: the prolongator level l+1 -> l
+    P: object = None          # graph: the prolongator l+1 -> l (BES/CSR)
     R: CSRMatrix = None       # -saamg_unsym: the restriction (else Pᵀ)
     Ls: DIAMatrix = None      # strict-lower DIA (relaxed-sweep SGS)
     Us: DIAMatrix = None      # strict-upper DIA
@@ -402,7 +403,7 @@ def _sgs_plans(A: sp.csr_matrix, device):
 
 
 def _level_op(m: sp.csr_matrix, device, fine=None):
-    """The level operator through ``auto_storage`` (DIA, HDI, CST or CSS
+    """The level operator through ``auto_storage`` (DIA, HDI, BES, CST or CSS
     where the structure allows, else the CSR), as lis_tpu routes it.  The
     finest level reuses the solve's operator when that is already DIA."""
     if fine is not None and getattr(fine, "format_name", None) == "dia":
@@ -438,6 +439,22 @@ def _lattice_levels(raw_levels, smoother, A_fine):
     return levels
 
 
+def _fast_prolongator(m: sp.csr_matrix, device):
+    """The prolongator as multi-BES slabs (lis_tpu ``_fast_prolongator``,
+    saamg.py:518-539): its columns track the rows at slope ncols/nrows in
+    one affine band per plane neighbour of the fine stencil, so up to 12
+    strided windows under a 2 GiB budget, accepted at fill blowup <= 512
+    and remainder <= 20 % of the nnz; else the CSR.  Only the builder's
+    own ``NothingCovers`` (an empty P) is caught."""
+    from lis_tpu_torch.matrix.bes import fitting_multi_bes
+    bp = fitting_multi_bes(m.indptr, m.indices, m.data, m.shape, 512, 0.2,
+                           max_windows=12, max_bytes=2 << 30)
+    if bp is not None:
+        return bp.to(device)
+    return CSRMatrix.from_csr_arrays(m.indptr, m.indices, m.data, m.shape,
+                                     device=device)
+
+
 def _graph_levels(raw_levels, A_fine):
     dev = A_fine.device
     levels = []
@@ -455,8 +472,7 @@ def _graph_levels(raw_levels, A_fine):
         levels.append(AMGLevel(
             A=_level_op(Al, dev, A_fine if k == 0 else None),
             dinv=torch.from_numpy(_dinv_of(Al)).to(dev),
-            P=CSRMatrix.from_csr_arrays(Pl.indptr, Pl.indices, Pl.data,
-                                        Pl.shape, device=dev),
+            P=_fast_prolongator(Pl, dev),
             fwd=fwd, bwd=bwd, **kw))
     return levels
 

@@ -12,7 +12,8 @@ The solve runs on the device that holds the matrix's tensors; ``b`` and
 ``x0`` are moved there.  A matrix built by the port's constructors lives
 on the default device, the card, unless its caller asked for another.
 With no ``-storage`` the operator is routed by ``auto_storage`` (banded →
-DIA, quasi-banded → HDI, locality-free → CST or CSS), as in lis_tpu.  The
+DIA, quasi-banded → HDI, general banded sparsity → BES, locality-free →
+CST or CSS), as in lis_tpu.  The
 preconditioner (additive Schwarz around it with ``-adds true``) is built
 on the scaled and routed operator, as lis_tpu builds it, and a solver's
 prepare hook (GS, SOR) runs after it; ``ptime`` times both (lis_tpu
@@ -22,9 +23,9 @@ hybrid), at every precision of lis_tpu: ``-f double`` and ``single``,
 and the double-double modes ``quad``, ``switch``, ``df`` and
 ``switch_df`` through the 17 ``_quad`` twins.  ``-reorder rcm`` solves the
 symmetrically permuted system (b and x0 permuted once on the device, x
-once at exit) and ``-use_at`` gives the BiCG family an explicit Aᴴ.  What
-lis_tpu does and this package does not yet (the BES and block formats)
-raises ``NotImplementedError`` naming the ROADMAP.md item that ports it.
+once at exit) and ``-use_at`` gives the BiCG family an explicit Aᴴ.
+``-scale 1 -storage bsr`` scales by the inverted block diagonal, as in
+lis_tpu.
 """
 
 from __future__ import annotations
@@ -40,6 +41,7 @@ from lis_tpu_torch import config as C
 from lis_tpu_torch.core import vector as v
 from lis_tpu_torch.core.ddreal import DD, make_dd_operator
 from lis_tpu_torch.matrix.base import SparseMatrix
+from lis_tpu_torch.matrix.bes import fitting_multi_bes
 from lis_tpu_torch.matrix.convert import convert_matrix, is_banded
 from lis_tpu_torch.matrix.css import CSSMatrix
 from lis_tpu_torch.matrix.cst import CSTMatrix
@@ -94,17 +96,21 @@ def auto_storage(A, need_at: bool = True):
        whose SpMV streams the diagonals with no gather;
     2. quasi-banded (dominant diagonals cover >= 75 % of the nnz) → HDI,
        DIA plus a CSR remainder;
-    3. general sparsity → the CST lane-shuffle grid when its profile fits
-       (fill blowup <= 6 and remainder <= 2 % of the nnz, doubling Kp up
-       to 256 while the natural grid spills), with a transpose grid only
-       for solvers that apply Aᴴ every iteration (``need_at``);
+    3. general sparsity → two candidates weighed by an estimated rate:
+       BES dense sliding slabs (``multi_bes_from_csr`` under a 4 GiB slab
+       budget, accepted at fill blowup <= 256 and remainder <= 10 % of the
+       nnz; rate ``_BES_RATE`` / blowup) and the CST lane-shuffle grid
+       (fill blowup <= 6 and remainder <= 2 %, doubling Kp up to 256 while
+       the natural grid spills; rate ``_CST_RATE`` / blowup), CST only
+       where its rate beats BES's by ``_CST_MARGIN``, with a transpose
+       grid only for solvers that apply Aᴴ every iteration (``need_at``);
     4. else CSS when its profile fits (blowup <= 4, remainder <= 5 %);
     5. else A as it is.
 
-    lis_tpu weighs CST against BES (dense sliding slabs) at step 3 by an
-    estimated rate.  BES is not ported yet (ROADMAP.md queue 1 item 8), so
-    its candidate is absent (rate 0): where lis_tpu picks BES this router
-    picks CST, CSS or A itself.  The answers agree; the format does not.
+    lis_tpu catches every exception around the candidates; here only the
+    BES builder's own ``NothingCovers`` (an empty matrix) is caught, so a
+    failed allocation or kernel surfaces.  The BES candidate is built on
+    the host and moves to A's device only once it is chosen.
 
     The result is cached on the matrix object (``_auto_dia``), so repeated
     solves of one matrix skip the host analysis and the conversion; a
@@ -125,7 +131,7 @@ def auto_storage(A, need_at: bool = True):
         ptr, idx, val = A.to_csr_arrays()
         out = HybridMatrix.try_split(ptr, idx, val, A.shape, device=device)
         if out is None:
-            bes_rate = 0.0      # with BES: _BES_RATE / its fill blowup
+            bes, bes_rate = _bes_candidate(ptr, idx, val, A.shape)
             cst_rate, cst_kp = 0.0, None
             # Kp escalation: if the natural grid spills (band-concentrated
             # columns overflow the fine bucket grid), doubling Kp coarsens
@@ -143,6 +149,8 @@ def auto_storage(A, need_at: bool = True):
                 out = CSTMatrix.from_csr_arrays(ptr, idx, val, A.shape,
                                                 Kp=cst_kp, transpose=need_at,
                                                 device=device)
+            elif bes is not None:
+                out = bes.to(device)
         if out is None:
             blowup, rem_frac = CSSMatrix.profile(idx, A.shape[1])
             if blowup <= 4.0 and rem_frac <= 0.05:
@@ -152,6 +160,16 @@ def auto_storage(A, need_at: bool = True):
             out = False
     object.__setattr__(A, "_auto_dia", out)
     return out if out is not False else A
+
+
+def _bes_candidate(ptr, idx, val, shape):
+    """The router's BES candidate on the host and its estimated rate, or
+    (None, 0.0) where it covers too little (lis_tpu driver.py:124-136)."""
+    bes = fitting_multi_bes(ptr, idx, val, shape, 256, 0.1,
+                            max_bytes=4 << 30)
+    if bes is None:
+        return None, 0.0
+    return bes, _BES_RATE / max(bes.fill_blowup, 1.0)
 
 
 @dataclass
@@ -193,16 +211,24 @@ def _effective_scale(opts) -> int:
     """The scale mode solve() runs (lis_solve_kernel :613-721): CG+Jacobi
     upgrades -scale 1 to symmetric scaling (lis_solver.c:702-705), and
     -p is forces Jacobi scaling (scale 0 → 1; its truncated-U inverse
-    assumes a unit diagonal).  lis_tpu checks I+S before the block branch
-    of -scale 1 -storage bsr (``_is_bscale``), so -p is always scales by
-    the point diagonal; that branch comes with the BSR format (ROADMAP.md
-    queue 1 item 8b)."""
+    assumes a unit diagonal).  The block branch of -scale 1 -storage bsr
+    (``_is_bscale``) is checked before the CG upgrade, and stays block."""
     scale = opts.scale
+    if _is_bscale(opts):
+        return scale
     if scale == 1 and opts.solver == "cg" and opts.precon == "jacobi":
         scale = 2
     if opts.precon == "is" and scale == 0:
         scale = 1
     return scale
+
+
+def _is_bscale(opts) -> bool:
+    """True where the reference takes the block-Jacobi scaling path: an
+    explicit -scale 1 with -storage bsr (lis_solve_kernel :659-691).  Its
+    I+S branch comes first (:613), so -p is always scales by the point
+    diagonal."""
+    return opts.scale == 1 and opts.storage == 7 and opts.precon != "is"
 
 
 def _scale_operator(A, scale):
@@ -227,10 +253,44 @@ def _scale_operator(A, scale):
     return A.scale_symm(s), s
 
 
+def _bscale_operator(A, bs: int):
+    """Block-Jacobi scaling of ``-scale 1 -storage bsr`` (lis_tpu
+    driver.py:296-325; lis_solve_kernel :659-691 converts to BSR, inverts
+    the block diagonal and scales A <- D_b^-1 A, b <- D_b^-1 b).  Done on
+    the host CSR before the BSR conversion: left-scaling by the block
+    diagonal mixes only rows within a block, so it keeps the block
+    pattern.  Returns (A' as a CSR on A's device, binv (nb, bs, bs))."""
+    import scipy.sparse as sp
+    from lis_tpu_torch.matrix.csr import CSRMatrix
+    from lis_tpu_torch.precon.jacobi import _diag_blocks, inv_blocks
+    binv = inv_blocks(_diag_blocks(A, bs), singular="eye")
+    ptr, index, value = A.to_csr_arrays()
+    n, m = A.shape
+    nb = binv.shape[0]
+    a = sp.csr_matrix((value, index, ptr), shape=(n, m))
+    a.resize((nb * bs, m))
+    d = sp.bsr_matrix((binv, np.arange(nb), np.arange(nb + 1)),
+                      shape=(nb * bs, nb * bs))
+    scaled = (d @ a).tocsr()
+    scaled.resize((n, m))
+    scaled.sort_indices()
+    A2 = CSRMatrix.from_csr_arrays(scaled.indptr, scaled.indices,
+                                   scaled.data, (n, m), device=A.device)
+    return A2, torch.from_numpy(binv).to(A.device)
+
+
+def _block_matvec(binv, r):
+    """binv applied block by block to r (the batched product of block
+    Jacobi)."""
+    from lis_tpu_torch.precon.jacobi import BlockJacobiPrecon
+    return BlockJacobiPrecon(binv=binv, n=r.shape[0]).psolve(r)
+
+
 def _convert_storage(A, opts):
     if opts.storage:
+        kw = {"bnr": opts.storage_block} if opts.storage in (7, 8) else {}
         return convert_matrix(A, _STORAGE_BY_ID[opts.storage],
-                              device=A.device)
+                              device=A.device, **kw)
     if opts.auto_storage:
         # solvers applying A^H every iteration need the CST transpose
         # grid; everything else uses it at most once per solve and rides
@@ -245,7 +305,10 @@ def _convert_storage(A, opts):
 def transform_operator(A, opts):
     """The operator solve() hands the Krylov loop: effective scaling, then
     storage conversion or routing.  Its ``format_name`` is the route."""
-    A, _ = _scale_operator(A, _effective_scale(opts))
+    if _is_bscale(opts):
+        A, _ = _bscale_operator(A, opts.storage_block or 2)
+    else:
+        A, _ = _scale_operator(A, _effective_scale(opts))
     return _convert_storage(A, opts)
 
 
@@ -304,14 +367,20 @@ def solve(A: SparseMatrix, b, x0=None, options=None, M=None,
     # ---- scaling (lis_solve_kernel :613-721) ------------------------------
     scale = _effective_scale(opts)
     dscale = None
-    A, svec = _scale_operator(A, scale)
-    if scale == 1:
-        b = svec * b
-    elif scale == 2:
-        dscale = svec
-        b = svec * b
-        if not opts.initx_zeros:
-            x0 = x0 / dscale
+    if _is_bscale(opts):
+        # block-Jacobi scaling (lis_solve_kernel :659-691): A <- D_b^-1 A,
+        # b <- D_b^-1 b with D_b the block diagonal; x is unchanged
+        A, binv = _bscale_operator(A, opts.storage_block or 2)
+        b = _block_matvec(binv, b)
+    else:
+        A, svec = _scale_operator(A, scale)
+        if scale == 1:
+            b = svec * b
+        elif scale == 2:
+            dscale = svec
+            b = svec * b
+            if not opts.initx_zeros:
+                x0 = x0 / dscale
 
     # ---- storage conversion (-storage N) ----------------------------------
     A = _convert_storage(A, opts)

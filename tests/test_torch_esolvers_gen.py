@@ -92,14 +92,15 @@ def test_estorage_converts_both_matrices():
 
 
 @pytest.mark.parametrize("sid", [7, 8])
-def test_estorage_block_formats_name_their_item(sid):
-    """-estorage 7 / 8 (BSR, BSC): lis_tpu converts; the port raises with
-    ROADMAP.md item 8b's message (the block formats)."""
+def test_estorage_block_formats_match_lis_tpu(sid):
+    """-estorage 7 / 8 (BSR, BSC) convert A and B in both packages and
+    give lis_tpu's pair."""
     JA, TA, a, JB, TB, b, w = pencil()
-    assert lis_tpu.gesolve(JA, JB, options=f"-e gii -estorage {sid} "
-                           "-etol 1e-8").status == lis_tpu.LIS_SUCCESS
-    with pytest.raises(NotImplementedError, match="item 8b"):
-        lis_tpu_torch.gesolve(TA, TB, options=f"-e gii -estorage {sid}")
+    opts = f"-e gii -estorage {sid} -etol 1e-8"
+    rj, rt = run_both(opts, JA, TA, JB, TB)
+    assert rt.status == lis_tpu_torch.LIS_SUCCESS
+    assert_same(rj, rt, a, b)
+    assert abs(rt.evalue - w[0]) <= 1e-8 * w[0]
 
 
 def test_unknown_esolver_raises():

@@ -1542,3 +1542,140 @@ def test_esolve_on_a_card_dia(cuda, opts):
         assert e > got.iters and g1 > got.iters and f == 0
     else:
         assert e > 0 and f > 0
+
+
+def _bes_case(shape, seed):
+    """(slab, c0, s, nrows, ncols) of a random BES: square (s = R) or
+    strided (a rectangular prolongator, s < R), with rows past nrows."""
+    rng = np.random.default_rng(seed)
+    if shape == "square":
+        nrows = ncols = 5000
+        s, W, c0 = 128, 384, -100
+    else:
+        nrows, ncols = 6001, 700
+        s, W, c0 = 15, 45, -10
+    T = -(-nrows // 128)
+    slab = torch.from_numpy(rng.standard_normal((T, W, 128)))
+    return slab, c0, s, nrows, ncols
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,xdtype", [
+    (torch.float32, torch.float32), (torch.float64, torch.float64),
+    (torch.complex128, torch.complex128), (torch.float64, torch.complex128),
+    (torch.complex64, torch.complex64)],
+    ids=["f32", "f64", "c128", "f64-x-c128", "c64"])
+@pytest.mark.parametrize("shape", ["square", "strided"])
+def test_bes_kernels_match_their_plain_versions(cuda, dtype, xdtype, shape):
+    """Kernels Q (bes_spmv) and R (bes_spmvh) against their plain versions
+    to rtol 1e-13 (f64, complex128) / 1e-5 (f32); a complex x on a real
+    slab keeps its imaginary part; one launch counted per call."""
+    from lis_tpu_torch.matrix import bes
+    slab, c0, s, nrows, ncols = _bes_case(shape, 3)
+    if dtype.is_complex:
+        slab = torch.complex(slab, slab.flip(0)).to(dtype)
+    else:
+        slab = slab.to(dtype)
+    rng = np.random.default_rng(4)
+    x = torch.from_numpy(rng.standard_normal(2 * ncols))
+    y = torch.from_numpy(rng.standard_normal(2 * nrows))
+    if xdtype.is_complex:
+        x, y = torch.complex(x[:ncols], x[ncols:]), \
+            torch.complex(y[:nrows], y[nrows:])
+    else:
+        x, y = x[:ncols], y[:nrows]
+    x, y = x.to(xdtype), y.to(xdtype)
+    rtol = 1e-5 if torch.float32 in (dtype, xdtype) or \
+        torch.complex64 in (dtype, xdtype) else 1e-13
+    sc = slab.to(cuda)
+    for fn, v, plain in ((bes.bes_spmv, x, bes._spmv_plain),
+                         (bes.bes_spmvh, y, bes._spmvh_plain)):
+        before = fn.launches
+        got = fn(sc, v.to(cuda), c0, s, nrows, ncols)
+        assert fn.launches == before + 1
+        want = plain(slab, v, c0, s, nrows, ncols)
+        oracle = plain(sc, v.to(cuda), c0, s, nrows, ncols)
+        assert fn.launches == before + 1
+        assert got.dtype == want.dtype == torch.promote_types(dtype, xdtype)
+        for w in (want, oracle.cpu()):
+            err = (got.cpu() - w).abs().max().item()
+            assert err <= rtol * w.abs().max().item(), err
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("opts", ["-i cg -p jacobi", "-i bicg -p jacobi",
+                                  "-i bicgstab -p jacobi -f df",
+                                  "-i cg -p jacobi -f quad"])
+def test_bes_route_on_the_card(cuda, opts):
+    """A windowed matrix routes to BES on the card as on the CPU; the solve
+    launches Q (and R for bicg) and matches the CPU's count ±1, x to
+    1e-8; -f quad takes the ELL pair (N), -f df the slab path (Q)."""
+    from lis_tpu_torch.core import ddreal as dq
+    from lis_tpu_torch.matrix import bes
+    from lis_tpu_torch.solvers.driver import transform_operator
+    from lis_tpu_torch.runtime.options import SolverOptions
+    n = 1 << 15
+    rng = np.random.default_rng(0)
+    rows = np.repeat(np.arange(n), 6)
+    cols = np.clip(rows + rng.integers(-40, 40, 6 * n), 0, n - 1)
+    a = sp.coo_matrix((rng.standard_normal(6 * n), (rows, cols)),
+                      shape=(n, n)).tocsr()
+    a = (a + a.T + 30 * sp.eye(n)).tocsr()
+    a.sort_indices()
+    args = (a.indptr, a.indices, a.data, a.shape)
+    A = lis_tpu_torch.CSRMatrix.from_csr_arrays(*args)
+    A_cpu = lis_tpu_torch.CSRMatrix.from_csr_arrays(*args, device="cpu")
+    opts += " -tol 1e-10"
+    assert transform_operator(A, SolverOptions.from_string(opts)) \
+        .format_name == "bes"
+    b = np.ones(n)
+    want = lis_tpu_torch.solve(A_cpu, b, options=opts)
+    q0, r0, n0 = bes.bes_spmv.launches, bes.bes_spmvh.launches, \
+        dq.dd_ell_spmv.launches
+    got = lis_tpu_torch.solve(A, b, options=opts)
+    q, r, nn = (bes.bes_spmv.launches - q0, bes.bes_spmvh.launches - r0,
+                dq.dd_ell_spmv.launches - n0)
+    assert got.status == want.status == 0
+    assert abs(got.iters - want.iters) <= 1
+    np.testing.assert_allclose(got.x.cpu().numpy(), want.x.numpy(),
+                               rtol=1e-8, atol=1e-8)
+    if "quad" in opts:
+        assert q == 0 and nn >= got.iters
+    else:
+        assert q >= got.iters
+        assert (r >= got.iters) == ("bicg " in opts + " ")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("fmt", ["bsr", "bsc", "vbr"])
+def test_block_formats_on_the_card(cuda, fmt):
+    """The block formats' torch products on the card against the CPU's
+    (rtol 1e-13), and block ILU (K twice a psolve) against the CPU's."""
+    from lis_tpu_torch.ops import trisolve as tsm
+    from lis_tpu_torch.precon.ilu import create_iluk
+    from lis_tpu_torch.runtime.options import SolverOptions
+    g = 24
+    t = sp.diags([-np.ones(g - 1), 2 * np.ones(g), -np.ones(g - 1)],
+                 [-1, 0, 1])
+    p2 = sp.kron(t, sp.eye(g)) + sp.kron(sp.eye(g), t)
+    blk = np.array([[4.0, 1.0, 0.5], [1.0, 3.0, 0.25], [0.5, 0.25, 2.0]])
+    a = sp.kron(p2, blk).tocsr()
+    a.sort_indices()
+    args = (a.indptr, a.indices, a.data, a.shape)
+    kw = {} if fmt == "vbr" else {"bnr": 3}
+    C = lis_tpu_torch.CSRMatrix.from_csr_arrays(*args, device="cpu")
+    M_cpu = lis_tpu_torch.convert_matrix(C, fmt, device="cpu", **kw)
+    M = lis_tpu_torch.convert_matrix(C, fmt, device=cuda, **kw)
+    x = torch.from_numpy(np.random.default_rng(1).standard_normal(a.shape[0]))
+    for meth in ("matvec", "matvech"):
+        got = getattr(M, meth)(x.to(cuda)).cpu()
+        want = getattr(M_cpu, meth)(x)
+        assert (got - want).abs().max() <= 1e-13 * want.abs().max()
+    if fmt != "bsc":
+        opts = SolverOptions.from_string("-ilu_fill 0")
+        P, P_cpu = create_iluk(M, opts), create_iluk(M_cpu, opts)
+        k0 = tsm.trisolve.launches
+        got = P.psolve(x.to(cuda)).cpu()
+        assert tsm.trisolve.launches - k0 == 2
+        want = P_cpu.psolve(x)
+        assert (got - want).abs().max() <= 1e-12 * want.abs().max()

@@ -1,7 +1,6 @@
 """The port's auto_storage against lis_tpu's: the same matrix must take
-the same route (the format of the operator that is iterated), except where
-lis_tpu picks BES, which the port does not have yet: there the port picks
-CST, CSS or the matrix itself, and the answers must still agree.
+the same route (the format of the operator that is iterated), BES
+included, and the routed solves must give lis_tpu's answers.
 """
 
 import numpy as np
@@ -41,9 +40,9 @@ CASES = {
     "windowed_css": (lambda: windowed(1 << 15, 2000, symmetric=False),
                      "css", "css"),
     "power_law": (power_law, "csr", "csr"),
-    # lis_tpu picks BES; the port has no BES candidate yet
-    "bes_small": (lambda: windowed(4000, 30), "bes", "css"),
-    "bes_large": (lambda: windowed(1 << 15, 40), "bes", "cst"),
+    # general banded sparsity: dense sliding slabs
+    "bes_small": (lambda: windowed(4000, 30), "bes", "bes"),
+    "bes_large": (lambda: windowed(1 << 15, 40), "bes", "bes"),
 }
 
 _BUILT = {}
@@ -78,11 +77,14 @@ def test_route_matches_lis_tpu(name):
 
 @pytest.mark.parametrize("name", ["bes_small", "bes_large"])
 def test_bes_difference_gives_equal_answers(name):
-    """Where lis_tpu iterates on BES the port iterates on another format:
-    same status and iteration count, x to rtol 1e-9."""
+    """Where lis_tpu iterates on BES the port iterates on BES too, with the
+    same window: same status and iteration count, x to rtol 1e-9."""
     a, J, T = pair(name)
     b = np.random.default_rng(2).standard_normal(a.shape[0])
     opts = "-i cg -p jacobi -tol 1e-10"
+    Jr = jtransform(J, lis_tpu.SolverOptions.from_string(opts))
+    Tr = transform_operator(T, TOptions.from_string(opts))
+    assert (Tr.W, Tr.c0, Tr.s) == (Jr.W, Jr.c0, Jr.s)
     rj, rt = lis_tpu.solve(J, b, options=opts), \
         lis_tpu_torch.solve(T, b, options=opts)
     assert rj.status == rt.status == lis_tpu.LIS_SUCCESS

@@ -85,16 +85,19 @@ def test_solve_matches_lis_tpu(grid, storage, solver, precon):
     assert_same(rj, rt, rtol=1e-9)
 
 
-@pytest.mark.parametrize("opts,match", [
-    ("-i cg -storage bes", "queue 1 item 8c"),
-    ("-i cg -storage bsr", "queue 1 item 8b"),
-    ("-i cg -storage bsc", "queue 1 item 8b"),
-    ("-i cg -storage vbr", "queue 1 item 8b"),
+@pytest.mark.parametrize("opts", [
+    "-i cg -storage bes",
+    "-i cg -storage bsr",
+    "-i cg -storage bsc",
+    "-i cg -storage vbr",
 ])
-def test_not_ported_paths_raise(opts, match):
-    a, J, T, b = system(1 << 15, 5)
-    with pytest.raises(NotImplementedError, match=match):
-        lis_tpu_torch.solve(T, b, options=opts)
+def test_formerly_unported_storage_matches_lis_tpu(opts):
+    """The option strings that raised before the block formats and BES
+    were ported now give lis_tpu's answer (n = 2^11: a locality-free BES
+    takes a slab of W = 4096 columns per block of rows)."""
+    rj, rt = both(1 << 11, 5, opts)
+    assert rj.status == lis_tpu.LIS_SUCCESS
+    assert_same(rj, rt, rtol=1e-9)
 
 
 @pytest.mark.parametrize("opts", [
