@@ -248,12 +248,15 @@ Phases (one or more lines each):
 15. BES and the block formats (``phase bes:`` lines): (a) the symmetric
    windowed(2^20, 40) (tests/test_torch_route.py's, seed --seed; 12.7 M
    nonzeros), which the router sends to BES (W = 256, a 2 GiB f64 slab):
-   kernels Q (bes_spmv) and R (bes_spmvh) against their plain versions to
-   rtol 1e-13 (f64, a complex128 x on the real slab, a complex128 slab) and
-   1e-5 (f32), timed beside the plain version, ``torch.sparse`` CSR @ x on
-   the same operator, the port's CSR gather and the bound (T·W·R + T·s +
-   W + n elements); Q and R on a strided 2^20 x 2^17 slab (stride 16) and
-   a multi-BES of at least three parts (one launch a part); (b) with no
+   kernels Q (bes_spmv) and R (bes_spmvh), over the slab's compact form,
+   against their plain versions over the dense slab to rtol 1e-13 (f64, a
+   complex128 x on the real slab, a complex128 slab) and 1e-5 (f32), timed
+   at f64 and f32 beside the plain version, ``torch.sparse`` CSR @ x on
+   the same operator, the port's CSR gather and the need-based bound (the
+   nonzeros' values and offsets, x and y once; the dense slab's T·W·R +
+   T·s + W + n elements printed beside it), with the compact form's bytes;
+   Q and R on a strided 2^20 x 2^17 slab (stride 16) and a multi-BES of at
+   least three parts (one launch a part); (b) with no
    -storage: CG + Jacobi -tol 1e-10 (route bes, SUCCESS, true residual
    <= 1e-9, Q exactly iters + 1 times, the count of the same solve over
    the plain versions of Q and R on the card exactly), beside -storage
@@ -3591,8 +3594,8 @@ def phase_bes(S):
         fails if a kernel launches meanwhile."""
         q, r = besm.bes_spmv, besm.bes_spmvh
         before = (q.launches, r.launches)
-        besm.bes_spmv = lambda sl, x, *a: besm._spmv_plain(sl, x, *a)
-        besm.bes_spmvh = lambda sl, x, *a: besm._spmvh_plain(sl, x, *a)
+        besm.bes_spmv = lambda sl, pk, x, *a: besm._spmv_plain(sl, x, *a)
+        besm.bes_spmvh = lambda sl, pk, x, *a: besm._spmvh_plain(sl, x, *a)
         try:
             yield
         finally:
@@ -3629,21 +3632,30 @@ def phase_bes(S):
         fail(f"windowed(2^20, 40): routed to {B.format_name}, not bes")
     T, W, R = B.slab.shape
     s, c0 = B.s, B.c0
+    nnz_slab = int((B.slab != 0).sum())
     tag(f"windowed(2^20, 40) (test_torch_route.windowed, seed {S.seed}): "
         f"n={n} nnz={a.nnz}, made in {t_make:.2f} s; routed to bes in "
         f"{t_route:.2f} s: W={W} c0={c0} T={T} stride={s}, fill blowup "
         f"{B.fill_blowup:.2f}, slab {B.slab.numel() * 8 / 2**30:.2f} GiB, "
-        f"remainder {0 if B.rem is None else B.rem.nnz} entries")
-    crow = torch.from_numpy(a.indptr.astype(np.int64)).to(dev)
-    col = torch.from_numpy(a.indices.astype(np.int64)).to(dev)
-    Asp = torch.sparse_csr_tensor(crow, col, torch.from_numpy(a.data).to(
-        dev), a.shape)
-    at = a.T.tocsr()
-    at.sort_indices()
-    ATsp = torch.sparse_csr_tensor(
-        torch.from_numpy(at.indptr.astype(np.int64)).to(dev),
-        torch.from_numpy(at.indices.astype(np.int64)).to(dev),
-        torch.from_numpy(at.data).to(dev), a.shape)
+        f"compact form {B.pack.nbytes() / 2**30:.3f} GiB (Q's lists "
+        f"{B.pack.qval.numel()} slots, R's {B.pack.hval.numel()}, for "
+        f"{nnz_slab} nonzeros), remainder "
+        f"{0 if B.rem is None else B.rem.nnz} entries")
+    t0 = time.perf_counter()
+    besm.bes_pack(B.slab)
+    torch.cuda.synchronize()
+    tag(f"deriving the compact form on the card: "
+        f"{time.perf_counter() - t0:.3f} s")
+
+    def library_csr(m, dtype):
+        m = m.tocsr()
+        m.sort_indices()
+        return torch.sparse_csr_tensor(
+            torch.from_numpy(m.indptr.astype(np.int64)).to(dev),
+            torch.from_numpy(m.indices.astype(np.int64)).to(dev),
+            torch.from_numpy(m.data).to(dev, dtype), m.shape)
+
+    Asp, ATsp = library_csr(a, f64), library_csr(a.T, f64)
     x = S.randn(n, f64)
     xs = x[:, None]
     for got, want in ((torch.sparse.mm(Asp, xs)[:, 0],
@@ -3654,46 +3666,68 @@ def phase_bes(S):
         if lerr > 1e-12:
             fail(f"the library CSR disagrees with the plain BES by {lerr:.2e}")
 
-    def q_r(slab, xq, tag_, rtol, timed):
-        e = slab.element_size()
+    def q_r(slab, pack, xq, tag_, rtol, timed):
         if timed:
-            # the library call on the f64 operator (none at f32)
-            f64_ = slab.dtype == f64
-            nb = (T * W * R + T * s + W + n) * e
-            tq = (lambda: besm.bes_spmv(slab, xq, c0, s, n, n),
+            # bound: what these inputs need (the nonzeros' values and
+            # window / row offsets, x and y once), beside the dense slab's
+            e = slab.element_size()
+            need = nnz_slab * (e + pack.qoff.element_size()) + 2 * n * e
+            dense = (T * W * R + T * s + W + n) * e
+            lib, libt = (Asp, ATsp) if slab.dtype == f64 else \
+                (library_csr(a, slab.dtype), library_csr(a.T, slab.dtype))
+            xl = xq[:, None]
+            tq = (lambda: besm.bes_spmv(slab, pack, xq, c0, s, n, n),
                   lambda: besm._spmv_plain(slab, xq, c0, s, n, n),
-                  (lambda: torch.sparse.mm(Asp, xs)) if f64_ else None, nb,
-                  2 * T * W * R)
-            tr = (lambda: besm.bes_spmvh(slab, xq, c0, s, n, n),
+                  lambda: torch.sparse.mm(lib, xl), need, 2 * nnz_slab)
+            tr = (lambda: besm.bes_spmvh(slab, pack, xq, c0, s, n, n),
                   lambda: besm._spmvh_plain(slab, xq, c0, s, n, n),
-                  (lambda: torch.sparse.mm(ATsp, xs)) if f64_ else None, nb,
-                  2 * T * W * R)
+                  lambda: torch.sparse.mm(libt, xl),
+                  nnz_slab * (e + pack.hoff.element_size()) + 2 * n * e,
+                  2 * nnz_slab)
         # timed from the device's queue, and as the host enqueues each
         # call (the record's host_ms)
-        S.check("bes_spmv", slab.dtype, tag_,
-                besm.bes_spmv(slab, xq, c0, s, n, n),
-                besm._spmv_plain(slab, xq, c0, s, n, n), False,
-                tq if timed else None, rtol=rtol, queued=timed)
-        S.check("bes_spmvh", slab.dtype, tag_,
-                besm.bes_spmvh(slab, xq, c0, s, n, n),
-                besm._spmvh_plain(slab, xq, c0, s, n, n), False,
-                tr if timed else None, rtol=rtol, queued=timed)
+        for name, fn, plain, tm in (
+                ("bes_spmv", besm.bes_spmv, besm._spmv_plain,
+                 tq if timed else None),
+                ("bes_spmvh", besm.bes_spmvh, besm._spmvh_plain,
+                 tr if timed else None)):
+            S.check(name, slab.dtype, tag_, fn(slab, pack, xq, c0, s, n, n),
+                    plain(slab, xq, c0, s, n, n), False, tm, rtol=rtol,
+                    queued=timed)
+            if timed:
+                rec = (S.results if slab.dtype == f64 else
+                       S.results32)[name]
+                rec["slab_bound_ms"] = bound_ms(dense, 2 * T * W * R,
+                                                slab.dtype)[0]
+                rec["compact_bytes"] = pack.nbytes()
+                share = 100 / rec["ms"]
+                tag(f"{name} {str(slab.dtype)[6:]}: need-based bound "
+                    f"{rec['bound_ms']:.4f} ms "
+                    f"({share * rec['bound_ms']:.0f} %), dense-slab bound "
+                    f"{rec['slab_bound_ms']:.4f} ms "
+                    f"({share * rec['slab_bound_ms']:.0f} %), compact form "
+                    f"{pack.nbytes()} B")
 
     shape = f"T={T} W={W} R={R}"
-    q_r(B.slab, x, shape, 1e-13, True)
-    gather = cuda_ms(lambda: A.matvec(x))
-    gather_h = cuda_ms(lambda: A.matvech(x))
-    for name in ("bes_spmv", "bes_spmvh"):
-        S.results[name]["csr_gather_ms"] = gather if name == "bes_spmv" \
-            else gather_h
-    tag(f"the port's CSR gather on the same operator: matvec {gather:.4f} "
-        f"ms, matvech {gather_h:.4f} ms")
-    q_r(B.slab, S.randn(n, c128), shape + " x complex128", 1e-13, False)
-    s32 = B.slab.to(torch.float32)
-    q_r(s32, x.to(torch.float32), shape, 1e-5, True)
-    del s32
+    q_r(B.slab, B.pack, x, shape, 1e-13, True)
+    q_r(B.slab, B.pack, S.randn(n, c128), shape + " x complex128", 1e-13,
+        False)
+    B32 = B.to(dtype=torch.float32)
+    x32 = x.to(torch.float32)
+    q_r(B32.slab, B32.pack, x32, shape, 1e-5, True)
+    del B32
+    A32 = A.to(dtype=torch.float32)
+    for res, Ax, xv in ((S.results, A, x), (S.results32, A32, x32)):
+        gather = cuda_ms(lambda: Ax.matvec(xv))
+        gather_h = cuda_ms(lambda: Ax.matvech(xv))
+        res["bes_spmv"]["csr_gather_ms"] = gather
+        res["bes_spmvh"]["csr_gather_ms"] = gather_h
+        tag(f"the port's CSR gather on the same operator, "
+            f"{str(xv.dtype)[6:]}: matvec {gather:.4f} ms, matvech "
+            f"{gather_h:.4f} ms")
+    del A32
     sc = B.slab.to(c128) * (1 - 0.5j)
-    q_r(sc, S.randn(n, c128), shape, 1e-13, False)
+    q_r(sc, besm.bes_pack(sc), S.randn(n, c128), shape, 1e-13, False)
     del sc
     torch.cuda.empty_cache()
 
@@ -3714,7 +3748,7 @@ def phase_bes(S):
                                (besm.bes_spmvh, besm._spmvh_plain, r_, "R")):
         S.check(f"bes_spmv{'h' if what == 'R' else ''}", f64,
                 f"strided s={P.s} W={P.W}",
-                fn(P.slab, v, P.c0, P.s, n, nc),
+                fn(P.slab, P.pack, v, P.c0, P.s, n, nc),
                 plain(P.slab, v, P.c0, P.s, n, nc), False, rtol=1e-13)
     del P, p, ec, r_
 
@@ -3880,7 +3914,7 @@ def phase_bes(S):
     with plain_bes():
         zo = M.psolve(rv)
     err = ((z - zo).abs().max() / zo.abs().max()).item()
-    if err > 1e-12:
+    if err > 1e-13:
         fail(f"graph saamg psolve off its plain-BES version by {err:.2e}")
     r, got, wall, per = solve(D64, np.ones(D64.nrows), opts, M=M)
     ok("graph saamg 64^3", r, 1e-9)

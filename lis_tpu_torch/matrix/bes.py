@@ -17,10 +17,14 @@ remainder):
 lis_tpu has no Pallas kernel here (XLA fuses its loops), so on a CUDA
 tensor ``matvec`` is kernel Q (``bes_spmv``) and ``matvech`` kernel R
 (``bes_spmvh``), hand-written in ``csrc/bes.cu``; on a CPU tensor each
-takes its plain version below, in lis_tpu's order of summation.  Unlike
-lis_tpu's matvec (bes.py:185-186), which casts x to the slab's type and
-so drops a complex x's imaginary part on a real slab, both promote x to
-the result type.
+takes its plain version below, in lis_tpu's order of summation over the
+dense slab.  The kernels read the slab's nonzeros from its compact form
+(``BESPack``, derived by ``bes_pack`` from the slab where the matrix
+lands: ``BESMatrix.to`` derives it, scaling derives it again), not the
+mostly-zero slab, which stays the format's array.  Unlike lis_tpu's
+matvec (bes.py:185-186), which casts x to the slab's type and so drops a
+complex x's imaginary part on a real slab, both promote x to the result
+type.
 
 ``MultiBESMatrix`` (format name ``mbes``) sums a few BES slabs of one
 stride at different intercepts: the few affine bands of a 3-D stencil or
@@ -36,8 +40,8 @@ import numpy as np
 import torch
 
 from lis_tpu_torch.config import resolve_device
-from lis_tpu_torch.matrix.base import (SparseMatrix, conj, host,
-                                       matrix_format, static)
+from lis_tpu_torch.matrix.base import (SparseMatrix, TensorFields, conj,
+                                       host, matrix_format, static)
 from lis_tpu_torch.matrix.csr import CSRMatrix, csr_scaled
 from lis_tpu_torch.matrix.dia import _kernel_operands
 from lis_tpu_torch.ops import _cuda
@@ -97,22 +101,136 @@ def _spmvh_plain(slab, x, c0: int, s: int, nrows: int, ncols: int):
     return y[lo: lo + ncols]
 
 
-def _launch(name, fn, slab, x, c0, s, nrows, ncols, out_len, work_len):
-    slab, x = _kernel_operands(slab, x)
+# ---- the compact form ------------------------------------------------------
+
+W_MAX_COMPACT = 32767       # 16-bit window offsets and list lengths
+SLICE = 32                  # lists a slice: one warp's rows or columns
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class BESPack(TensorFields):
+    """The (T, W, R) slab's nonzeros as lists, in the layout kernels Q and
+    R read (``csrc/bes.cu``): sliced ELL, the lists of a tile cut in
+    slices of ``SLICE`` (a warp's), each slice a column-major block as
+    wide as its longest list.  With g = t·⌈A/32⌉ + a // 32 the slice of
+    list a of tile t, the list's k-th entry lies at ``ptr[g] + 32·k +
+    a % 32``:
+
+    - Q's lists (A = R): row r's nonzero slots in increasing w, value
+      ``qval`` and window offset ``qoff`` (uint8 where W ≤ 256, else
+      int16), the row's length ``qlen[t·R + r]``;
+    - R's lists (A = W): window column w's nonzero rows in increasing r,
+      value ``hval`` and row offset ``hoff`` (uint8 where R ≤ 256, else
+      int16), the column's length ``hlen[t·W + w]``.
+
+    Exact zeros are left out; a pad (past a list's length) holds 0 at
+    offset 0 and is never read.  The arrays are checked once, when a pack
+    is made (``bes_pack``, a move, a cast)."""
+    qval: torch.Tensor
+    qoff: torch.Tensor
+    qlen: torch.Tensor        # (T·R,) int16
+    qptr: torch.Tensor        # (T·⌈R/32⌉ + 1,) int64
+    hval: torch.Tensor
+    hoff: torch.Tensor
+    hlen: torch.Tensor        # (T·W,) int16
+    hptr: torch.Tensor        # (T·⌈W/32⌉ + 1,) int64
+    T: int = static()
+    W: int = static()
+    R: int = static()
+
+    def __post_init__(self):
+        arrays = [getattr(self, f.name) for f in dataclasses.fields(self)
+                  if not f.metadata.get("static")]
+        if len({a.device for a in arrays}) != 1 or \
+                not all(a.is_contiguous() for a in arrays):
+            raise ValueError("BESPack: arrays must be contiguous, on one "
+                             "device")
+        want = {"qoff": _offset_dtype(self.W), "hoff": _offset_dtype(self.R),
+                "qlen": torch.int16, "hlen": torch.int16,
+                "qptr": torch.int64, "hptr": torch.int64,
+                "hval": self.qval.dtype}
+        for name, dt in want.items():
+            if getattr(self, name).dtype != dt:
+                raise ValueError(f"BESPack: {name} is "
+                                 f"{getattr(self, name).dtype}, expected {dt}")
+        T, W, R = self.T, self.W, self.R
+        if (self.qlen.numel(), self.hlen.numel(), self.qptr.numel(),
+                self.hptr.numel()) != (T * R, T * W, T * _slices(R) + 1,
+                                       T * _slices(W) + 1) or \
+                self.qval.numel() != self.qoff.numel() or \
+                self.hval.numel() != self.hoff.numel():
+            raise ValueError("BESPack: array sizes do not match "
+                             f"(T, W, R) = {(T, W, R)}")
+
+    def nbytes(self) -> int:
+        return sum(getattr(self, f.name).nbytes
+                   for f in dataclasses.fields(self)
+                   if not f.metadata.get("static"))
+
+
+def _offset_dtype(extent: int):
+    return torch.uint8 if extent <= 256 else torch.int16
+
+
+def _slices(extent: int) -> int:
+    return -(-extent // SLICE)
+
+
+def _lists(v, mask):
+    """The lists of the (T, A, B) view ``v`` along its last axis, sliced
+    (``BESPack``): (values, B offsets, lengths (T·A,), ptr)."""
+    T, A, B = v.shape
+    t, a, b = mask.nonzero(as_tuple=True)       # each list in increasing b
+    key = t * A + a
+    lens = torch.bincount(key, minlength=T * A)
+    k = torch.arange(len(key), device=v.device) - (lens.cumsum(0) - lens)[key]
+    ns = _slices(A)
+    padded = lens.new_zeros(T, ns * SLICE)
+    padded[:, :A] = lens.view(T, A)
+    ptr = torch.zeros(T * ns + 1, dtype=torch.int64, device=v.device)
+    ptr[1:] = torch.cumsum(padded.view(T * ns, SLICE).amax(dim=1) * SLICE, 0)
+    pos = ptr[t * ns + a // SLICE] + k * SLICE + a % SLICE
+    n = int(ptr[-1])
+    val = v.new_zeros(n)
+    val[pos] = v[t, a, b]
+    off = torch.zeros(n, dtype=_offset_dtype(B), device=v.device)
+    off[pos] = b.to(off.dtype)
+    return val, off, lens.to(torch.int16), ptr
+
+
+def bes_pack(slab: torch.Tensor) -> BESPack:
+    """The compact form of a (T, W, R) slab, on the slab's device, by torch
+    operations over the slab (no host pass)."""
     T, W, R = slab.shape
-    _cuda.check(slab, "slab", numel=T * W * R, aligned=False)
+    if W > W_MAX_COMPACT:
+        raise ValueError(f"bes_pack: W = {W} is above {W_MAX_COMPACT}, "
+                         f"the widest window the kernels take")
+    nz = slab != 0
+    qval, qoff, qlen, qptr = _lists(slab.transpose(1, 2), nz.transpose(1, 2))
+    hval, hoff, hlen, hptr = _lists(slab, nz)
+    return BESPack(qval=qval, qoff=qoff, qlen=qlen, qptr=qptr, hval=hval,
+                   hoff=hoff, hlen=hlen, hptr=hptr, T=T, W=W, R=R)
+
+
+# ---- kernels Q and R over the compact form ------------------------------
+
+def _launch(name, fn, val, off, lens, ptr, x, shape, c0, s, nrows, ncols,
+            out_len, work_len):
+    val, x = _kernel_operands(val, x)
+    T, W, R = shape
     _cuda.check(x, "x", aligned=False)
     y = torch.empty(out_len, dtype=x.dtype, device=x.device)
     work = torch.empty(work_len, dtype=x.dtype, device=x.device)
-    _cuda.launch(name, _cuda.DTYPE_CODE[slab.dtype],
-                 _cuda.DTYPE_CODE[x.dtype], slab.data_ptr(), x.data_ptr(),
-                 y.data_ptr(), work.data_ptr(), T, W, R, s, c0, nrows, ncols,
-                 _cuda.stream())
+    _cuda.launch(name, _cuda.DTYPE_CODE[val.dtype], _cuda.DTYPE_CODE[x.dtype],
+                 0 if off.dtype == torch.uint8 else 1, val.data_ptr(),
+                 off.data_ptr(), lens.data_ptr(), ptr.data_ptr(),
+                 x.data_ptr(), y.data_ptr(), work.data_ptr(), T, W, R, s, c0,
+                 nrows, ncols, _cuda.stream())
     fn.launches += 1
     return y
 
 
-def _checked(name, slab, x, want, s):
+def _checked(name, slab, pack, x, want, s):
     if slab.dim() != 3:
         raise ValueError(f"{name}: slab must be (T, W, R)")
     if x.shape != (want,):
@@ -121,42 +239,52 @@ def _checked(name, slab, x, want, s):
     if s < 1:
         raise ValueError(f"{name}: the stride must be positive")
     if x.is_cuda:
+        if pack is None or (pack.T, pack.W, pack.R) != tuple(slab.shape) \
+                or pack.qval.dtype != slab.dtype \
+                or pack.qval.device != x.device:
+            raise ValueError(f"{name}: the slab has no compact form on "
+                             f"{x.device} that matches it (bes_pack)")
         return True
     if x.device.type != "cpu":
         raise ValueError(f"no kernel or plain path for {x.device}")
     return False
 
 
-def bes_spmv(slab: torch.Tensor, x: torch.Tensor, c0: int, s: int,
+def bes_spmv(slab: torch.Tensor, pack, x: torch.Tensor, c0: int, s: int,
              nrows: int, ncols: int) -> torch.Tensor:
     """``y[t·R + r] = Σ_{w<W} slab[t, w, r] · x[t·s + c0 + w]`` for the
     (T, W, R) slab, x taken as 0 outside [0, ncols), rows past ``nrows``
     dropped; x is promoted to the result type.
 
-    Kernel Q.  lis_tpu leaves this to XLA (matrix/bes.py:184-191).  Bound
-    on the H100: bytes — the slab read once, T·W·R elements, beside
-    T·s + W of x and nrows of y."""
-    if not _checked("bes_spmv", slab, x, ncols, s):
+    Kernel Q, over ``pack`` (the slab's ``BESPack``): x's window in shared
+    memory, each row's nonzeros in increasing w.  lis_tpu leaves this to
+    XLA (matrix/bes.py:184-191).  Bound on the H100: bytes — the nonzeros'
+    values and offsets, x and y.  On a CPU tensor the plain version over
+    the dense slab."""
+    if not _checked("bes_spmv", slab, pack, x, ncols, s):
         return _spmv_plain(slab, x, c0, s, nrows, ncols)
-    return _launch("lis_bes_spmv", bes_spmv, slab, x, c0, s, nrows, ncols,
-                   nrows, 0)
+    return _launch("lis_bes_spmv", bes_spmv, pack.qval, pack.qoff, pack.qlen,
+                   pack.qptr, x, slab.shape, c0, s, nrows, ncols, nrows, 0)
 
 
 bes_spmv.launches = 0
 
 
-def bes_spmvh(slab: torch.Tensor, x: torch.Tensor, c0: int, s: int,
+def bes_spmvh(slab: torch.Tensor, pack, x: torch.Tensor, c0: int, s: int,
               nrows: int, ncols: int) -> torch.Tensor:
     """``y[j] = Σ_{t,w : t·s + c0 + w = j} Σ_r conj(slab[t, w, r]) ·
     x[t·R + r]`` for j < ncols (x is 0 past ``nrows``).
 
-    Kernel R: two launches, the windows ``win[t, w]`` and their
-    deterministic overlap-add, counted as one.  lis_tpu leaves this to
-    XLA (matrix/bes.py:193-212).  Bound on the H100: bytes, as for Q."""
-    if not _checked("bes_spmvh", slab, x, nrows, s):
+    Kernel R, over ``pack``: two launches, the windows ``win[t, w]`` from
+    each window column's nonzeros (the tile's rows of x in shared memory)
+    and their deterministic overlap-add, counted as one.  lis_tpu leaves
+    this to XLA (matrix/bes.py:193-212).  Bound on the H100: bytes, as for
+    Q.  On a CPU tensor the plain version over the dense slab."""
+    if not _checked("bes_spmvh", slab, pack, x, nrows, s):
         return _spmvh_plain(slab, x, c0, s, nrows, ncols)
     T, W, _ = slab.shape
-    return _launch("lis_bes_spmvh", bes_spmvh, slab, x, c0, s, nrows, ncols,
+    return _launch("lis_bes_spmvh", bes_spmvh, pack.hval, pack.hoff,
+                   pack.hlen, pack.hptr, x, slab.shape, c0, s, nrows, ncols,
                    ncols, T * W)
 
 
@@ -205,6 +333,17 @@ class BESMatrix(SparseMatrix):
     W: int = static()
     c0: int = static()        # window start relative to t·stride
     stride: int = static()    # 0 means R (square band)
+    pack: object = None       # BESPack of the slab: what Q and R read
+
+    def to(self, device=None, dtype=None):
+        """Every tensor moved (and cast); the compact form moves with the
+        slab, or, where the matrix has none yet (a host build), is derived
+        from the slab where it lands: on the card, no host pass."""
+        out = super().to(device, dtype)
+        if out.pack is None:
+            # ``out`` is a new object that no one else holds yet
+            object.__setattr__(out, "pack", bes_pack(out.slab))
+        return out
 
     @property
     def s(self) -> int:
@@ -286,11 +425,13 @@ class BESMatrix(SparseMatrix):
         return a.indptr.astype(np.int32), a.indices.astype(np.int32), a.data
 
     def matvec(self, x):
-        y = bes_spmv(self.slab, x, self.c0, self.s, self.nrows, self.ncols)
+        y = bes_spmv(self.slab, self.pack, x, self.c0, self.s, self.nrows,
+                     self.ncols)
         return y if self.rem is None else y + self.rem.matvec(x)
 
     def matvech(self, x):
-        y = bes_spmvh(self.slab, x, self.c0, self.s, self.nrows, self.ncols)
+        y = bes_spmvh(self.slab, self.pack, x, self.c0, self.s, self.nrows,
+                      self.ncols)
         return y if self.rem is None else y + self.rem.matvech(x)
 
     def get_diagonal(self):
@@ -312,11 +453,18 @@ class BESMatrix(SparseMatrix):
         T, W, R = self.slab.shape
         return _pad(d, 0, T * R - self.nrows).view(T, 1, R)
 
+    def _rescaled(self, slab, rem):
+        """This matrix with a scaled slab, its compact form derived again
+        (a factor of 0 drops entries)."""
+        return dataclasses.replace(
+            self, slab=slab, rem=rem,
+            pack=None if self.pack is None else bes_pack(slab))
+
     def scale_rows(self, d):
         """Row scaling on the device: slab[t, :, r] *= d[t·R + r]."""
         slab = self.slab * self._row_factor(d).to(self.slab.dtype)
         rem = None if self.rem is None else csr_scaled(self.rem, row_d=d)
-        return dataclasses.replace(self, slab=slab, rem=rem)
+        return self._rescaled(slab, rem)
 
     def scale_symm(self, dsqrt_inv):
         """D^-1/2 A D^-1/2 on the device: the row factor d[t·R + r] times
@@ -326,7 +474,7 @@ class BESMatrix(SparseMatrix):
         dw = _windows(d, T, self.s, W, self.c0, self.ncols)[:, :, None]
         slab = self.slab * (self._row_factor(d) * dw).to(self.slab.dtype)
         rem = None if self.rem is None else csr_scaled(self.rem, d, d)
-        return dataclasses.replace(self, slab=slab, rem=rem)
+        return self._rescaled(slab, rem)
 
 
 @matrix_format("mbes")
@@ -395,14 +543,16 @@ class MultiBESMatrix(SparseMatrix):
 def multi_bes_from_csr(ptr, index, value, shape, R: int = R_DEFAULT,
                        stride: int | None = None, max_windows: int = 4,
                        w_max: int = 4096, max_bytes: int = 4 << 30,
-                       device=None):
+                       device=None, compact: bool = True):
     """Greedy multi-window BES build (lis_tpu bes.py:347-398): the
     single-window cost-model builder runs on the still-uncovered entries
     until they are few, the window count or the byte budget is spent.
     Returns a BESMatrix (one window sufficed) or a MultiBESMatrix on
-    ``device`` (None: the default device; the host arrays are built first,
-    so a caller that may refuse the result builds on "cpu" and moves it).
-    Raises ``NothingCovers`` for a matrix with no entry."""
+    ``device`` (None: the default device), each slab with its compact
+    form.  With ``compact=False`` it returns the host build as it is, on
+    the CPU and with no compact form, for a caller that may refuse it: the
+    ``.to(device)`` of what it keeps derives the form there.  Raises
+    ``NothingCovers`` for a matrix with no entry."""
     import scipy.sparse as sp
     n, m = shape
     cur_p = np.asarray(host(ptr))
@@ -442,18 +592,19 @@ def multi_bes_from_csr(ptr, index, value, shape, R: int = R_DEFAULT,
     else:
         out = MultiBESMatrix(parts=tuple(parts), rem=rem, nrows=int(n),
                              ncols=int(m), nnz=int(total_nnz))
-    return out.to(resolve_device(device))
+    return out.to(resolve_device(device)) if compact else out
 
 
 def fitting_multi_bes(ptr, index, value, shape, max_blowup: float,
                       max_rem: float, **kw):
-    """``multi_bes_from_csr`` on the host, or None where it covers too
-    little: a fill blowup above ``max_blowup``, a remainder above
-    ``max_rem`` of the nnz, or no entry at all (``NothingCovers``, the
-    only failure this catches).  The router (256, 0.1) and SA-AMG's
-    prolongators (512, 0.2) take lis_tpu's acceptance this way."""
+    """``multi_bes_from_csr`` on the host, with no compact form, or None
+    where it covers too little: a fill blowup above ``max_blowup``, a
+    remainder above ``max_rem`` of the nnz, or no entry at all
+    (``NothingCovers``, the only failure this catches).  The router (256,
+    0.1) and SA-AMG's prolongators (512, 0.2) take lis_tpu's acceptance
+    this way, and move what they accept to its device."""
     try:
-        bes = multi_bes_from_csr(ptr, index, value, shape, device="cpu",
+        bes = multi_bes_from_csr(ptr, index, value, shape, compact=False,
                                  **kw)
     except NothingCovers:
         return None

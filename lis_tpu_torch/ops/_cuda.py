@@ -64,10 +64,10 @@ _SIGNATURES = {
     "lis_dd_reduce": [_INT, _INT, _P, _P, _P, _P, _I64, _I64, _I64, _I64,
                       _P, _P],
     "lis_dd_update": [_INT, _INT, _P, _P, _P, _P, _P, _P, _P, _P, _I64, _P],
-    "lis_bes_spmv": [_INT, _INT, _P, _P, _P, _P, _I64, _I64, _I64, _I64,
-                     _I64, _I64, _I64, _P],
-    "lis_bes_spmvh": [_INT, _INT, _P, _P, _P, _P, _I64, _I64, _I64, _I64,
-                      _I64, _I64, _I64, _P],
+    "lis_bes_spmv": [_INT, _INT, _INT, _P, _P, _P, _P, _P, _P, _P, _I64,
+                     _I64, _I64, _I64, _I64, _I64, _I64, _P],
+    "lis_bes_spmvh": [_INT, _INT, _INT, _P, _P, _P, _P, _P, _P, _P, _I64,
+                      _I64, _I64, _I64, _I64, _I64, _I64, _P],
 }
 
 _lib = None

@@ -1545,18 +1545,35 @@ def test_esolve_on_a_card_dia(cuda, opts):
 
 
 def _bes_case(shape, seed):
-    """(slab, c0, s, nrows, ncols) of a random BES: square (s = R) or
-    strided (a rectangular prolongator, s < R), with rows past nrows."""
+    """(slab, c0, s, nrows, ncols) of a random BES: dense, square (s = R)
+    or strided (a rectangular prolongator, s < R), with rows past nrows;
+    or sparse like a routed windowed matrix (5 % of the slots, in a band
+    about the diagonal), with an all-zero tile, an empty row and an empty
+    window column, at W = 256 (8-bit offsets), 512 (16-bit), 4096 (x's
+    window in passes at complex128) and 8192 (in passes at f64)."""
     rng = np.random.default_rng(seed)
     if shape == "square":
         nrows = ncols = 5000
         s, W, c0 = 128, 384, -100
-    else:
+    elif shape == "strided":
         nrows, ncols = 6001, 700
         s, W, c0 = 15, 45, -10
+    else:
+        W = {"sparse": 256, "w512": 512, "w4096": 4096, "w8192": 8192}[shape]
+        nrows = 5000 if W <= 512 else 1000
+        s, c0 = 128, -(W - 128) // 2
+        ncols = nrows + W
     T = -(-nrows // 128)
-    slab = torch.from_numpy(rng.standard_normal((T, W, 128)))
-    return slab, c0, s, nrows, ncols
+    slab = rng.standard_normal((T, W, 128))
+    if shape not in ("square", "strided"):
+        w, r = np.arange(W)[:, None], np.arange(128)[None, :]
+        band = np.abs(c0 + w - r) <= min(W // 2, 200)
+        keep = band & (rng.random((T, W, 128)) < 0.05 * W * 128 / band.sum())
+        slab = np.where(keep, slab, 0.0)
+        slab[1] = 0                             # an all-zero tile
+        slab[2, :, 7] = 0                       # an empty row
+        slab[0, W // 2, :] = 0                  # an empty window column
+    return torch.from_numpy(slab), c0, s, nrows, ncols
 
 
 @pytest.mark.gpu
@@ -1565,11 +1582,13 @@ def _bes_case(shape, seed):
     (torch.complex128, torch.complex128), (torch.float64, torch.complex128),
     (torch.complex64, torch.complex64)],
     ids=["f32", "f64", "c128", "f64-x-c128", "c64"])
-@pytest.mark.parametrize("shape", ["square", "strided"])
+@pytest.mark.parametrize("shape", ["square", "strided", "sparse", "w512",
+                                   "w4096", "w8192"])
 def test_bes_kernels_match_their_plain_versions(cuda, dtype, xdtype, shape):
-    """Kernels Q (bes_spmv) and R (bes_spmvh) against their plain versions
-    to rtol 1e-13 (f64, complex128) / 1e-5 (f32); a complex x on a real
-    slab keeps its imaginary part; one launch counted per call."""
+    """Kernels Q (bes_spmv) and R (bes_spmvh), over the slab's compact
+    form derived on the card, against their plain versions over the dense
+    slab to rtol 1e-13 (f64, complex128) / 1e-5 (f32); a complex x on a
+    real slab keeps its imaginary part; one launch counted per call."""
     from lis_tpu_torch.matrix import bes
     slab, c0, s, nrows, ncols = _bes_case(shape, 3)
     if dtype.is_complex:
@@ -1588,10 +1607,13 @@ def test_bes_kernels_match_their_plain_versions(cuda, dtype, xdtype, shape):
     rtol = 1e-5 if torch.float32 in (dtype, xdtype) or \
         torch.complex64 in (dtype, xdtype) else 1e-13
     sc = slab.to(cuda)
+    pack = bes.bes_pack(sc)
+    assert pack.qoff.dtype == (torch.uint8 if slab.shape[1] <= 256
+                               else torch.int16)
     for fn, v, plain in ((bes.bes_spmv, x, bes._spmv_plain),
                          (bes.bes_spmvh, y, bes._spmvh_plain)):
         before = fn.launches
-        got = fn(sc, v.to(cuda), c0, s, nrows, ncols)
+        got = fn(sc, pack, v.to(cuda), c0, s, nrows, ncols)
         assert fn.launches == before + 1
         want = plain(slab, v, c0, s, nrows, ncols)
         oracle = plain(sc, v.to(cuda), c0, s, nrows, ncols)
@@ -1600,6 +1622,35 @@ def test_bes_kernels_match_their_plain_versions(cuda, dtype, xdtype, shape):
         for w in (want, oracle.cpu()):
             err = (got.cpu() - w).abs().max().item()
             assert err <= rtol * w.abs().max().item(), err
+
+
+@pytest.mark.gpu
+def test_bes_on_the_card_needs_its_compact_form(cuda):
+    """No fallback: a BES on the card reads its compact form, and one
+    without it, with one of another shape or type, or with one left on
+    the CPU raises rather than streaming the slab."""
+    import dataclasses
+    from lis_tpu_torch.matrix import bes
+    rng = np.random.default_rng(5)
+    n = 3000
+    rows = np.repeat(np.arange(n), 6)
+    cols = np.clip(rows + rng.integers(-40, 40, 6 * n), 0, n - 1)
+    a = (sp.coo_matrix((rng.standard_normal(6 * n), (rows, cols)),
+                       shape=(n, n)) + 30 * sp.eye(n)).tocsr()
+    B = bes.BESMatrix.from_csr_arrays(a.indptr, a.indices, a.data, a.shape)
+    assert B.slab.is_cuda and B.pack.qval.is_cuda
+    x = torch.from_numpy(rng.standard_normal(n)).to(cuda)
+    want = torch.from_numpy(a @ x.cpu().numpy())
+    assert (B.matvec(x).cpu() - want).abs().max() <= 1e-13 * want.abs().max()
+    for pack in (None, bes.bes_pack(B.slab[:-1]),
+                 bes.bes_pack(B.slab.to(torch.float32)),
+                 B.pack.to("cpu")):
+        bad = dataclasses.replace(B, pack=pack)
+        q0, r0 = bes.bes_spmv.launches, bes.bes_spmvh.launches
+        for meth in ("matvec", "matvech"):
+            with pytest.raises(ValueError, match="compact form"):
+                getattr(bad, meth)(x)
+        assert (bes.bes_spmv.launches, bes.bes_spmvh.launches) == (q0, r0)
 
 
 @pytest.mark.gpu
