@@ -23,8 +23,11 @@ Phases (one or more lines each):
    -storage cst -tol 1e-10") for the locality-free SPD system
    a + aᵀ + 32·I, n = 2^20, 8 random columns per row, made from --seed;
    SUCCESS with true residual <= 1e-9 and kernels A-D launched at least
-   once per iteration; then once more at -f single.  Each solve rebuilds
-   the CST on the host.  The CPU oracle runs at n = 2^17 (see below);
+   once per iteration; then warm, through the lis.h layer (the matrix set
+   by lis_matrix_set_csr and assembled as CST, then lis_solve: the same
+   count), and once more at -f single on that assembled CST (cast to f32
+   on the card).  The first two solves build the CST on the host.  The
+   CPU oracle runs at n = 2^17 (see below);
 4. the CST matvec, kernels against plain torch on the card, in
    csr-equivalent GB/s = (nnz·12 + 2n·8) / t;
 5. reuse: one CST of the nonsymmetric a − 0.5·aᵀ + 32·I (phase 3's
@@ -281,18 +284,55 @@ Phases (one or more lines each):
    32³ (and at 64³ where the 32³ set-up, scaled, stays under 30 s): K
    twice a psolve, the count of the same solve over K's plain version ±1.
    Tolerance -tol 1e-8, true residual <= 1e-7.
+16. the lis.h compatibility layer and its bindings (``phase compat:``
+   lines): (a) the test4.c flow through ``lis_tpu_torch.compat`` on
+   poisson3d27 96³ (lis_matrix_set_csr, assemble, lis_vector_set_all,
+   "-i cg -p jacobi -tol 1e-10", lis_solve): status, count and x (bit for
+   bit) those of ``lis_tpu_torch.solve`` on the same matrix, route dia, E
+   it + 1 times and G1-G4 as the fused step calls them (no other kernel),
+   the solver getters read back; (b) phase 3's n = 2^20 system set by
+   lis_matrix_set_csr and assembled as CST in phase 3 (whose warm solve
+   runs through it: one host build, timed, serves both phases):
+   lis_matvec (A-D once, held to scipy to 1e-12) and lis_solve with "-i
+   cg -p jacobi -storage cst -tol 1e-10" (phase 3's count, x to 1e-12)
+   and once more with -scale 1 (#1 launched), A-D at least once per
+   iteration; (c) ``interop.cg`` on the 96³ scipy CSR with M="jacobi":
+   info 0, x within 1e-12 of (a)'s; (d) the Fortran/C shim
+   (``_native/lisf_tpu.c``) and its test2f built by gcc into
+   build/lis_tpu_torch/, ``test2f 1024 1024 1 sol rh -i cg -p jacobi -tol
+   1e-10 -maxiter 20000`` (n = 2^20; at the default 1000 it ends MAXITER,
+   which CHKERR makes its exit code) run in a subprocess on the card:
+   exit 0, its count
+   that of the same flow in this process, its solution file within 1e-12
+   of it; the same driver with CUDA_VISIBLE_DEVICES="" must fail; (e)
+   10^4 lis_vector_set_value calls on a card vector of 2^20 entries (µs
+   per call, the one copy to the card after them, and the same writes as
+   indexed updates of the device tensor); (f) ``spmvtest 3b 48 48 48 100``
+   (n = 110,592) through ``cli.spmvtest.run_sweep``, a format at a time:
+   a row for every format but dns (skipped above 20000 rows, as in
+   lis_tpu), E launched by the DIA and HDI rows and Q by the BES row,
+   MFLOPS beside the bound 2·nnz over (nnz·8 + 2n·8 bytes) / 3.35 TB/s;
+   (g) ``utils.profiling.profile_trace`` (torch.profiler, CPU and CUDA)
+   around 20 iterations of CG + Jacobi on the 96³ DIA: a Chrome trace
+   holding E's and G's kernels, the five device operations that took
+   most time and the device's busy share of the trace's span; (h)
+   "-maxiter 50" on (a)'s system, ``save_checkpoint``, ``resume_solve``:
+   SUCCESS with true residual <= 1e-9.  Phase 16's wall is printed.
 
-Phases 1 to 15 all run at the sizes named here.  The matrices of phases 3
+Phases 1 to 16 all run at the sizes named here.  The matrices of phases 3
 to 6 are built with no ``device`` argument, so they live on the default
 device, the card.  Their CPU oracles (the port's plain path on the CPU,
 whose Benes passes take up to a minute a solve at n = 2^20) run at
 n = 2^17 on systems of the same kinds: each solve is made there on the
 card and on the CPU, and the iteration counts must agree ±1 (the CSR
 remainder sums with atomics on the card); the card's solves at n = 2^20
-keep every other check.
+keep every other check.  The CPU oracles of phases 9d, 9e, 11d and 11e
+on poisson3d27 (``ORACLES``) run in two worker processes, started at
+phase 9, beside the card's work; the checks wait for their results.
 
 Launch counts are set to 0 just before each solve of phases 3, 5, 6 and
-8 to 15 and read just after; launches made to compare a kernel with its plain
+8 to 16 (and each lis_matvec and spmvtest row of phase 16) and read just
+after; launches made to compare a kernel with its plain
 version are not counted.  It prints one JSON line of per-kernel results
 (each row's ``timing`` says how its ``ms`` was taken; where that is
 "queued", ``host_ms`` and ``library_host_ms`` are the kernel's and the
@@ -309,6 +349,7 @@ import dataclasses
 import io
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -357,6 +398,34 @@ def windowed(n: int, w: int, seed: int, symmetric: bool = False):
     a = ((a + a.T if symmetric else a) + sp.eye(n) * 30).tocsr()
     a.sort_indices()
     return a
+
+
+def cpu_oracle(g: int, opts: str):
+    """A CPU oracle of phases 9 and 11, run in a worker process beside the
+    card's phases: (iterations, status, seconds) of solve(poisson3d27 g^3
+    as a CSR on the CPU, ones, opts), the port's plain path, as those
+    phases ran it in their own process before."""
+    import lis_tpu_torch
+    from lis_tpu_torch.utils import testmat
+    t0 = time.perf_counter()
+    A = testmat.poisson3d27(g, g, g, device="cpu")
+    r = lis_tpu_torch.solve(A, np.ones(A.nrows), options=opts)
+    return r.iters, r.status, time.perf_counter() - t0
+
+
+# the CPU oracles of phases 9d-e and 11d-e (grid, options), submitted at
+# the start of phase 9 to two worker processes: the largest CPU work of
+# the smoke, which then overlaps the card's phases 9-11 instead of
+# following them
+ORACLES = [(96, "-i cg -p ilu"), (96, "-i gmres -restart 30 -p ssor"),
+           (64, "-i cg -p ssor -auto_storage false"), (64, "-i sor -tol 1e-8"),
+           (64, "-i cg -p saamg -saamg_lattice false -tol 1e-10")] + [
+    (64, o + " -tol 1e-10") for o in (
+        "-i bicgstab -p ilut", "-i bicgstab -p ilut -auto_storage false",
+        "-i bicgstab -p iluc -iluc_drop 0.01",
+        "-i bicgstab -p iluc -iluc_drop 0.01 -auto_storage false",
+        "-i cg -p sainv -sainv_drop 0.01", "-i cg -p bjacobi",
+        "-i gmres -p hybrid")]
 
 
 def cuda_ms(fn, reps: int = 20, warm: int = 3, queued: bool = False) -> float:
@@ -738,11 +807,36 @@ def main() -> None:
     if not (r.true_resid <= 1e-9 and res_scipy <= 1e-9):
         fail(f"true residual {r.true_resid:.3e} / {res_scipy:.3e} > 1e-9")
     need_launches(launches, matvec_kernels, r.iters, "slice")
+    # the warm solve goes through the lis.h layer: lis_matrix_set_csr,
+    # lis_matrix_assemble as CST (the same host build that solve() makes
+    # from the CSR), lis_solve; phase 16b reuses its handle
+    import lis_tpu_torch.compat as lis
+    from lis_tpu_torch.runtime.options import STORAGE_NAMES
     t0 = time.perf_counter()
-    r2 = lis_tpu_torch.solve(A, b, options=opts)
+    Bc = lis.lis_matrix_create(0)
+    lis.lis_matrix_set_size(Bc, 0, n)
+    lis.lis_matrix_set_csr(a.nnz, a.indptr, a.indices, a.data, Bc)
+    lis.lis_matrix_set_type(Bc, STORAGE_NAMES["cst"])
+    lis.lis_matrix_assemble(Bc)
+    t_build = time.perf_counter() - t0
+    bc, xc = lis.lis_vector_create(0), lis.lis_vector_create(0)
+    lis.lis_vector_set_size(bc, 0, n)
+    lis.lis_vector_set_all(1.0, bc)
+    lis.lis_vector_set_size(xc, 0, n)
+    sc = lis.lis_solver_create()
+    lis.lis_solver_set_option(opts, sc)
+    lis.lis_solve(Bc, bc, xc, sc)
     t_warm = time.perf_counter() - t0
-    report("cuda f64 warm", r2, t_warm)
+    r2 = sc.result
+    report(f"cuda f64 warm, through lis_tpu_torch.compat (CST assembled in "
+           f"{t_build:.2f} s)", r2, t_warm)
+    if r2.status != r.status or r2.iters != r.iters:
+        fail(f"the compat solve: status {r2.status} iters {r2.iters} against "
+             f"{r.status} / {r.iters}")
     it_cst = r.iters
+    # held to by phase 16b, which reuses the assembled handle
+    S.p3_iters, S.p3_x = r.iters, r.x
+    S.p3_compat = (Bc, t_build)
     # the CPU's plain CST passes take minutes at n = 2^20, so the CPU
     # oracle of phases 3, 5 and 6 runs at n = 2^17, on systems of the same
     # kinds, each solved on the card and on the CPU
@@ -761,7 +855,7 @@ def main() -> None:
             or r_s.status != lis_tpu_torch.LIS_SUCCESS:
         fail(f"n=2^17: cuda iters {r_s.iters} vs cpu iters {rc.iters}")
     t0 = time.perf_counter()
-    rs = lis_tpu_torch.solve(A, b, options=opts + " -f single")
+    rs = lis_tpu_torch.solve(Bc.m, b, options=opts + " -f single")
     report("cuda -f single", rs, time.perf_counter() - t0)
     if not (np.isfinite(rs.x.cpu().numpy()).all()
             and rs.true_resid <= 1e-4):
@@ -1447,6 +1541,18 @@ def main() -> None:
 
     # ---- 9. preconditioned: H, I, K and the hpcg configuration -------------
     stamp("phase 9")
+    import concurrent.futures
+    import multiprocessing
+    pool = concurrent.futures.ProcessPoolExecutor(
+        max_workers=2, mp_context=multiprocessing.get_context("spawn"))
+    futures = {job: pool.submit(cpu_oracle, *job) for job in ORACLES}
+
+    def oracle(g, opts):
+        """The CPU oracle's result for poisson3d27 g^3 under opts."""
+        it, st, sec = futures[(g, opts)].result()
+        return types.SimpleNamespace(iters=it, status=st, seconds=sec)
+
+    S.oracle = oracle
     phase_preconditioned(S)
     # ---- 10. the Krylov slice's twelve solvers on DIA ----------------------
     stamp("phase 10")
@@ -1454,6 +1560,7 @@ def main() -> None:
     # ---- 11. the remaining preconditioners: SA-AMG (J, L) and the rest ----
     stamp("phase 11")
     phase_precon_more(S)
+    pool.shutdown()
     # ---- 12. the precision modes: kernels M-P and the _quad twins ---------
     stamp("phase 12")
     phase_quad(S)
@@ -1466,6 +1573,9 @@ def main() -> None:
 
     stamp("phase 15")
     phase_bes(S)
+    # ---- 16. the lis.h layer, the bindings, the shim, spmvtest, tracing --
+    stamp("phase 16")
+    phase_compat(S)
     report_results(S, smi_line, total)
 
 def phase_preconditioned(S):
@@ -1806,7 +1916,6 @@ def phase_preconditioned(S):
     S.stamp("phase 9d")
     t0 = time.perf_counter()
     A96 = testmat.poisson3d27(g96, g96, g96)
-    A96c = A96.to("cpu")
     b96 = np.ones(A96.nrows)
     tag(f"poisson3d27 96^3 CSR built in {time.perf_counter() - t0:.2f} s")
     opts = "-i cg -p ilu"
@@ -1825,10 +1934,9 @@ def phase_preconditioned(S):
         fail(f"cg -p ilu 96^3: status {r.status} resid {r.true_resid:.3e}")
     S.need_exact(got, {"dia_relax": 4 * it, "dia_spmv": it + 1,
                        "trisolve": 0}, "cg -p ilu 96^3")
-    t0 = time.perf_counter()
-    r_c = lis_tpu_torch.solve(A96c, b96, options=opts)
+    r_c = S.oracle(g96, opts)
     tag(f"cg -p ilu 96^3 on the CPU: iters {r_c.iters} in "
-        f"{time.perf_counter() - t0:.2f} s")
+        f"{r_c.seconds:.2f} s (a worker process)")
     same_count("cg -p ilu 96^3", it, r_c.iters)
     del Milu
 
@@ -1843,10 +1951,9 @@ def phase_preconditioned(S):
         fail(f"gmres 96^3: status {r.status} resid {r.true_resid:.3e}")
     S.need_exact(got, {"dia_relax": 4 * r.iters + 4 * -(-r.iters // 30),
                        "trisolve": 0}, "gmres 96^3")
-    t0 = time.perf_counter()
-    r_c = lis_tpu_torch.solve(A96c, b96, options=opts)
+    r_c = S.oracle(g96, opts)
     tag(f"gmres 96^3 on the CPU: iters {r_c.iters} in "
-        f"{time.perf_counter() - t0:.2f} s")
+        f"{r_c.seconds:.2f} s (a worker process)")
     same_count("gmres 96^3", r.iters, r_c.iters)
 
     # a nonsymmetric banded matrix: the 96^3 stencil with its lower
@@ -1867,12 +1974,11 @@ def phase_preconditioned(S):
                     "bicg -p ssor")
     r_c = lis_tpu_torch.solve(Dn.to("cpu"), b96, options=opts)
     same_count("bicg -p ssor", r.iters, r_c.iters)
-    del A96, A96c, Dr, Dn
+    del A96, Dr, Dn
     torch.cuda.empty_cache()
 
     t0 = time.perf_counter()
     A64 = testmat.poisson3d27(g64, g64, g64)
-    A64c = A64.to("cpu")
     b64 = np.ones(A64.nrows)
     tag(f"poisson3d27 64^3 CSR built in {time.perf_counter() - t0:.2f} s")
     for opts, want in (("-i cg -p ssor -auto_storage false", 2),
@@ -1921,13 +2027,12 @@ def phase_preconditioned(S):
             fail(f"{opts} 64^3: status {r.status} resid {r.true_resid:.3e}")
         S.need_exact(got, {"trisolve": want * it, "dia_relax": 0},
                      f"{opts} 64^3")
-        t0 = time.perf_counter()
-        r_c = lis_tpu_torch.solve(A64c, b64, options=opts)
+        r_c = S.oracle(g64, opts)
         tag(f"{opts} 64^3 on the CPU: iters {r_c.iters} in "
-            f"{time.perf_counter() - t0:.2f} s")
+            f"{r_c.seconds:.2f} s (a worker process)")
         if it != r_c.iters:
             fail(f"{opts} 64^3: cuda iters {it} vs cpu {r_c.iters}")
-    del A64, A64c
+    del A64
     torch.cuda.empty_cache()
 
 
@@ -2338,7 +2443,6 @@ def phase_precon_more(S):
     # ---- (d) the graph path on a 64^3 CSR: K for the SGS ------------------
     S.stamp("phase 11d")
     A64 = testmat.poisson3d27(g64, g64, g64)
-    A64c = A64.to("cpu")
     b64 = np.ones(A64.nrows)
     opts = "-i cg -p saamg -saamg_lattice false -tol 1e-10"
     r, got, wall = S.counted(lambda: lis_tpu_torch.solve(A64, b64,
@@ -2356,10 +2460,9 @@ def phase_precon_more(S):
     need_counts("graph saamg 64^3", got, {
         "trisolve": 4 * nlev * it, "lattice_prolong": 0,
         "lattice_restrict": 0})
-    t0 = time.perf_counter()
-    rc = lis_tpu_torch.solve(A64c, b64, options=opts)
+    rc = S.oracle(g64, opts)
     tag(f"graph saamg 64^3 on the CPU: iters {rc.iters} in "
-        f"{time.perf_counter() - t0:.2f} s")
+        f"{rc.seconds:.2f} s (a worker process)")
     if abs(rc.iters - it) > 1 or rc.status != 0:
         fail(f"graph saamg 64^3: cuda iters {it} vs cpu {rc.iters}")
     del M, Dr
@@ -2376,7 +2479,7 @@ def phase_precon_more(S):
                           for o in Dsp.offsets], dtype=torch.float64,
                          device=dev)
     Dn = dataclasses.replace(Dsp, value=Dsp.value * scale[:, None])
-    ops = {"spd": (A64, A64c, "-tol 1e-10", 1e-9),
+    ops = {"spd": (A64, None, "-tol 1e-10", 1e-9),     # oracle: a worker
            "nonsym": (Dn, Dn.to("cpu"), "-tol 1e-8", 1e-7)}
     cases = [
         # (options, operator, kernels launched at least once per
@@ -2405,9 +2508,13 @@ def phase_precon_more(S):
         opts = f"{base} {tol}"
         r, got, wall = S.counted(lambda: lis_tpu_torch.solve(
             Ad, b64, options=opts))
-        t0 = time.perf_counter()
-        rc = lis_tpu_torch.solve(Ac, b64, options=opts)
-        t_c = time.perf_counter() - t0
+        if op == "spd":
+            rc = S.oracle(g64, opts)
+            t_c = rc.seconds
+        else:
+            t0 = time.perf_counter()
+            rc = lis_tpu_torch.solve(Ac, b64, options=opts)
+            t_c = time.perf_counter() - t0
         it = r.iters
         per = 1e3 * r.itime / max(it, 1)
         tag(f"64^3 {op} {opts}: route {S.route_of(Ad, opts)}, status "
@@ -2427,7 +2534,7 @@ def phase_precon_more(S):
         "ms/iter")
     for row in rows:
         tag("row " + json.dumps(row))
-    del A64, A64c, Dsp, Dn, ops
+    del A64, Dsp, Dn, ops
     torch.cuda.empty_cache()
 
 
@@ -4091,6 +4198,353 @@ def phase_bes(S):
     torch.cuda.empty_cache()
     wall = time.perf_counter() - t_phase
     print(f"phase time: phase 15 took {wall:.1f} s", flush=True)
+
+
+def phase_compat(S):
+    """Phase 16: the lis.h compatibility layer (``lis_tpu_torch.compat``),
+    the scipy bindings, the Fortran/C shim, per-element writes, spmvtest,
+    a ``torch.profiler`` trace and checkpoint/resume, on the card (see
+    the docstring)."""
+    import scipy.sparse as sp
+    import torch
+    import lis_tpu_torch
+    import lis_tpu_torch.compat as lis
+    import lis_tpu_torch.interop as interop
+    from lis_tpu_torch._native import lisf
+    from lis_tpu_torch.cli import spmvtest
+    from lis_tpu_torch.io import lis_input_vector
+    from lis_tpu_torch.runtime.options import STORAGE_NAMES
+    from lis_tpu_torch.utils import checkpoint, profiling, testmat
+
+    t_phase = time.perf_counter()
+    kernels = S.kernels
+    cst_kernels = ("cst_front", "benes_pass", "benes_pass_rowsum",
+                   "benes_small_run")
+
+    def tag(msg):
+        print(f"phase compat: {msg}", flush=True)
+
+    def active(got):
+        return {k: c for k, c in got.items() if c}
+
+    def handles(ptr, index, value, n, mtype=None):
+        """A matrix handle set by lis_matrix_set_csr and assembled (its
+        seconds), and b = ones, x = 0 (the test4.c flow)."""
+        A = lis.lis_matrix_create(0)
+        lis.lis_matrix_set_size(A, 0, n)
+        lis.lis_matrix_set_csr(len(value), ptr, index, value, A)
+        if mtype is not None:
+            lis.lis_matrix_set_type(A, mtype)
+        t0 = time.perf_counter()
+        if lis.lis_matrix_assemble(A) != lis.LIS_SUCCESS:
+            fail("lis_matrix_assemble failed")
+        torch.cuda.synchronize()
+        t_asm = time.perf_counter() - t0
+        b, x = lis.lis_vector_create(0), lis.lis_vector_create(0)
+        lis.lis_vector_set_size(b, 0, n)
+        lis.lis_vector_set_all(1.0, b)
+        lis.lis_vector_set_size(x, 0, n)
+        if not (A.m.device.type == "cuda" and b.value.is_cuda
+                and x.value.is_cuda):
+            fail(f"compat handles live on {A.m.device}, not the card")
+        return A, b, x, t_asm
+
+    def compat_solve(A, b, x, opts):
+        solver = lis.lis_solver_create()
+        lis.lis_solver_set_option(opts, solver)
+        st, got, wall = S.counted(lambda: lis.lis_solve(A, b, x, solver))
+        return solver, st, got, wall
+
+    # ---- (a) the test4.c flow at full width: poisson3d27 96^3 ------------
+    S.stamp("phase 16a")
+    g = 96
+    A3 = testmat.poisson3d27(g, g, g, device="cpu")
+    ptr, idx, val = A3.to_csr_arrays()
+    n = A3.nrows
+    A, b, x, t_asm = handles(ptr, idx, val, n)
+    opts = "-i cg -p jacobi -tol 1e-10"
+    solver, st, got, wall = compat_solve(A, b, x, opts)
+    it = lis.lis_solver_get_iter(solver)
+    ref = lis_tpu_torch.solve(A.m, np.ones(n), options=opts)
+    route = S.route_of(A.m, opts)
+    tag(f"(a) test4 flow poisson3d27 {g}^3 n={n}: assemble {t_asm:.3f} s; "
+        f"lis_solve status {st} iters {it} residualnorm "
+        f"{lis.lis_solver_get_residualnorm(solver):.3e} time "
+        f"{lis.lis_solver_get_time(solver):.3f} s (wall {wall:.3f} s), route "
+        f"{route}; launches {active(got)}; lis_tpu_torch.solve: status "
+        f"{ref.status} iters {ref.iters}")
+    if st != lis.LIS_SUCCESS or st != ref.status or it != ref.iters:
+        fail(f"16a: compat status {st} iters {it} against solve's "
+             f"{ref.status} / {ref.iters}")
+    if route != "dia" or not torch.equal(x.value, ref.x):
+        fail(f"16a: route {route}, or x differs from solve's")
+    if not (lis.lis_solver_get_residualnorm(solver) <= 1e-10
+            and lis.lis_solver_get_time(solver) > 0
+            and lis.lis_solver_get_status(solver) == st):
+        fail("16a: the solver getters read back wrong values")
+    want = dict.fromkeys(kernels, 0)
+    want.update(dia_spmv=it + 1, krylov_dot=it + 1, cg_direction=it,
+                cg_update=it, cg_finish=it)
+    S.need_exact(got, want, "16a compat lis_solve")
+    x_a = x.value
+    Ad = lis_tpu_torch.transform_operator(
+        A.m, lis_tpu_torch.SolverOptions.from_string(opts))
+
+    # ---- (b) the CST route through the compat layer ------------------------
+    # phase 3's warm solve assembled this handle (lis_matrix_set_csr, then
+    # lis_matrix_assemble as CST: one host build serves both phases)
+    S.stamp("phase 16b")
+    nb = 1 << 20
+    a = system(nb, 8, S.seed)
+    B, t_build = S.p3_compat
+    if B.m.format_name != "cst" or B.m.device.type != "cuda" \
+            or B.n != nb:
+        fail(f"16b: assembled {B.m.format_name} on {B.m.device}, not cst "
+             f"on the card")
+    bb, xb = lis.lis_vector_create(0), lis.lis_vector_create(0)
+    lis.lis_vector_set_size(bb, 0, nb)
+    lis.lis_vector_set_all(1.0, bb)
+    lis.lis_vector_set_size(xb, 0, nb)
+    ones = lis.lis_vector_duplicate(bb)
+    lis.lis_vector_set_all(1.0, ones)
+    yb = lis.lis_vector_create(0)
+    _, got, _ = S.counted(lambda: lis.lis_matvec(B, ones, yb))
+    S.need_launches(got, cst_kernels, 1, "16b lis_matvec")
+    err = float(np.abs(yb.value.cpu().numpy() - a @ np.ones(nb)).max())
+    tag(f"(b) phase 3's system n={nb} nnz={a.nnz} assembled as CST in "
+        f"{t_build:.2f} s (in phase 3); lis_matvec launches {active(got)}, "
+        f"max_abs_err against scipy {err:.3e}")
+    if not err <= 1e-12 * float(np.abs(a @ np.ones(nb)).max()):
+        fail("16b: lis_matvec on the CST disagrees with scipy")
+    for extra in ("", " -scale 1"):
+        o = "-i cg -p jacobi -storage cst -tol 1e-10" + extra
+        solver, st, got, wall = compat_solve(B, bb, xb, o)
+        itb = lis.lis_solver_get_iter(solver)
+        xs = xb.value.cpu().numpy()
+        res = np.linalg.norm(a @ xs - 1.0) / np.sqrt(nb)
+        tag(f"(b) {o}: status {st} iters {itb} wall {wall:.3f} s, scipy "
+            f"residual {res:.3e}; launches {active(got)}")
+        if st != lis.LIS_SUCCESS or not res <= 1e-9:
+            fail(f"16b {o}: status {st}, residual {res:.3e}")
+        S.need_launches(got, cst_kernels, itb, f"16b {o}")
+        if extra:
+            S.need_launches(got, ("lane_shuffle",), 1, f"16b {o}")
+        else:
+            dx = float((xb.value - S.p3_x).abs().max())
+            tag(f"(b) against phase 3: iters {itb} vs {S.p3_iters}, x max "
+                f"diff {dx:.3e}")
+            if itb != S.p3_iters or not dx <= 1e-12 * float(
+                    S.p3_x.abs().max()):
+                fail("16b: the compat CST solve differs from phase 3's")
+    del B, bb, xb, yb, ones, a
+    S.p3_compat = None
+    torch.cuda.empty_cache()
+
+    # ---- (c) the scipy bindings -----------------------------------------------
+    S.stamp("phase 16c")
+    asp = sp.csr_matrix((val, idx, ptr), shape=(n, n))
+    (xc, info), got, wall = S.counted(lambda: interop.cg(
+        asp, np.ones(n), rtol=1e-10, M="jacobi"))
+    dx = float(np.abs(xc - x_a.cpu().numpy()).max())
+    tag(f"(c) interop.cg(scipy CSR {g}^3, M='jacobi', rtol=1e-10): info "
+        f"{info}, x against (a) max diff {dx:.3e}, wall {wall:.3f} s; "
+        f"launches {active(got)}")
+    if info != 0 or not isinstance(xc, np.ndarray) \
+            or not dx <= 1e-12 * float(x_a.abs().max()):
+        fail(f"16c: info {info}, x off (a)'s by {dx:.3e}")
+
+    # ---- (d) the Fortran/C shim on the card -----------------------------------
+    S.stamp("phase 16d")
+    t0 = time.perf_counter()
+    exes = lisf.build(drivers=("test2f",))
+    t_gcc = time.perf_counter() - t0
+    work = tempfile.mkdtemp(dir=os.path.dirname(exes["lib"]))
+    env = {k: v for k, v in os.environ.items()
+           if k != "LIS_TPU_TORCH_DEVICE"}
+    m2 = 1024
+    # -maxiter: lis_tpu's default 1000 ends this system MAXITER, a nonzero
+    # status that test2f's CHKERR turns into its exit code
+    argv = [exes["test2f"], str(m2), str(m2), "1", "sol", "rh", "-i", "cg",
+            "-p", "jacobi", "-tol", "1e-10", "-maxiter", "20000"]
+    t0 = time.perf_counter()
+    r = subprocess.run(argv, cwd=work, env=env, capture_output=True,
+                       text=True, timeout=300)
+    t_run = time.perf_counter() - t0
+    # the same driver with no visible card must fail: no CPU fallback
+    nocard = subprocess.Popen(argv[:3] + ["1", "s0", "r0"], cwd=work,
+                              env=dict(env, CUDA_VISIBLE_DEVICES=""),
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                              text=True)
+    m = re.search(r"cg: number of iterations = (\d+)", r.stdout)
+    tag(f"(d) liblisf_tpu + test2f built in {t_gcc:.2f} s (gcc "
+        f"{lisf.build_seconds:.2f} s); test2f {m2} {m2} 1 -i cg -p jacobi "
+        f"-tol 1e-10 (n = {m2 * m2}) exit {r.returncode}, wall {t_run:.2f} s, "
+        f"iterations {m[1] if m else None}")
+    if r.returncode != 0 or m is None:
+        fail(f"16d: test2f failed: {r.stdout[-2000:]} {r.stderr[-2000:]}")
+    t1 = sp.diags([-1.0, 2.0, -1.0], [-1, 0, 1], shape=(m2, m2))
+    a2 = sp.kronsum(t1, t1, format="csr")
+    a2.sort_indices()
+    A2, b2, x2, _ = handles(a2.indptr, a2.indices, a2.data, m2 * m2)
+    lis.lis_matvec(A2, b2, b2)
+    solver, st, got, wall = compat_solve(A2, b2, x2, "-i cg -p jacobi "
+                                         "-tol 1e-10 -maxiter 20000")
+    it2 = lis.lis_solver_get_iter(solver)
+    sol = lis_input_vector(os.path.join(work, "sol"), device="cpu")
+    dx = float((sol - x2.value.cpu()).abs().max())
+    tag(f"(d) in-process compat run: status {st} iters {it2} wall "
+        f"{wall:.3f} s; the shim's solution file against it: max diff "
+        f"{dx:.3e}; launches {active(got)}")
+    if int(m[1]) != it2 or not dx <= 1e-12 * float(x2.value.abs().max()):
+        fail(f"16d: the shim's count {m[1]} / file differ from the "
+             f"in-process run ({it2}, {dx:.3e})")
+    so, se = nocard.communicate(timeout=300)
+    tag(f"(d) test2f with CUDA_VISIBLE_DEVICES='': exit {nocard.returncode}"
+        f" ({se.strip().splitlines()[-1] if se.strip() else 'no stderr'})")
+    if nocard.returncode == 0:
+        fail("16d: the shim ran with no visible card: a CPU fallback")
+    del A2, b2, x2, a2
+
+    # ---- (e) per-element writes -------------------------------------------------
+    S.stamp("phase 16e")
+    ne, calls = 1 << 20, 10_000
+    rng = np.random.default_rng(S.seed)
+    pos = rng.integers(0, ne, calls).tolist()
+    vals = rng.standard_normal(calls).tolist()
+    v = lis.lis_vector_create(0)
+    lis.lis_vector_set_size(v, 0, ne)
+    lis.lis_vector_set_all(1.0, v)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i, w in zip(pos, vals):
+        lis.lis_vector_set_value(lis.LIS_ADD_VALUE, i, w, v)
+    t_calls = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    dev_v = v.value
+    torch.cuda.synchronize()
+    t_flush = time.perf_counter() - t0
+    want_v = np.ones(ne)
+    np.add.at(want_v, pos, vals)
+    if not (dev_v.is_cuda and np.array_equal(dev_v.cpu().numpy(), want_v)):
+        fail("16e: the staged writes did not reach the card intact")
+    naive = torch.ones(ne, dtype=torch.float64, device=S.dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i, w in zip(pos, vals):
+        naive[i] += w
+    torch.cuda.synchronize()
+    t_naive = time.perf_counter() - t0
+    tag(f"(e) {calls} lis_vector_set_value (LIS_ADD_VALUE) on a card vector "
+        f"n={ne}: {1e6 * t_calls / calls:.3f} us per call (host copy made "
+        f"at the first), then one copy to the card {1e3 * t_flush:.3f} ms; "
+        f"the same writes as indexed updates of the device tensor: "
+        f"{1e6 * t_naive / calls:.3f} us per call")
+    del v, dev_v, naive
+
+    # ---- (f) spmvtest 3b 48 48 48 100 -----------------------------------------
+    S.stamp("phase 16f")
+    A48 = testmat.poisson3d27(48, 48, 48)
+    rows = []
+    for fmt in spmvtest.FORMATS:
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            res, got, wall = S.counted(
+                lambda: spmvtest.run_sweep(A48, 100, formats=[fmt]))
+        line = [ln for ln in buf.getvalue().splitlines()
+                if ln.startswith(("format", fmt))]
+        if fmt == "dns":            # above 20000 rows, skipped as in lis_tpu
+            if res or line:
+                fail("16f: dns was not skipped above 20000 rows")
+            continue
+        if fmt not in res or not line or "failed" in line[0]:
+            fail(f"16f: spmvtest printed no row for {fmt}: {line}")
+        need = {"dia": "dia_spmv", "hdi": "dia_spmv", "bes": "bes_spmv"}
+        if fmt in need:
+            S.need_launches(got, (need[fmt],), 1, f"16f {fmt}")
+        nn, nz = A48.nrows, A48.nnz
+        t_bound = (nz * 8 + 2 * nn * 8) / HBM_BYTES_PER_S
+        mf_bound = 2.0 * nz / t_bound / 1e6
+        rows.append({"format": fmt, "mflops": res[fmt],
+                     "bound_mflops": mf_bound, "wall_s": wall})
+        tag(f"(f) {line[0].strip()}; byte bound {mf_bound:.0f} MFLOPS "
+            f"({100 * res[fmt] / mf_bound:.1f} %); row wall {wall:.2f} s; "
+            f"launches {active(got)}")
+    print(json.dumps({"spmvtest": rows}), flush=True)
+    del A48
+    torch.cuda.empty_cache()
+
+    # ---- (g) a torch.profiler trace of CG + Jacobi on the 96^3 DIA ------------
+    S.stamp("phase 16g")
+    o20 = "-i cg -p jacobi -maxiter 20 -tol 1e-30"
+    lis_tpu_torch.solve(Ad, np.ones(n), options=o20)          # warm
+    logdir = os.path.join(os.path.dirname(exes["lib"]), "trace")
+    torch.cuda.synchronize()
+    with profiling.profile_trace(logdir) as prof:
+        t0 = time.perf_counter()
+        r20 = lis_tpu_torch.solve(Ad, np.ones(n), options=o20)
+        torch.cuda.synchronize()
+        t_win = time.perf_counter() - t0
+    path = os.path.join(logdir, "trace.json")
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    gpu = [e for e in events if e.get("cat") in ("kernel", "gpu_memcpy",
+                                                 "gpu_memset")
+           and "dur" in e]
+    names = {e.get("name", "") for e in gpu}
+    need_names = ("dia_kernel", "dot_kernel", "direction_kernel",
+                  "update_kernel", "finish_kernel")
+    missing = [k for k in need_names if not any(k in nm for nm in names)]
+    spans = sorted((e["ts"], e["ts"] + e["dur"]) for e in gpu)
+    busy, end = 0.0, -1e300
+    for s0, s1 in spans:
+        if s1 > end:
+            busy += s1 - max(s0, end)
+            end = s1
+    host = [e for e in events if "dur" in e and e.get("ph") == "X"]
+    w0 = min(e["ts"] for e in host)
+    w1 = max(e["ts"] + e["dur"] for e in host)
+    per_kernel = {}
+    for e in gpu:
+        key = e["name"].replace("(anonymous namespace)::", "").split("(")[0]
+        tot, cnt = per_kernel.get(key, (0.0, 0))
+        per_kernel[key] = (tot + e["dur"], cnt + 1)
+    top = sorted(per_kernel.items(), key=lambda kv: -kv[1][0])[:5]
+    tag(f"(g) profile_trace around {r20.iters} iterations of {o20} on the "
+        f"{g}^3 DIA: {os.path.getsize(path)} bytes of Chrome trace, "
+        f"{len(gpu)} device operations; window {1e3 * t_win:.3f} ms (host "
+        f"clock), trace span {1e-3 * (w1 - w0):.3f} ms, device busy "
+        f"{1e-3 * busy:.3f} ms = {100 * busy / (w1 - w0):.1f} % of the "
+        f"span")
+    for nm, (tot, cnt) in top:
+        tag(f"(g) top device op: {nm}: {1e-3 * tot:.3f} ms in {cnt} calls")
+    if missing or r20.iters != 20:
+        fail(f"16g: the trace lacks {missing} (or ran {r20.iters} "
+             f"iterations)")
+    del prof, events, gpu
+
+    # ---- (h) checkpoint / resume ------------------------------------------------
+    S.stamp("phase 16h")
+    ck = os.path.join(work, "ck.npz")
+    r50, got, wall = S.counted(lambda: lis_tpu_torch.solve(
+        Ad, np.ones(n), options=opts + " -maxiter 50"))
+    checkpoint.save_checkpoint(ck, r50)
+    rr, got2, wall2 = S.counted(lambda: checkpoint.resume_solve(
+        Ad, np.ones(n), ck, options=opts))
+    xr = rr.x.cpu().numpy()
+    tr = float(np.linalg.norm(asp @ xr - 1.0) / np.sqrt(n))
+    tag(f"(h) -maxiter 50: status {r50.status} iters {r50.iters}; "
+        f"checkpoint {os.path.getsize(ck)} bytes; resume_solve: status "
+        f"{rr.status} iters {rr.iters} (of which {rr.iters - r50.iters} "
+        f"after the resume), true residual {rr.true_resid:.3e} (scipy "
+        f"{tr:.3e}), walls {wall:.3f} + {wall2:.3f} s")
+    if r50.status != lis.LIS_MAXITER or rr.status != lis.LIS_SUCCESS \
+            or not (rr.true_resid <= 1e-9 and tr <= 1e-9) \
+            or rr.x.device.type != "cuda":
+        fail("16h: checkpoint/resume did not end SUCCESS under 1e-9")
+    del Ad, A, x_a, asp
+    torch.cuda.empty_cache()
+    wall = time.perf_counter() - t_phase
+    print(f"phase time: phase 16 took {wall:.1f} s", flush=True)
 
 
 # block ILU's set-up is lis_tpu's Python loop over the block rows: at 64^3

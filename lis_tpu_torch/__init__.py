@@ -9,26 +9,35 @@ lives on the default device, the card (``device="cpu"`` or
 matrix lives.  Every Pallas kernel on a ported path is a hand-written
 CUDA kernel for Hopper (``csrc/``), built with nvcc at first use.
 
-Ported so far: ``solve()`` with all 25 of lis_tpu's solvers (cg, cr,
-bicg, bicr, cgs, crs, bicgstab, bicrstab, bicgstabl, gpbicg, gpbicr,
-bicgsafe, bicrsafe, tfqmr, orthomin, gmres, fgmres, idrs, idr1, minres,
-cocg, cocr, jacobi, gs, sor); all eleven preconditioners (none, jacobi,
-bjacobi, ssor, ilu, ilut, iluc, is, sainv, saamg, hybrid), with additive
-Schwarz around them (``-adds true``); all six precision modes, ``-f
-double``, ``single`` and the double-double ``quad``, ``switch``, ``df``
-and ``switch_df`` (lis_tpu's 17 ``_quad`` twins); ``-reorder rcm`` and
-``-use_at``; every storage format of lis_tpu: the scalar formats CSR,
-COO, CSC, MSR, ELL, JAD, DNS, DIA and HDI, the block formats BSR, BSC and
-VBR (block ILU, block Jacobi, ``-scale 1 -storage bsr``), and BES,
-multi-BES, CSS and CST, routed by ``auto_storage`` as in lis_tpu (banded →
-DIA, general banded sparsity → BES) unless ``-storage`` says otherwise;
-``MatrixAssembler`` (lis_matrix_set_value / lis_matrix_assemble);
-MatrixMarket (ASCII and binary), Harwell-Boeing, Lis native and PLAIN
-I/O; ``esolve()`` and ``gesolve()`` with all eight of lis_tpu's eigensolvers (pi, ii, rqi, cg,
+Ported so far: all of lis_tpu's single-device surface.  ``solve()``
+with all 25 of lis_tpu's solvers (cg, cr, bicg, bicr, cgs, crs, bicgstab,
+bicrstab, bicgstabl, gpbicg, gpbicr, bicgsafe, bicrsafe, tfqmr, orthomin,
+gmres, fgmres, idrs, idr1, minres, cocg, cocr, jacobi, gs, sor); all
+eleven preconditioners (none, jacobi, bjacobi, ssor, ilu, ilut, iluc, is,
+sainv, saamg, hybrid), with additive Schwarz around them (``-adds
+true``); all six precision modes, ``-f double``, ``single`` and the
+double-double ``quad``, ``switch``, ``df`` and ``switch_df`` (lis_tpu's
+17 ``_quad`` twins); ``-reorder rcm`` and ``-use_at``; every storage
+format of lis_tpu: the scalar formats CSR, COO, CSC, MSR, ELL, JAD, DNS,
+DIA and HDI, the block formats BSR, BSC and VBR (block ILU, block Jacobi,
+``-scale 1 -storage bsr``), and BES, multi-BES, CSS and CST, routed by
+``auto_storage`` as in lis_tpu (banded → DIA, general banded sparsity →
+BES) unless ``-storage`` says otherwise; ``MatrixAssembler``
+(lis_matrix_set_value / lis_matrix_assemble); MatrixMarket (ASCII and
+binary), Harwell-Boeing, Lis native and PLAIN I/O; ``esolve()`` and
+``gesolve()`` with all eight of lis_tpu's eigensolvers (pi, ii, rqi, cg,
 cr, si, li, ai) and their generalized forms (gpi, ..., gai) for Ax = λx
-and Ax = λBx; the ``lsolve``, ``hpcg``, ``esolve``, ``esolver``,
-``gesolve`` and ``gesolver`` command lines (``python -m
-lis_tpu_torch.cli.hpcg 96 96 96``).
+and Ax = λBx; the lis.h compatibility layer (``lis_tpu_torch.compat``:
+handles, ``lis_array_*``, the raw-layout ``lis_matrix_set_*``, PSD, user
+preconditioners), the scipy bindings (``lis_tpu_torch.interop``), the
+integer-handle flat API with its Fortran/C shim and drivers
+(``interop/fapi.py``, ``_native/lisf_tpu.c``, built by
+``_native/lisf.py``), checkpoint/resume and profiling
+(``utils/checkpoint.py``, ``utils/profiling.py``); the ``lsolve``,
+``hpcg``, ``esolve``, ``esolver``, ``gesolve``, ``gesolver`` and
+``spmvtest`` command lines (``python -m lis_tpu_torch.cli.hpcg 96 96
+96``).  Not yet: the distributed layer (lis_tpu's ``parallel/`` and
+``cli/scaling.py``).
 """
 
 from lis_tpu_torch.config import (
@@ -42,6 +51,7 @@ from lis_tpu_torch.config import (
     LIS_ERR_FILE_IO,
     wtime,
     initialize,
+    finalize,
     default_device,
     set_default_device,
 )
@@ -66,21 +76,24 @@ from lis_tpu_torch.matrix.css import CSSMatrix
 from lis_tpu_torch.matrix.convert import convert_matrix
 from lis_tpu_torch.matrix.assembly import (MatrixAssembler, LIS_INS_VALUE,
                                            LIS_ADD_VALUE)
+from lis_tpu_torch.ops.spmv import matvec, matvech
 from lis_tpu_torch.solvers.driver import (solve, SolveResult, auto_storage,
-                                          transform_operator)
+                                          transform_operator,
+                                          SOLVER_REGISTRY)
 from lis_tpu_torch.esolvers.driver import esolve, gesolve, EsolveResult
 from lis_tpu_torch.io import (read_matrix_market, write_matrix_market,
                               read_vector_mm, lis_input, lis_input_vector,
                               lis_output, lis_output_vector,
                               read_harwell_boeing, write_harwell_boeing,
                               read_lis_file, write_lis_file)
+from lis_tpu_torch.utils.trace import set_debug_trace, debug_trace_enabled
 
 __version__ = "0.1.0"
 
 __all__ = [
     "LIS_SUCCESS", "LIS_FAILS", "LIS_ILL_OPTION", "LIS_BREAKDOWN",
     "LIS_OUT_OF_MEMORY", "LIS_MAXITER", "LIS_ERR_NOT_IMPLEMENTED",
-    "LIS_ERR_FILE_IO", "wtime", "initialize", "default_device",
+    "LIS_ERR_FILE_IO", "wtime", "initialize", "finalize", "default_device",
     "set_default_device", "SolverOptions", "EsolverOptions", "SparseMatrix",
     "CSRMatrix",
     "COOMatrix", "CSCMatrix", "MSRMatrix", "ELLMatrix", "JADMatrix",
@@ -88,10 +101,12 @@ __all__ = [
     "MultiBESMatrix", "multi_bes_from_csr", "CSTMatrix", "DIAMatrix",
     "HybridMatrix", "CSSMatrix",
     "convert_matrix", "MatrixAssembler", "LIS_INS_VALUE", "LIS_ADD_VALUE",
-    "solve", "SolveResult", "auto_storage", "transform_operator",
+    "matvec", "matvech",
+    "solve", "SolveResult", "SOLVER_REGISTRY", "auto_storage",
+    "transform_operator",
     "esolve", "gesolve", "EsolveResult",
     "read_matrix_market", "write_matrix_market", "read_vector_mm",
     "lis_input", "lis_input_vector", "lis_output", "lis_output_vector",
     "read_harwell_boeing", "write_harwell_boeing", "read_lis_file",
-    "write_lis_file",
+    "write_lis_file", "set_debug_trace", "debug_trace_enabled",
 ]

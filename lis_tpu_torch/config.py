@@ -84,6 +84,12 @@ def initialize(argv: list[str] | None = None) -> int:
     return LIS_SUCCESS
 
 
+def finalize() -> int:
+    """Analogue of lis_finalize (lis_tpu config.py:81): there is no MPI
+    to tear down, so nothing to do."""
+    return LIS_SUCCESS
+
+
 def get_cmd_args() -> list[str]:
     return _cmd_args
 

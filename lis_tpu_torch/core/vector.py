@@ -19,14 +19,56 @@ beside it.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from lis_tpu_torch.ops import _cuda
 
 
+def axpy(alpha, x, y):
+    """y + alpha*x (lis_vector_axpy semantics, returned functionally)."""
+    return y + alpha * x
+
+
 def xpay(x, alpha, y):
     """x + alpha*y (lis_vector_xpay: y := x + alpha*y)."""
     return x + alpha * y
+
+
+def axpyz(alpha, x, y):
+    """z = alpha*x + y (lis_vector_axpyz)."""
+    return alpha * x + y
+
+
+def scale(alpha, x):
+    return alpha * x
+
+
+def pmul(x, y):
+    """Element-wise product (lis_vector_pmul)."""
+    return x * y
+
+
+def pdiv(x, y):
+    """Element-wise division (lis_vector_pdiv)."""
+    return x / y
+
+
+def set_all(alpha, like):
+    return torch.full_like(like, alpha)
+
+
+def abs_(x):
+    return torch.abs(x)
+
+
+def reciprocal(x):
+    return 1.0 / x
+
+
+def shift(sigma, x):
+    """x - sigma (lis_vector_shift subtracts the scalar)."""
+    return x - sigma
 
 
 def dot(x, y):
@@ -47,6 +89,9 @@ def conj(x):
     return torch.conj_physical(x) if x.is_complex() else x
 
 
+conjugate = conj          # lis_tpu's name (lis_vector_conjugate)
+
+
 def nrm2(x):
     if x.is_complex():
         return torch.sqrt(torch.vdot(x, x).real)
@@ -55,6 +100,32 @@ def nrm2(x):
 
 def nrm1(x):
     return torch.sum(torch.abs(x))
+
+
+def nrmi(x):
+    return torch.max(torch.abs(x))
+
+
+def vsum(x):
+    return torch.sum(x)
+
+
+def gather(v):
+    """Copy a (possibly device-resident) vector into a host numpy array
+    (lis_vector_gather, src/vector/lis_vector.c)."""
+    return v.detach().cpu().numpy() if isinstance(v, torch.Tensor) \
+        else np.asarray(v)
+
+
+def scatter(arr, like=None):
+    """Place a host array on a device as a solver-ready vector
+    (lis_vector_scatter): ``like``'s device and dtype, or the default
+    device."""
+    from lis_tpu_torch.config import default_device
+    t = torch.as_tensor(np.asarray(arr))
+    if like is None:
+        return t.to(default_device())
+    return t.to(device=like.device, dtype=like.dtype)
 
 
 # ---- the fused CG step (kernels G) -----------------------------------------

@@ -1,11 +1,11 @@
 """L/D/U matrix splitting.
 
-Port of ``lis_tpu/matrix/split.py``'s ``split_matrix`` (reference
-lis_matrix_split, src/matrix/lis_matrix_ops.c:860): A = L + D + U with L
-strictly lower, D the diagonal and U strictly upper, for the stationary
-solvers and the level-scheduled SSOR.  The split runs on the
-host CSR arrays (``to_csr_arrays``, cached by the CSR and DIA builds); the
-parts are built on the matrix's device.
+Port of ``lis_tpu/matrix/split.py`` (reference lis_matrix_split,
+src/matrix/lis_matrix_ops.c:860): A = L + D + U with L strictly lower, D
+the diagonal and U strictly upper, for the stationary solvers and the
+level-scheduled SSOR, and ``merge_matrix``, its inverse.  The split runs
+on the host CSR arrays (``to_csr_arrays``, cached by the CSR and DIA
+builds); the parts are built on the matrix's device.
 """
 
 from __future__ import annotations
@@ -54,3 +54,18 @@ def split_matrix(matrix: SparseMatrix) -> SplitMatrix:
                        D=torch.from_numpy(diag).to(dev),
                        Dinv=torch.from_numpy(dinv).to(dev))
 
+
+def merge_matrix(s: SplitMatrix, shape=None) -> CSRMatrix:
+    """Reassemble A = L + D + U from a split (lis_matrix_merge,
+    src/matrix/lis_matrix_ops.c:1052) as a CSR on the split's device,
+    summed on the host."""
+    import scipy.sparse as sp
+    lp, li, lv = s.L.to_csr_arrays()
+    up, ui, uv = s.U.to_csr_arrays()
+    shape = shape or s.L.shape
+    a = (sp.csr_matrix((lv, li, lp), shape=shape)
+         + sp.csr_matrix((uv, ui, up), shape=shape)
+         + sp.diags(s.D.detach().cpu().numpy(), shape=shape)).tocsr()
+    a.sort_indices()
+    return CSRMatrix.from_csr_arrays(a.indptr, a.indices, a.data, shape,
+                                     device=s.L.device)

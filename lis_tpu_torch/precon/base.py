@@ -30,6 +30,14 @@ def user_precon_id(name: str, base: int) -> int:
     return _USER_PRECON_IDS[name]
 
 
+def user_precon_name(pid: int):
+    """The name registered under numeric id ``pid``, or None."""
+    for n, i in _USER_PRECON_IDS.items():
+        if i == pid:
+            return n
+    return None
+
+
 def register_precon(name: str):
     """Register a creation function ``create(A, opts) -> precon``."""
     def deco(fn):

@@ -79,6 +79,9 @@ from lis_tpu_torch.utils.trace import traced
 
 _STORAGE_BY_ID = {i: n for n, i in STORAGE_NAMES.items()}
 
+# every registered solver function by name (lis_tpu driver.py:58)
+SOLVER_REGISTRY = SOLVER_FNS
+
 # The router's throughput estimates, kept from lis_tpu for parity of the
 # decision: they are lis_tpu's estimates of csr-equivalent GB/s at fill
 # blowup 1 on a TPU (BES slabs, CST grid), and the margin by which CST must

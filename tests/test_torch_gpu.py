@@ -1730,3 +1730,145 @@ def test_block_formats_on_the_card(cuda, fmt):
         assert tsm.trisolve.launches - k0 == 2
         want = P_cpu.psolve(x)
         assert (got - want).abs().max() <= 1e-12 * want.abs().max()
+
+
+# ---- the lis.h compatibility layer, the scipy bindings and the shim ------
+
+def _scipy_of(A):
+    ptr, index, value = A.to_csr_arrays()
+    return sp.csr_matrix((value, index, ptr), shape=A.shape)
+
+
+def _compat_system(T, a):
+    """A compat matrix handle assembled from scipy CSR ``a`` by
+    lis_matrix_set_csr (on the default device, the card), and b = ones."""
+    n = a.shape[0]
+    A = T.lis_matrix_create(0)
+    T.lis_matrix_set_size(A, 0, n)
+    T.lis_matrix_set_csr(a.nnz, a.indptr, a.indices, a.data, A)
+    T.lis_matrix_assemble(A)
+    b, x = T.lis_vector_create(0), T.lis_vector_create(0)
+    T.lis_vector_set_size(b, 0, n)
+    T.lis_vector_set_all(1.0, b)
+    T.lis_vector_set_size(x, 0, n)
+    return A, b, x
+
+
+@pytest.mark.gpu
+def test_compat_test4_flow_on_the_card(cuda):
+    """The test4.c flow through lis_tpu_torch.compat on the card: the
+    same status, count and x (bit for bit) as lis_tpu_torch.solve on the
+    same matrix, E once per iteration plus one, G as the fused step."""
+    import lis_tpu_torch.compat as T
+    from lis_tpu_torch.core import vector as v
+    from lis_tpu_torch.matrix import dia
+    from lis_tpu_torch.utils.testmat import poisson3d27
+    a = _scipy_of(poisson3d27(16, 16, 16, device="cpu"))
+    A, b, x = _compat_system(T, a)
+    assert A.m.device.type == "cuda" and b.value.is_cuda
+    s = T.lis_solver_create()
+    T.lis_solver_set_option("-i cg -p jacobi -tol 1e-10", s)
+    fns = (dia.dia_spmv, v.krylov_dot, v.cg_direction, v.cg_update,
+           v.cg_finish)
+    before = [f.launches for f in fns]
+    assert T.lis_solve(A, b, x, s) == T.LIS_SUCCESS
+    e, g1, g2, g3, g4 = (f.launches - b0 for f, b0 in zip(fns, before))
+    it = T.lis_solver_get_iter(s)
+    assert e == it + 1 and (g1, g2, g3, g4) == (it + 1,) + (it,) * 3
+    want = lis_tpu_torch.solve(A.m, np.ones(a.shape[0]),
+                               options="-i cg -p jacobi -tol 1e-10")
+    assert want.iters == it and want.status == T.lis_solver_get_status(s)
+    assert torch.equal(x.value, want.x)
+    assert T.lis_solver_get_residualnorm(s) <= 1e-10
+    assert T.lis_solver_get_time(s) > 0
+
+
+@pytest.mark.gpu
+def test_compat_cst_route_on_the_card(cuda):
+    """A locality-free system through the compat layer with -storage
+    cst (and -scale 1): kernels A and D at least once per iteration (on
+    this n = 2^15 grid B and C and, under -scale 1, #1 did not launch on
+    the card; smoke phase 16b holds all five at n = 2^20), no #1 without
+    -scale, the CPU's count ±1 and x to 1e-8."""
+    import lis_tpu_torch.compat as T
+    from lis_tpu_torch.matrix import cst as cstm
+    n = 1 << 15
+    a = _system(n, 5)
+    A, b, x = _compat_system(T, a)
+    y = T.lis_vector_duplicate(b)
+    kern = (cstm.cst_front, tsh.benes_pass, tsh.benes_pass_rowsum,
+            tsh.benes_small_run, tsh.lane_shuffle)
+    for extra in ("", " -scale 1"):
+        opts = "-i cg -p jacobi -storage cst -tol 1e-10" + extra
+        s = T.lis_solver_create()
+        T.lis_solver_set_option(opts, s)
+        before = [f.launches for f in kern]
+        assert T.lis_solve(A, b, x, s) == T.LIS_SUCCESS
+        got = [f.launches - b0 for f, b0 in zip(kern, before)]
+        it = T.lis_solver_get_iter(s)
+        assert got[0] >= it and got[3] >= it
+        assert extra or got[4] == 0
+        want = lis_tpu_torch.solve(
+            lis_tpu_torch.CSRMatrix.from_csr_arrays(
+                a.indptr, a.indices, a.data, a.shape, device="cpu"),
+            np.ones(n), options=opts)
+        assert abs(want.iters - it) <= 1
+        torch.testing.assert_close(x.value.cpu(), want.x, rtol=1e-8,
+                                   atol=1e-10)
+    T.lis_vector_set_all(1.0, x)
+    T.lis_matvec(A, x, y)
+    torch.testing.assert_close(y.value.cpu(),
+                               torch.from_numpy(a @ np.ones(n)),
+                               rtol=1e-12, atol=1e-12)
+
+
+@pytest.mark.gpu
+def test_scipy_cg_on_the_card(cuda):
+    import lis_tpu_torch.interop as I
+    from lis_tpu_torch.utils.testmat import poisson3d27
+    a = _scipy_of(poisson3d27(12, 12, 12, device="cpu"))
+    b = np.ones(a.shape[0])
+    x, info = I.cg(a, b, rtol=1e-10, M="jacobi")
+    assert info == 0 and isinstance(x, np.ndarray)
+    assert np.linalg.norm(b - a @ x) / np.linalg.norm(b) <= 1e-9
+
+
+@pytest.mark.gpu
+def test_fortran_shim_on_the_card(cuda, tmp_path):
+    """test2f through the port's shim, with no device variable: the
+    card.  Its count equals the in-process compat run on the card and
+    its solution file matches it to 1e-12; with no visible card it
+    fails (no CPU fallback)."""
+    import os
+    import re
+    import subprocess
+    import lis_tpu_torch.compat as T
+    from lis_tpu_torch._native import lisf
+    from lis_tpu_torch.io import lis_input_vector
+    exes = lisf.build(str(tmp_path), drivers=("test2f",))
+    env = {k: v for k, v in os.environ.items()
+           if k != "LIS_TPU_TORCH_DEVICE"}
+    args = [exes["test2f"], "64", "64", "1", "sol", "rh", "-i", "cg", "-p",
+            "jacobi", "-tol", "1e-10"]
+    r = subprocess.run(args, cwd=tmp_path, env=env, capture_output=True,
+                       text=True, timeout=300)
+    assert r.returncode == 0, (r.stdout, r.stderr)
+    it = int(re.search(r"cg: number of iterations = (\d+)", r.stdout)[1])
+    m = 64
+    t = sp.diags([-1.0, 2.0, -1.0], [-1, 0, 1], shape=(m, m))
+    a = sp.kronsum(t, t, format="csr")
+    a.sort_indices()
+    A, b, x = _compat_system(T, a)
+    u = T.lis_vector_duplicate(b)
+    T.lis_vector_set_all(1.0, u)
+    T.lis_matvec(A, u, b)
+    s = T.lis_solver_create()
+    T.lis_solver_set_option("-i cg -p jacobi -tol 1e-10", s)
+    T.lis_solve(A, b, x, s)
+    assert it == T.lis_solver_get_iter(s)
+    got = lis_input_vector(str(tmp_path / "sol"), device="cpu")
+    torch.testing.assert_close(got, x.value.cpu(), rtol=1e-12, atol=1e-12)
+    r = subprocess.run(args, cwd=tmp_path, timeout=300, text=True,
+                       env=dict(env, CUDA_VISIBLE_DEVICES=""),
+                       capture_output=True)
+    assert r.returncode != 0 and "CHKERR" in r.stderr

@@ -1,5 +1,6 @@
 """lis_tpu_torch imports without JAX or lis_tpu, and its import builds
-nothing (kernels compile at first use on a CUDA device)."""
+nothing (kernels compile at first use on a CUDA device; the host library
+and the Fortran/C shim at first use)."""
 
 import os
 import subprocess
@@ -30,10 +31,17 @@ import lis_tpu_torch.esolvers.driver, lis_tpu_torch.esolvers.power
 import lis_tpu_torch.esolvers.cgcr, lis_tpu_torch.esolvers.subspace
 import lis_tpu_torch.cli.esolve, lis_tpu_torch.cli.esolver
 import lis_tpu_torch.cli.gesolve, lis_tpu_torch.cli.gesolver
+import lis_tpu_torch.compat, lis_tpu_torch.interop
+import lis_tpu_torch.interop.fapi, lis_tpu_torch.cli.spmvtest
+import lis_tpu_torch.utils.checkpoint, lis_tpu_torch.utils.profiling
+import lis_tpu_torch.core.array, lis_tpu_torch.ops.spmv
+import lis_tpu_torch._native.lisf as lisf
 import lis_tpu_torch.ops._cuda as cu
+import lis_tpu_torch._native as nat
 bad = sorted(m for m in sys.modules
              if m.split('.')[0] in ('jax', 'jaxlib', 'lis_tpu'))
-print(bad, cu._lib is None)
+print(bad, cu._lib is None and nat._lib is None
+      and lisf.build_seconds == 0.0)
 """
 
 
@@ -53,3 +61,18 @@ def test_host_library_source_is_the_ports_own():
     src = os.path.realpath(_native._SRC)
     assert src.startswith(pkg) and os.path.isfile(src)
     assert not src.startswith(os.path.join(_ROOT, "lis_tpu") + os.sep)
+
+
+def test_shim_sources_are_the_ports_own():
+    """The Fortran/C shim and its drivers build from the port's copies,
+    and the build writes outside the source tree."""
+    from lis_tpu_torch._native import lisf
+    pkg = os.path.join(_ROOT, "lis_tpu_torch") + os.sep
+    srcs = [lisf.SHIM_SRC] + [lisf._driver_src(d) for d in lisf.DRIVERS]
+    for src in map(os.path.realpath, srcs):
+        assert src.startswith(pkg) and os.path.isfile(src), src
+    assert not lisf.default_dir().startswith(pkg)
+    with open(lisf.SHIM_SRC) as f:
+        text = f.read()
+    assert '"lis_tpu_torch.interop.fapi"' in text
+    assert '"lis_tpu.interop.fapi"' not in text
