@@ -36,8 +36,13 @@ integer-handle flat API with its Fortran/C shim and drivers
 (``utils/checkpoint.py``, ``utils/profiling.py``); the ``lsolve``,
 ``hpcg``, ``esolve``, ``esolver``, ``gesolve``, ``gesolver`` and
 ``spmvtest`` command lines (``python -m lis_tpu_torch.cli.hpcg 96 96
-96``).  Not yet: the distributed layer (lis_tpu's ``parallel/`` and
-``cli/scaling.py``).
+96``); the distributed linear solve (``lis_tpu_torch.parallel``: one
+process per rank over ``torch.distributed``, ``launch`` / ``RankPool``,
+the sharded DIA, CSR (gather, neighbour and comm-table halos), CST, BES,
+multi-BES and hybrid operators, ``dist_solve`` at every precision with
+the block-local preconditioners, hybrid and SA-AMG) and the scaling
+harness (``cli/scaling.py``).  Not yet: the distributed eigensolvers
+(lis_tpu's ``parallel/dist_esolve.py``).
 """
 
 from lis_tpu_torch.config import (

@@ -28,9 +28,10 @@ and takes the plain version beside it for a CPU tensor:
   algebra, which so stays on the device in one launch an operation.
 
 ``neg``, ``where``, ``is_zero`` and ``to_float`` are torch operations, and
-a solver loop reads the host only for its condition.  There is no
-``axis_name`` (the distributed reduction waits for ROADMAP.md queue 1
-item 13).  A DIA operator stays DIA; a BES or multi-BES operator under
+a solver loop reads the host only for its condition.  ``dot``, ``nrm2``,
+``nrm1`` and ``_dd_sum`` take lis_tpu's ``axis_name``: with a mesh, the
+local kernel-O result is all-gathered and summed by lis_tpu's tree
+(``_mesh_sum``).  A DIA operator stays DIA; a BES or multi-BES operator under
 f32 limbs keeps its slabs (``DDBesOperator``, ``DDF64Operator``: one f64
 accumulation through kernels Q and R, then the split into limbs, as in
 lis_tpu); every other operator, and BES under f64 limbs, takes the ELL
@@ -421,23 +422,39 @@ def dd_reduce(mode: int, x: DD, y=None) -> DD:
 dd_reduce.launches = 0
 
 
-def _dd_sum(x: DD) -> DD:
+def _mesh_sum(s: DD, mesh) -> DD:
+    """The ranks' 0-d DD partials summed as lis_tpu's ``_dd_sum`` does
+    under a mesh axis (the reference's lis_mpi_msum reduction op): one
+    all-gather of every rank's (hi, lo), zero-padded to a power of two,
+    then the halving tree of ``_add`` in rank order and the final
+    renormalisation.  The local partial arrives renormalised by kernel O,
+    which lis_tpu's local tree leaves to the end."""
+    both = mesh.all_gather(torch.stack([s.hi, s.lo])).view(-1, 2)
+    return _halving_sum(both[:, 0].contiguous(), both[:, 1].contiguous())
+
+
+def _dd_sum(x: DD, axis_name=None) -> DD:
     """Reduction of a DD array to a DD scalar by the pairwise two-sum tree
-    (lis_tpu's ``_dd_sum`` without its ``axis_name`` branch)."""
-    return dd_reduce(_SUM, x)
+    (lis_tpu's ``_dd_sum``), over the mesh ``axis_name`` when given."""
+    s = dd_reduce(_SUM, x)
+    return s if axis_name is None else _mesh_sum(s, axis_name)
 
 
-def dot(x: DD, y: DD) -> DD:
+def dot(x: DD, y: DD, axis_name=None) -> DD:
     """dotex_mmm: elementwise DD products, then the compensated sum."""
-    return dd_reduce(_DOT, x, y)
+    s = dd_reduce(_DOT, x, y)
+    return s if axis_name is None else _mesh_sum(s, axis_name)
 
 
-def nrm2(x: DD) -> DD:
-    return dd_reduce(_NRM2, x)
+def nrm2(x: DD, axis_name=None) -> DD:
+    if axis_name is None:
+        return dd_reduce(_NRM2, x)
+    return _sqrt(_mesh_sum(dd_reduce(_DOT, x, x), axis_name))
 
 
-def nrm1(x: DD) -> DD:
-    return dd_reduce(_NRM1, x)
+def nrm1(x: DD, axis_name=None) -> DD:
+    s = dd_reduce(_NRM1, x)
+    return s if axis_name is None else _mesh_sum(s, axis_name)
 
 
 # ---- kernels M and N: the DD matvecs ----------------------------------------

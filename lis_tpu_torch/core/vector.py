@@ -3,8 +3,10 @@
 Port of ``lis_tpu/core/vector.py`` (reference src/vector/lis_vector_ops.c):
 vectors are torch tensors and every reduction returns a 0-d tensor on the
 vector's device, so a solver loop never waits for the device unless it
-reads a value on the host.  There is no ``axis_name``: the distributed
-layer is ported last (ROADMAP.md queue 1 item 13).
+reads a value on the host.  Each reduction takes lis_tpu's ``axis_name``:
+None (serial, no collective) or the ``parallel.mesh.Mesh`` of a
+distributed solve, over which the local value is all-reduced (lis_tpu's
+``psum`` / ``pmax``, the reference's MPI_Allreduce).
 
 The second half is the fused CG step (kernels G, ``csrc/krylov.cu``):
 lis_tpu compiles its Krylov loop to one XLA while-loop, whose vector
@@ -71,15 +73,21 @@ def shift(sigma, x):
     return x - sigma
 
 
-def dot(x, y):
+def _reduced(local, axis_name, op="sum"):
+    """``local`` all-reduced over the mesh ``axis_name`` (None: as it is)."""
+    return local if axis_name is None else axis_name.all_reduce(local, op)
+
+
+def dot(x, y, axis_name=None):
     """<x, y> with conjugation of x for complex (lis_vector_dot)."""
-    return torch.vdot(x, y) if x.is_complex() else torch.dot(x, y)
+    return _reduced(torch.vdot(x, y) if x.is_complex() else torch.dot(x, y),
+                    axis_name)
 
 
-def nhdot(x, y):
+def nhdot(x, y, axis_name=None):
     """Σ x_i·y_i, neither side conjugated (lis_vector_nhdot): the
     bilinear form of the complex-symmetric solvers COCG and COCR."""
-    return torch.dot(x, y)
+    return _reduced(torch.dot(x, y), axis_name)
 
 
 def conj(x):
@@ -92,22 +100,23 @@ def conj(x):
 conjugate = conj          # lis_tpu's name (lis_vector_conjugate)
 
 
-def nrm2(x):
-    if x.is_complex():
-        return torch.sqrt(torch.vdot(x, x).real)
-    return torch.sqrt(torch.dot(x, x))
+def nrm2(x, axis_name=None):
+    local = torch.vdot(x, x).real if x.is_complex() else torch.dot(x, x)
+    if axis_name is not None:
+        local = axis_name.all_reduce(local.clone())
+    return torch.sqrt(local)
 
 
-def nrm1(x):
-    return torch.sum(torch.abs(x))
+def nrm1(x, axis_name=None):
+    return _reduced(torch.sum(torch.abs(x)), axis_name)
 
 
-def nrmi(x):
-    return torch.max(torch.abs(x))
+def nrmi(x, axis_name=None):
+    return _reduced(torch.max(torch.abs(x)), axis_name, "max")
 
 
-def vsum(x):
-    return torch.sum(x)
+def vsum(x, axis_name=None):
+    return _reduced(torch.sum(x), axis_name)
 
 
 def gather(v):

@@ -4,10 +4,19 @@
 // chain of lis_tpu/matrix/dia.py::DIAMatrix.matvec (:119) and the square
 // branch of matvech (:136-146) into one loop.  PyTorch runs two launches
 // and one temporary per diagonal, so the port writes the loop by hand.
-// With val the (nnd, n) row-major diagonals, val[k, i] = A[i, i + off_k]:
+// With val the (nnd, n) row-major diagonals of the n x ncols matrix A,
+// val[k, i] = A[i, i + off_k]:
 //
-//     E:  y[i] = sum_k val[k, i] * x[i + off_k]           0 <= i + off_k < ncols
-//     F:  y[j] = sum_k conj(val[k, j - off_k]) * x[j - off_k]   (square A)
+//     E:  y[i] = sum_k val[k, i] * x[i + off_k]      i < n,  0 <= i + off_k < ncols
+//     F:  y[j] = sum_k conj(val[k, j - off_k]) * x[j - off_k]
+//                                                    j < ncols, 0 <= j - off_k < n
+//
+// F is y = A^H x for the same rectangular A: x has n entries, y has ncols.
+// A rank of a distributed DIA operator (lis_tpu_torch/parallel/dist.py)
+// holds its nlocal rows as an nlocal x (nlocal + 2 hw) matrix over
+// [left halo | own | right halo] columns; F gives the columns' partial
+// sums, whose halo parts go back to their owners (the reference's
+// lis_reduce).  Square A (ncols = n) is the serial matvech.
 //
 // Bound on the H100: bytes.  The diagonals are read exactly once,
 // (nnd n + 2 n) elements with the vector in and out; the nnd shifted reads
@@ -58,7 +67,7 @@ __device__ __forceinline__ void mul_acc(Cx<T>& a, Cx<T> v, Cx<T> x) {
 }
 
 // H = false: kernel E (y has n entries, x has ncols).
-// H = true:  kernel F (square: y and x have n entries).
+// H = true:  kernel F (y has ncols entries, x has n).
 template <typename V, typename U, bool H>
 __global__ void __launch_bounds__(kThreads)
 dia_kernel(const V* __restrict__ val, const int64_t* __restrict__ off,
@@ -68,7 +77,7 @@ dia_kernel(const V* __restrict__ val, const int64_t* __restrict__ off,
     for (int k = threadIdx.x; k < nnd; k += kThreads) offs[k] = off[k];
     __syncthreads();
     const int64_t i = blockIdx.x * int64_t(kThreads) + threadIdx.x;
-    if (i >= n) return;
+    if (i >= (H ? ncols : n)) return;
     U acc = zero_of(U{});
 #pragma unroll 4
     for (int k = 0; k < nnd; ++k) {
@@ -89,7 +98,7 @@ dia_kernel(const V* __restrict__ val, const int64_t* __restrict__ off,
 template <typename V, typename U>
 void launch(bool h, const void* val, const void* off, const void* x, void* y,
             int64_t n, int64_t ncols, int nnd, cudaStream_t st) {
-    const int64_t blocks = (n + kThreads - 1) / kThreads;
+    const int64_t blocks = ((h ? ncols : n) + kThreads - 1) / kThreads;
     if (blocks == 0) return;
     if (h)
         dia_kernel<V, U, true><<<(unsigned)blocks, kThreads, 0, st>>>(
@@ -105,7 +114,8 @@ void launch(bool h, const void* val, const void* off, const void* x, void* y,
 int dispatch(bool h, int vtype, int xtype, const void* val, const void* off,
              const void* x, void* y, int64_t n, int64_t ncols, int64_t nnd,
              void* stream) {
-    if (nnd < 0 || nnd > kMaxNnd || n < 0) return (int)cudaErrorInvalidValue;
+    if (nnd < 0 || nnd > kMaxNnd || n < 0 || ncols < 0)
+        return (int)cudaErrorInvalidValue;
     cudaStream_t st = static_cast<cudaStream_t>(stream);
     const int key = vtype * 4 + xtype;
     switch (key) {
@@ -130,7 +140,7 @@ LIS_EXPORT int lis_dia_spmv(int vtype, int xtype, const void* val,
     return dispatch(false, vtype, xtype, val, off, x, y, n, ncols, nnd, stream);
 }
 
-// square A: val (nnd*n,), off (nnd,) int64, x (n,), y (n,).
+// val (nnd*n,), off (nnd,) int64, x (n,), y (ncols,).
 LIS_EXPORT int lis_dia_spmvh(int vtype, int xtype, const void* val,
                              const void* off, const void* x, void* y,
                              int64_t n, int64_t ncols, int64_t nnd,

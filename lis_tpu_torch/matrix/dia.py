@@ -126,21 +126,29 @@ dia_spmv.launches = 0
 
 
 def dia_spmvh(value: torch.Tensor, off: torch.Tensor, offsets,
-              x: torch.Tensor) -> torch.Tensor:
-    """``(Aᴴx)[j] = Σ_k conj(value[k, j − off_k]) · x[j − off_k]`` for a
-    square matrix: shifted streams of value and x, no scatter.
+              x: torch.Tensor, ncols: int | None = None) -> torch.Tensor:
+    """``(Aᴴx)[j] = Σ_k conj(value[k, j − off_k]) · x[j − off_k]`` for the
+    n × ``ncols`` matrix of ``dia_spmv`` (None: square): x has n entries,
+    the result ``ncols``; terms with ``j − off_k`` outside [0, n) are
+    dropped.  Shifted streams of value and x, no scatter.  The
+    rectangular form gives a rank of a distributed DIA operator the
+    column sums over its halo-extended columns.
 
-    Kernel F.  lis_tpu leaves this loop to XLA (matrix/dia.py:136-146).
-    Bound on the H100: bytes, as for kernel E."""
+    Kernel F.  lis_tpu leaves the square loop to XLA (matrix/dia.py:
+    136-146) and its distributed transpose to per-diagonal value slabs
+    (parallel/dist.py:1288-1313).  Bound on the H100: bytes, as for
+    kernel E."""
     n = value.shape[1]
+    ncols = n if ncols is None else int(ncols)
     if x.shape[0] != n:
         raise ValueError(f"dia_spmvh: x has {x.shape[0]} entries, A has "
                          f"{n} rows")
     if not x.is_cuda:
         if x.device.type != "cpu":
             raise ValueError(f"no kernel or plain path for {x.device}")
-        return _spmvh_plain(value, offsets, x, n)
-    return _launch("lis_dia_spmvh", dia_spmvh, value, off, x, n, n, n)
+        return _spmvh_plain(value, offsets, x, ncols)
+    return _launch("lis_dia_spmvh", dia_spmvh, value, off, x, n, ncols,
+                   ncols)
 
 
 dia_spmvh.launches = 0

@@ -46,6 +46,9 @@ class SolverSpec(NamedTuple):
     # -print out/all: print each iteration's residual from the host loop
     # (reference lis_solver_cg.c:217-221 prints live)
     live_print: bool = False
+    # the parallel.mesh.Mesh of a distributed solve, over which every
+    # reduction is all-reduced (lis_tpu's mesh axis); None: serial
+    axis_name: Any = None
     # steps between host reads of the loop condition.  1 measured fastest
     # on the H100 for CST and CSR at n = 2^16 and 2^20 (PERF.md):
     # a read costs less than the steps a longer interval runs past
@@ -99,8 +102,8 @@ def residual_norm(r, bnrm_inv, spec: SolverSpec):
     """Per-iteration convergence measure (lis_solver_get_residual[conv]):
     nrm2_r / nrm2_b return ||r||₂ normalised, nrm1_b the raw ||r||₁."""
     if spec.conv_cond == 2:
-        return v.nrm1(r)
-    return v.nrm2(r) * bnrm_inv
+        return v.nrm1(r, spec.axis_name)
+    return v.nrm2(r, spec.axis_name) * bnrm_inv
 
 
 def init_residual(A, b, x0, spec: SolverSpec):
@@ -110,17 +113,18 @@ def init_residual(A, b, x0, spec: SolverSpec):
     1/||b||₂ (nrm2_b) or 1/||b||₁ (nrm1_b, with tol adjusted by tol_w);
     zero norms fall back to 1 like the reference."""
     r = b - A.matvec(x0)
+    ax = spec.axis_name
     if spec.conv_cond == 0:
-        ref = v.nrm2(r)
+        ref = v.nrm2(r, ax)
         nrm0 = ref
         tol_eff = spec.tol
     elif spec.conv_cond == 1:
-        ref = v.nrm2(b)
-        nrm0 = v.nrm2(r)
+        ref = v.nrm2(b, ax)
+        nrm0 = v.nrm2(r, ax)
         tol_eff = spec.tol
     else:
-        ref = v.nrm1(b)
-        nrm0 = v.nrm1(r)
+        ref = v.nrm1(b, ax)
+        nrm0 = v.nrm1(r, ax)
         tol_eff = ref * spec.tol_w + spec.tol
         return r, _inv_or_one(ref), tol_eff, nrm0    # raw ||r0||₁
     bnrm_inv = _inv_or_one(ref)

@@ -36,14 +36,14 @@ def bicg(A, b, x0, M, spec: SolverSpec) -> SolverOutput:
     def step(s):
         z = M.psolve(s["r"])
         ztld = M.psolveh(s["rtld"])
-        rho = v.dot(s["rtld"], z)
+        rho = v.dot(s["rtld"], z, spec.axis_name)
         broke1 = rho == 0.0
         beta = rho / s["rho_old"]
         p = v.xpay(z, beta, s["p"])
         q = A.matvec(p)
         ptld = v.xpay(ztld, v.conj(beta), s["ptld"])
         qtld = A.matvech(ptld)
-        tmpdot1 = v.dot(ptld, q)
+        tmpdot1 = v.dot(ptld, q, spec.axis_name)
         broke = broke1 | (tmpdot1 == 0.0)
         alpha = rho / torch.where(tmpdot1 == 0.0, one, tmpdot1)
         x = s["x"] + alpha * p
@@ -75,7 +75,7 @@ def bicr(A, b, x0, M, spec: SolverSpec) -> SolverOutput:
     z = M.psolve(r)
     ztld = M.psolveh(rtld)
     ap = A.matvec(z)
-    rho_old = v.dot(ztld, ap)
+    rho_old = v.dot(ztld, ap, spec.axis_name)
 
     state = dict(it=loop_scalar(1, b), flag=loop_scalar(RUNNING, b),
                  x=x0, r=r, rtld=rtld, z=z, ztld=ztld, p=z, ptld=ztld,
@@ -84,7 +84,7 @@ def bicr(A, b, x0, M, spec: SolverSpec) -> SolverOutput:
     def step(s):
         aptld = A.matvech(s["ptld"])
         map_ = M.psolve(s["ap"])
-        tmpdot1 = v.dot(aptld, map_)
+        tmpdot1 = v.dot(aptld, map_, spec.axis_name)
         broke1 = tmpdot1 == 0.0
         alpha = s["rho_old"] / torch.where(broke1, one, tmpdot1)
         x = s["x"] + alpha * s["p"]
@@ -95,7 +95,7 @@ def bicr(A, b, x0, M, spec: SolverSpec) -> SolverOutput:
         z = s["z"] - alpha * map_
         ztld = M.psolveh(rtld)
         az = A.matvec(z)
-        rho = v.dot(ztld, az)
+        rho = v.dot(ztld, az, spec.axis_name)
         broke = broke1 | ((rho == 0.0) & ~conv)
         beta = rho / torch.where(s["rho_old"] == 0.0, one, s["rho_old"])
         p = v.xpay(z, beta, s["p"])

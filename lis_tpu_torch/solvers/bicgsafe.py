@@ -37,13 +37,15 @@ def bicgsafe(A, b, x0, M, spec: SolverSpec) -> SolverOutput:
 
     state = dict(it=loop_scalar(1, b), flag=loop_scalar(RUNNING, b),
                  x=x0, r=r, mr=mr, amr=amr, p=mr, ap=amr, u=z0, au=z0,
-                 y=z0, z=z0, beta=beta0, rho_old=v.dot(rtld, r), nrm=nrm0,
+                 y=z0, z=z0, beta=beta0,
+                 rho_old=v.dot(rtld, r, spec.axis_name), nrm=nrm0,
                  rh=rh)
 
     def step(s):
-        tdot = v.dot(rtld, s["ap"])
+        tdot = v.dot(rtld, s["ap"], spec.axis_name)
         alpha = s["rho_old"] / torch.where(tdot == 0.0, one, tdot)
-        qsi, eta = qsi_eta(s["it"] == 1, s["y"], s["r"], s["amr"])
+        qsi, eta = qsi_eta(s["it"] == 1, s["y"], s["r"], s["amr"],
+                           spec.axis_name)
         t = qsi * s["ap"] + eta * s["y"]
         u = M.psolve(t) + eta * s["beta"] * s["u"]
         au = A.matvec(u)
@@ -53,7 +55,7 @@ def bicgsafe(A, b, x0, M, spec: SolverSpec) -> SolverOutput:
         r = s["r"] - alpha * s["ap"] - y
         nrm = residual_norm(r, bnrm_inv, spec)
         conv = nrm <= tol_eff
-        rho = v.dot(rtld, r)
+        rho = v.dot(rtld, r, spec.axis_name)
         broke = (rho == 0.0) & ~conv
         beta = (rho / torch.where(s["rho_old"] == 0.0, one, s["rho_old"])) \
             * (alpha / torch.where(qsi == 0.0, one, qsi))
@@ -84,14 +86,16 @@ def bicrsafe(A, b, x0, M, spec: SolverSpec) -> SolverOutput:
 
     state = dict(it=loop_scalar(1, b), flag=loop_scalar(RUNNING, b),
                  x=x0, r=r, mr=mr, amr=amr, p=mr, ap=amr, u=z0, au=z0,
-                 y=z0, my=z0, z=z0, beta=beta0, rho_old=v.dot(rtld, amr),
+                 y=z0, my=z0, z=z0, beta=beta0,
+                 rho_old=v.dot(rtld, amr, spec.axis_name),
                  nrm=nrm0, rh=rh)
 
     def step(s):
         map_ = M.psolve(s["ap"])
-        tdot = v.dot(artld, map_)
+        tdot = v.dot(artld, map_, spec.axis_name)
         alpha = s["rho_old"] / torch.where(tdot == 0.0, one, tdot)
-        qsi, eta = qsi_eta(s["it"] == 1, s["y"], s["r"], s["amr"])
+        qsi, eta = qsi_eta(s["it"] == 1, s["y"], s["r"], s["amr"],
+                           spec.axis_name)
         u = qsi * map_ + eta * s["my"] + eta * s["beta"] * s["u"]
         au = A.matvec(u)
         z = qsi * s["mr"] + eta * s["z"] - alpha * u
@@ -103,7 +107,7 @@ def bicrsafe(A, b, x0, M, spec: SolverSpec) -> SolverOutput:
         conv = nrm <= tol_eff
         mr = s["mr"] - alpha * map_ - my
         amr = A.matvec(mr)
-        rho = v.dot(rtld, amr)
+        rho = v.dot(rtld, amr, spec.axis_name)
         broke = (rho == 0.0) & ~conv
         beta = (rho / torch.where(s["rho_old"] == 0.0, one, s["rho_old"])) \
             * (alpha / torch.where(qsi == 0.0, one, qsi))

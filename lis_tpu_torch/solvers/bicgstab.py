@@ -33,21 +33,21 @@ def bicgstab(A, b, x0, M, spec: SolverSpec) -> SolverOutput:
                  nrm=nrm0, rh=rh)
 
     def step(s):
-        rho = v.dot(rtld, s["r"])
+        rho = v.dot(rtld, s["r"], spec.axis_name)
         broke1 = rho == 0.0
         beta = (rho / s["rho_old"]) * (s["alpha"] / s["omega"])
         p = torch.where(s["it"] == 1, s["r"],
                         s["r"] + beta * (s["p"] - s["omega"] * s["vv"]))
         phat = M.psolve(p)
         vv = A.matvec(phat)
-        tmpdot1 = v.dot(rtld, vv)
+        tmpdot1 = v.dot(rtld, vv, spec.axis_name)
         alpha = rho / torch.where(tmpdot1 == 0.0, one, tmpdot1)
         srec = s["r"] - alpha * vv                      # intermediate s
         nrm_s = residual_norm(srec, bnrm_inv, spec)
         early = nrm_s <= tol_eff                        # early exit on s
         shat = M.psolve(srec)
         t = A.matvec(shat)
-        omega = v.dot(t, srec) / v.dot(t, t)
+        omega = v.dot(t, srec, spec.axis_name) / v.dot(t, t, spec.axis_name)
         x_full = s["x"] + alpha * phat + omega * shat
         r_full = srec - omega * t
         nrm_full = residual_norm(r_full, bnrm_inv, spec)
@@ -80,7 +80,7 @@ def bicrstab(A, b, x0, M, spec: SolverSpec) -> SolverOutput:
     one = torch.ones((), dtype=b.dtype, device=b.device)
     rtld = A.matvech(v.conj(r))
     z = M.psolve(r)
-    rho_old = v.dot(rtld, z)
+    rho_old = v.dot(rtld, z, spec.axis_name)
 
     state = dict(it=loop_scalar(1, b), flag=loop_scalar(RUNNING, b),
                  x=x0, r=r, z=z, p=z, rho_old=rho_old, nrm=nrm0, rh=rh)
@@ -88,19 +88,20 @@ def bicrstab(A, b, x0, M, spec: SolverSpec) -> SolverOutput:
     def step(s):
         ap = A.matvec(s["p"])
         map_ = M.psolve(ap)
-        tmpdot1 = v.dot(rtld, map_)
+        tmpdot1 = v.dot(rtld, map_, spec.axis_name)
         alpha = s["rho_old"] / torch.where(tmpdot1 == 0.0, one, tmpdot1)
         srec = s["r"] - alpha * ap
         nrm_s = residual_norm(srec, bnrm_inv, spec)
         early = nrm_s <= tol_eff
         ms = s["z"] - alpha * map_
         ams = A.matvec(ms)
-        omega = v.dot(ams, srec) / v.dot(ams, ams)
+        omega = (v.dot(ams, srec, spec.axis_name)
+                 / v.dot(ams, ams, spec.axis_name))
         x_full = s["x"] + alpha * s["p"] + omega * ms
         r_full = srec - omega * ams
         nrm_full = residual_norm(r_full, bnrm_inv, spec)
         z_new = M.psolve(r_full)
-        rho = v.dot(rtld, z_new)
+        rho = v.dot(rtld, z_new, spec.axis_name)
         conv_full = nrm_full <= tol_eff
         broke = (rho == 0.0) & ~early & ~conv_full
         beta = (rho / s["rho_old"]) * (

@@ -53,14 +53,14 @@ def bicgstabl(A, b, x0, M, spec: SolverSpec) -> SolverOutput:
         rho0 = -s["omega"] * s["rho0"]
         for j in range(l):
             active = flag == RUNNING
-            rho1 = v.dot(rtld, R[j])
+            rho1 = v.dot(rtld, R[j], spec.axis_name)
             broke1 = (rho1 == 0.0) & active
             beta = alpha * (rho1 / torch.where(rho0 == 0, one, rho0))
             U[: j + 1] = torch.where(active, R[: j + 1] - beta * U[: j + 1],
                                      U[: j + 1])
             U[j + 1] = torch.where(active, A.matvec(M.psolve(U[j])),
                                    U[j + 1])
-            nu = v.dot(rtld, U[j + 1])
+            nu = v.dot(rtld, U[j + 1], spec.axis_name)
             broke2 = (nu == 0.0) & active
             alpha_new = rho1 / torch.where(nu == 0, one, nu)
             xc = torch.where(active, xc + alpha_new * U[0], xc)
@@ -90,13 +90,13 @@ def bicgstabl(A, b, x0, M, spec: SolverSpec) -> SolverOutput:
         gamma1 = [zero] * (l + 1)
         for j in range(1, l + 1):
             for i in range(1, j):
-                nu = v.dot(R[j], R[i]) / torch.where(sigma[i] == 0, one,
-                                                     sigma[i])
+                nu = v.dot(R[j], R[i], spec.axis_name) / torch.where(
+                    sigma[i] == 0, one, sigma[i])
                 tau[i][j] = nu
                 R[j] -= nu * R[i]
-            sigma[j] = v.dot(R[j], R[j])
-            gamma1[j] = v.dot(R[0], R[j]) / torch.where(sigma[j] == 0, one,
-                                                        sigma[j])
+            sigma[j] = v.dot(R[j], R[j], spec.axis_name)
+            gamma1[j] = v.dot(R[0], R[j], spec.axis_name) / torch.where(
+                sigma[j] == 0, one, sigma[j])
         gamma = [zero] * (l + 1)
         gamma[l] = gamma1[l]
         for j in range(l - 1, 0, -1):

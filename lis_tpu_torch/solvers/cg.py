@@ -53,19 +53,35 @@ def cg_fused(A, b, x0, M, spec, r, bnrm_inv, tol_eff, nrm0, rh):
     if type(M) is JacobiPrecon and M.dinv.dtype == b.dtype:
         dinv = M.dinv.contiguous()
     folded = dinv is not None or type(M) is NonePrecon
+    mesh = spec.axis_name
+
+    def reduce(rows):
+        # under a mesh the block partials of a slot are all-reduced between
+        # the kernel that writes them and the one that sums them (every
+        # rank has the same block count: the shards are padded alike)
+        if mesh is not None:
+            mesh.all_reduce(rows)
+
     if folded:
         v.krylov_dot(r, r if dinv is None else dinv,
                      None if dinv is None else r, ws, v.P_RHO)
+        reduce(ws.part[v.P_RHO])
 
     def step(s):
         z = None
         if not folded:
             z = M.psolve(r).contiguous()
             v.krylov_dot(r, z, None, ws, v.P_RHO)
+            reduce(ws.part[v.P_RHO])
         v.cg_direction(p, r, z, dinv, ws)
         q = A.matvec(p).contiguous()
         v.krylov_dot(p, q, None, ws, v.P_PQ)
+        reduce(ws.part[v.P_PQ])
         v.cg_update(x, r, p, q, dinv, ws, next_rho=folded)
+        # P_NRM, and the next step's P_RHO when folded, in one collective:
+        # the P_PQ row it also sums was read by cg_update and is written
+        # again before any kernel reads it
+        reduce(ws.part if folded else ws.part[v.P_NRM])
         v.cg_finish(ws, rh)
         return s
 
@@ -85,11 +101,11 @@ def cg_torch_ops(A, b, x0, M, spec, r, bnrm_inv, tol_eff, nrm0, rh):
 
     def step(s):
         z = M.psolve(s["r"])
-        rho = v.dot(s["r"], z)
+        rho = v.dot(s["r"], z, spec.axis_name)
         beta = rho / s["rho_old"]
         p = v.xpay(z, beta, s["p"])
         q = A.matvec(p)
-        dot_pq = v.dot(p, q)
+        dot_pq = v.dot(p, q, spec.axis_name)
         broke = dot_pq == 0.0
         alpha = rho / torch.where(broke, one, dot_pq)
         x = s["x"] + alpha * p
@@ -122,17 +138,17 @@ def cr(A, b, x0, M, spec: SolverSpec) -> SolverOutput:
 
     def step(s):
         qtld = M.psolve(s["q"])
-        rho = v.dot(qtld, s["q"])
+        rho = v.dot(qtld, s["q"], spec.axis_name)
         broke = rho == 0.0
         rho_safe = torch.where(broke, one, rho)
-        dot_rq = v.dot(s["r"], qtld)
+        dot_rq = v.dot(s["r"], qtld, spec.axis_name)
         alpha = dot_rq / rho_safe
         x = s["x"] + alpha * s["p"]
         r = s["r"] - alpha * s["q"]
         nrm = residual_norm(r, bnrm_inv, spec)
         z = s["z"] - alpha * qtld
         az = A.matvec(z)
-        dot_zq = v.dot(az, qtld)
+        dot_zq = v.dot(az, qtld, spec.axis_name)
         beta = -dot_zq / rho_safe
         p = v.xpay(z, beta, s["p"])
         q = v.xpay(az, beta, s["q"])

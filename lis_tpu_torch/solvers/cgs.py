@@ -33,14 +33,14 @@ def cgs(A, b, x0, M, spec: SolverSpec) -> SolverOutput:
                  x=x0, r=r, p=z, q=z, rho_old=one, nrm=nrm0, rh=rh)
 
     def step(s):
-        rho = v.dot(rtld, s["r"])
+        rho = v.dot(rtld, s["r"], spec.axis_name)
         broke1 = rho == 0.0
         beta = rho / s["rho_old"]
         u = s["r"] + beta * s["q"]
         p = u + beta * (s["q"] + beta * s["p"])
         phat = M.psolve(p)
         vhat = A.matvec(phat)
-        tmpdot1 = v.dot(rtld, vhat)
+        tmpdot1 = v.dot(rtld, vhat, spec.axis_name)
         broke = broke1 | (tmpdot1 == 0.0)
         alpha = rho / torch.where(tmpdot1 == 0.0, one, tmpdot1)
         q = u - alpha * vhat
@@ -76,13 +76,13 @@ def crs(A, b, x0, M, spec: SolverSpec) -> SolverOutput:
 
     def step(s):
         z = M.psolve(s["r"])
-        rho = v.dot(rtld, z)
+        rho = v.dot(rtld, z, spec.axis_name)
         broke1 = rho == 0.0
         beta = rho / s["rho_old"]
         u = z + beta * s["q"]
         p = u + beta * (s["q"] + beta * s["p"])
         map_ = M.psolve(A.matvec(p))
-        tmpdot1 = v.dot(rtld, map_)
+        tmpdot1 = v.dot(rtld, map_, spec.axis_name)
         broke = broke1 | (tmpdot1 == 0.0)
         alpha = rho / torch.where(tmpdot1 == 0.0, one, tmpdot1)
         q = u - alpha * map_

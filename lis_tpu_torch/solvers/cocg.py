@@ -31,11 +31,11 @@ def cocg(A, b, x0, M, spec: SolverSpec) -> SolverOutput:
 
     def step(s):
         z = M.psolve(s["r"])
-        rho = v.nhdot(s["r"], z)
+        rho = v.nhdot(s["r"], z, spec.axis_name)
         beta = rho / s["rho_old"]
         p = z + beta * s["p"]
         q = A.matvec(p)
-        dot_pq = v.nhdot(p, q)
+        dot_pq = v.nhdot(p, q, spec.axis_name)
         broke = dot_pq == 0.0
         alpha = rho / torch.where(broke, one, dot_pq)
         x = s["x"] + alpha * p
@@ -69,16 +69,16 @@ def cocr(A, b, x0, M, spec: SolverSpec) -> SolverOutput:
 
     def step(s):
         qtld = M.psolve(s["q"])
-        rho = v.nhdot(qtld, s["q"])
+        rho = v.nhdot(qtld, s["q"], spec.axis_name)
         broke = rho == 0.0
         rho_safe = torch.where(broke, one, rho)
-        alpha = v.nhdot(s["r"], qtld) / rho_safe
+        alpha = v.nhdot(s["r"], qtld, spec.axis_name) / rho_safe
         x = s["x"] + alpha * s["p"]
         r = s["r"] - alpha * s["q"]
         nrm = residual_norm(r, bnrm_inv, spec)
         z = s["z"] - alpha * qtld
         az = A.matvec(z)
-        beta = -v.nhdot(az, qtld) / rho_safe
+        beta = -v.nhdot(az, qtld, spec.axis_name) / rho_safe
         p = z + beta * s["p"]
         q = az + beta * s["q"]
 

@@ -48,7 +48,7 @@ def _gmres_core(A, b, x0, M, spec: SolverSpec, flexible: bool):
     rh[0] = nrm
     x, it = x0, 1
     while it <= spec.maxiter and nrm > tol:
-        rnorm = v.nrm2(r)
+        rnorm = v.nrm2(r, spec.axis_name)
         V = torch.zeros((m + 1, n), dtype=dt, device=dev)
         V[0] = r / torch.where(rnorm == 0, torch.ones_like(rnorm), rnorm)
         Z = torch.zeros((m, n), dtype=dt, device=dev) if flexible else None
@@ -66,10 +66,10 @@ def _gmres_core(A, b, x0, M, spec: SolverSpec, flexible: bool):
             # modified Gram-Schmidt against v_0 .. v_i
             col = []
             for k in range(i + 1):
-                t = v.dot(w, V[k])
+                t = v.dot(w, V[k], spec.axis_name)
                 w = w - t * V[k]
                 col.append(t)
-            t = v.nrm2(w)
+            t = v.nrm2(w, spec.axis_name)
             V[i + 1] = w / torch.where(t == 0, torch.ones_like(t), t)
             col.append(t.to(dt))
             H[: i + 2, i] = torch.stack(col).cpu().numpy()   # one host read

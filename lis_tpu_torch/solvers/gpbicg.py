@@ -22,14 +22,14 @@ from lis_tpu_torch.solvers.base import (RUNNING, SolverOutput, SolverSpec,
                                         register_solver, residual_norm)
 
 
-def qsi_eta(first, y, t, w):
+def qsi_eta(first, y, t, w, axis_name=None):
     """(qsi, eta) minimising ||t − eta·y − qsi·w||: the 2×2 normal
     equations, or qsi = <w,t>/<w,w> and eta = 0 on the first step."""
-    d0 = v.dot(y, y)
-    d1 = v.dot(w, t)
-    d2 = v.dot(y, t)
-    d3 = v.dot(w, y)
-    d4 = v.dot(w, w)
+    d0 = v.dot(y, y, axis_name)
+    d1 = v.dot(w, t, axis_name)
+    d2 = v.dot(y, t, axis_name)
+    d3 = v.dot(w, y, axis_name)
+    d4 = v.dot(w, w, axis_name)
     tmp = d4 * d0 - d3 * d3
     qsi_n = (d0 * d1 - d2 * d3) / tmp
     eta_n = (d4 * d2 - d3 * d1) / tmp
@@ -51,14 +51,14 @@ def gpbicg(A, b, x0, M, spec: SolverSpec) -> SolverOutput:
                  z=z0, alpha=one, qsi=one, rho_old=one, nrm=nrm0, rh=rh)
 
     def step(s):
-        rho = v.dot(rtld, s["r"])
+        rho = v.dot(rtld, s["r"], spec.axis_name)
         broke = rho == 0.0
         beta = (rho / s["rho_old"]) * (s["alpha"] / s["qsi"])
         w = s["ttld"] + beta * s["ptld"]
         rhat = M.psolve(s["r"])
         p = rhat + beta * (s["p"] - s["u"])
         ptld = A.matvec(p)
-        tdot = v.dot(rtld, ptld)
+        tdot = v.dot(rtld, ptld, spec.axis_name)
         alpha = rho / torch.where(tdot == 0.0, one, tdot)
         y = s["t"] + alpha * (ptld - w) - s["r"]
         t = s["r"] - alpha * ptld
@@ -68,7 +68,7 @@ def gpbicg(A, b, x0, M, spec: SolverSpec) -> SolverOutput:
         phat = M.psolve(ptld)
         t0hat = M.psolve(s["t0"])
         ttld = A.matvec(that)
-        qsi, eta = qsi_eta(s["it"] == 1, y, t, ttld)
+        qsi, eta = qsi_eta(s["it"] == 1, y, t, ttld, spec.axis_name)
         u = qsi * phat + eta * (t0hat - rhat + beta * s["u"])
         z = qsi * rhat + eta * s["z"] - alpha * u
         x_full = s["x"] + alpha * p + z
@@ -109,12 +109,12 @@ def gpbicr(A, b, x0, M, spec: SolverSpec) -> SolverOutput:
                  x=x0, r=r, mr=z0, p=p, t=z0, w=z0, u=z0, y=z0, z=z0,
                  mt_old=z0, beta=torch.zeros((), dtype=b.dtype,
                                              device=b.device),
-                 rho_old=v.dot(rtld, p), nrm=nrm0, rh=rh)
+                 rho_old=v.dot(rtld, p, spec.axis_name), nrm=nrm0, rh=rh)
 
     def step(s):
         ap = A.matvec(s["p"])
         map_ = M.psolve(ap)
-        tdot = v.dot(rtld, map_)
+        tdot = v.dot(rtld, map_, spec.axis_name)
         broke1 = tdot == 0.0
         alpha = s["rho_old"] / torch.where(broke1, one, tdot)
         y = s["t"] + alpha * (ap - s["w"]) - s["r"]
@@ -123,7 +123,7 @@ def gpbicr(A, b, x0, M, spec: SolverSpec) -> SolverOutput:
         early = nrm_t <= tol_eff
         mt = s["mr"] - alpha * map_
         amt = A.matvec(mt)
-        qsi, eta = qsi_eta(s["it"] == 1, y, t, amt)
+        qsi, eta = qsi_eta(s["it"] == 1, y, t, amt, spec.axis_name)
         u = qsi * map_ + eta * (s["mt_old"] - s["mr"] + s["beta"] * s["u"])
         z = qsi * s["mr"] + eta * s["z"] - alpha * u
         x_full = s["x"] + alpha * s["p"] + z
@@ -131,7 +131,7 @@ def gpbicr(A, b, x0, M, spec: SolverSpec) -> SolverOutput:
         nrm_full = residual_norm(r_full, bnrm_inv, spec)
         conv_full = nrm_full <= tol_eff
         mr = M.psolve(r_full)
-        rho = v.dot(rtld, mr)
+        rho = v.dot(rtld, mr, spec.axis_name)
         broke2 = (rho == 0.0) & ~early & ~conv_full
         beta = (rho / torch.where(s["rho_old"] == 0.0, one, s["rho_old"])) \
             * (alpha / torch.where(qsi == 0.0, one, qsi))

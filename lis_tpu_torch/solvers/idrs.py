@@ -67,6 +67,13 @@ def prepare_idr1(A, spec):
     return _prepare(1, A)
 
 
+def _pmat(P, vec, axis_name):
+    """P @ vec, all-reduced over the mesh (the s shadow dots of a sharded
+    vector; lis_tpu ``_pmat``)."""
+    out = P @ vec
+    return out if axis_name is None else axis_name.all_reduce(out)
+
+
 def _idrs_core(A, b, x0, M, spec: SolverSpec, P) -> SolverOutput:
     s = P.shape[0]
     n = b.shape[0]
@@ -88,8 +95,8 @@ def _idrs_core(A, b, x0, M, spec: SolverSpec, P) -> SolverOutput:
         active = ~done
         dx = M.psolve(r)
         dr = A.matvec(dx)
-        h = v.dot(dr, dr)
-        om = v.dot(dr, r) / torch.where(h == 0, one, h)
+        h = v.dot(dr, dr, spec.axis_name)
+        om = v.dot(dr, r, spec.axis_name) / torch.where(h == 0, one, h)
         dx = om * dx
         dr = -om * dr
         x = torch.where(active, x + dx, x)
@@ -99,7 +106,7 @@ def _idrs_core(A, b, x0, M, spec: SolverSpec, P) -> SolverOutput:
         nrm = torch.where(active, residual_norm(r, bnrm_inv, spec), nrm)
         slot = min(k + 1, top)
         rh[slot] = torch.where(active, nrm, rh[slot])
-        Mmat[:, k] = P @ dr
+        Mmat[:, k] = _pmat(P, dr, spec.axis_name)
         itk = torch.where(active, itk + 1, itk)
         done = done | (nrm <= tol_eff)
     host_it = int(itk)              # the one read of the start phase
@@ -115,15 +122,15 @@ def _idrs_core(A, b, x0, M, spec: SolverSpec, P) -> SolverOutput:
         av = M.psolve(vvec)
         if host_it % (s + 1) == s:      # refresh omega
             t = A.matvec(av)
-            h = v.dot(t, t)
-            om = v.dot(t, vvec) / torch.where(h == 0, one, h)
+            h = v.dot(t, t, spec.axis_name)
+            om = v.dot(t, vvec, spec.axis_name) / torch.where(h == 0, one, h)
             dx = om * av - c @ dX
             dr = -om * t - c @ dR
         else:
             om = st["om"]
             dx = om * av - c @ dX
             dr = -A.matvec(dx)
-        h = P @ dr
+        h = _pmat(P, dr, spec.axis_name)
         dX[oldest], dR[oldest], Mmat[:, oldest] = dx, dr, h
         r = st["r"] + dr
         it = st["it"] + 1
@@ -134,7 +141,8 @@ def _idrs_core(A, b, x0, M, spec: SolverSpec, P) -> SolverOutput:
                     m=st["m"] + h, om=om, nrm=nrm,
                     rh=record(st["rh"], torch.clamp(it, max=top), nrm))
 
-    state = dict(it=itk, flag=loop_scalar(RUNNING, b), x=x, r=r, m=P @ r,
+    state = dict(it=itk, flag=loop_scalar(RUNNING, b), x=x, r=r,
+                 m=_pmat(P, r, spec.axis_name),
                  om=one, nrm=nrm, rh=rh)
     final = krylov_loop(spec, tol_eff, state, step, it_done=True)
     final["it"] = final["it"] + 1   # loop_output's it - 1 convention

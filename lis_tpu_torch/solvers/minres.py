@@ -22,7 +22,7 @@ from lis_tpu_torch.solvers.base import (RUNNING, SolverOutput, SolverSpec,
 @register_solver("minres")
 def minres(A, b, x0, M, spec: SolverSpec) -> SolverOutput:
     v2 = M.psolve(b - A.matvec(x0))
-    r0_euc = v.nrm2(v2)
+    r0_euc = v.nrm2(v2, spec.axis_name)
     one_r = torch.ones_like(r0_euc)
     r0_inv = torch.where(r0_euc == 0, one_r,
                          1.0 / torch.where(r0_euc == 0, one_r, r0_euc))
@@ -40,9 +40,9 @@ def minres(A, b, x0, M, spec: SolverSpec) -> SolverOutput:
     def step(s):
         v2n = s["v2"] / s["beta2"]
         v4 = M.psolve(A.matvec(v2n))
-        alpha = v.dot(v2n, v4)
+        alpha = v.dot(v2n, v4, spec.axis_name)
         v4 = v4 - alpha * v2n - s["beta2"] * s["v1"]
-        beta3 = v.nrm2(v4)
+        beta3 = v.nrm2(v4, spec.axis_name)
         delta = s["gamma2"] * alpha - s["gamma1"] * s["sigma2"] * s["beta2"]
         rho1 = torch.sqrt(delta * delta + beta3 * beta3)
         rho2 = s["sigma2"] * alpha + s["gamma1"] * s["gamma2"] * s["beta2"]

@@ -50,17 +50,17 @@ def orthomin(A, b, x0, M, spec: SolverSpec) -> SolverOutput:
         apt_new = M.psolve(ap_new)
         for l in range(1, min(m, host_it - 1) + 1):
             ip0 = (ip + m + 1 - l) % (m + 1)
-            beta = -v.dot(apt_new, APT[ip0]) * dotsave[l - 1]
+            beta = -v.dot(apt_new, APT[ip0], spec.axis_name) * dotsave[l - 1]
             p_new = p_new + beta * P[ip0]
             ap_new = ap_new + beta * AP[ip0]
             apt_new = apt_new + beta * APT[ip0]
 
-        dot0 = v.dot(apt_new, apt_new)
+        dot0 = v.dot(apt_new, apt_new, spec.axis_name)
         broke = dot0 == 0.0
         dot0_inv = 1.0 / torch.where(broke, one, dot0)
         dotsave = [torch.where(broke, old, new) for old, new in
                    zip(dotsave, [dot0_inv] + dotsave[:-1])]
-        alpha = v.dot(s["rtld"], apt_new) * dot0_inv
+        alpha = v.dot(s["rtld"], apt_new, spec.axis_name) * dot0_inv
         x = s["x"] + alpha * p_new
         r = s["r"] - alpha * ap_new
         rtld = s["rtld"] - alpha * apt_new

@@ -47,13 +47,13 @@ def _init_dd(A, b, x0, spec):
     bdd = q.dd(b)
     r = q.sub(bdd, A.matvec(q.dd(x0)))
     if spec.conv_cond == 1:
-        ref = q.to_float(q.nrm2(bdd))
-        nrm0 = q.to_float(q.nrm2(r))
+        ref = q.to_float(q.nrm2(bdd, spec.axis_name))
+        nrm0 = q.to_float(q.nrm2(r, spec.axis_name))
     elif spec.conv_cond == 2:
-        ref = q.to_float(q.nrm1(bdd))
-        nrm0 = q.to_float(q.nrm1(r))
+        ref = q.to_float(q.nrm1(bdd, spec.axis_name))
+        nrm0 = q.to_float(q.nrm1(r, spec.axis_name))
     else:
-        ref = q.to_float(q.nrm2(r))
+        ref = q.to_float(q.nrm2(r, spec.axis_name))
         nrm0 = ref
     bnrm_inv = _inv_or_one(ref)
     if spec.conv_cond == 2:
@@ -64,8 +64,8 @@ def _init_dd(A, b, x0, spec):
 
 def _resid_dd(r: DD, bnrm_inv, spec):
     if spec.conv_cond == 2:
-        return q.to_float(q.nrm1(r))
-    return q.to_float(q.nrm2(r)) * bnrm_inv
+        return q.to_float(q.nrm1(r, spec.axis_name))
+    return q.to_float(q.nrm2(r, spec.axis_name)) * bnrm_inv
 
 
 def _kd(broke, new: DD, old: DD) -> DD:
@@ -92,11 +92,11 @@ def cg_quad(A, b, x0, M, spec: SolverSpec) -> SolverOutput:
 
     def step(s):
         z = _psolve_dd(M, s["r"])
-        rho = q.dot(s["r"], z)
+        rho = q.dot(s["r"], z, spec.axis_name)
         beta = q.div(rho, s["rho_old"])
         p = q.xpay(z, beta, s["p"])
         qv = A.matvec(p)
-        dot_pq = q.dot(p, qv)
+        dot_pq = q.dot(p, qv, spec.axis_name)
         broke = q.is_zero(dot_pq)
         alpha = q.div(rho, q.where(broke, one, dot_pq))
         x = q.axpy(alpha, p, s["x"])
@@ -122,16 +122,16 @@ def cr_quad(A, b, x0, M, spec: SolverSpec) -> SolverOutput:
 
     def step(s):
         qtld = _psolve_dd(M, s["q"])
-        rho = q.dot(qtld, s["q"])
+        rho = q.dot(qtld, s["q"], spec.axis_name)
         broke = q.is_zero(rho)
         rho_s = q.where(broke, one, rho)
-        alpha = q.div(q.dot(s["r"], qtld), rho_s)
+        alpha = q.div(q.dot(s["r"], qtld, spec.axis_name), rho_s)
         x = q.axpy(alpha, s["p"], s["x"])
         r = q.axpy(q.neg(alpha), s["q"], s["r"])
         nrm = _resid_dd(r, bnrm_inv, spec)
         z = q.axpy(q.neg(alpha), qtld, s["z"])
         az = A.matvec(z)
-        beta = q.neg(q.div(q.dot(az, qtld), rho_s))
+        beta = q.neg(q.div(q.dot(az, qtld, spec.axis_name), rho_s))
         p = q.xpay(z, beta, s["p"])
         qn = q.xpay(az, beta, s["q"])
         return dict(it=s["it"] + 1,
@@ -155,14 +155,14 @@ def bicg_quad(A, b, x0, M, spec: SolverSpec) -> SolverOutput:
     def step(s):
         z = _psolve_dd(M, s["r"])
         ztld = _psolveh_dd(M, s["rtld"])
-        rho = q.dot(s["rtld"], z)
+        rho = q.dot(s["rtld"], z, spec.axis_name)
         broke1 = q.is_zero(rho)
         beta = q.div(rho, s["rho_old"])
         p = q.xpay(z, beta, s["p"])
         qv = A.matvec(p)
         ptld = q.xpay(ztld, beta, s["ptld"])
         qtld = A.matvech(ptld)
-        tmp = q.dot(ptld, qv)
+        tmp = q.dot(ptld, qv, spec.axis_name)
         broke = broke1 | q.is_zero(tmp)
         alpha = q.div(rho, q.where(broke, one, tmp))
         x = q.axpy(alpha, p, s["x"])
@@ -188,14 +188,14 @@ def cgs_quad(A, b, x0, M, spec: SolverSpec) -> SolverOutput:
                    qq=q.zeros_like(r), rho_old=one)
 
     def step(s):
-        rho = q.dot(s["rtld"], s["r"])
+        rho = q.dot(s["rtld"], s["r"], spec.axis_name)
         broke1 = q.is_zero(rho)
         beta = q.div(rho, s["rho_old"])
         u = q.axpy(beta, s["qq"], s["r"])
         p = q.xpay(u, beta, q.add(s["qq"], q.scal(beta, s["p"])))
         phat = _psolve_dd(M, p)
         vhat = A.matvec(phat)
-        tmp = q.dot(s["rtld"], vhat)
+        tmp = q.dot(s["rtld"], vhat, spec.axis_name)
         broke = broke1 | q.is_zero(tmp)
         alpha = q.div(rho, q.where(broke, one, tmp))
         qq = q.axpy(q.neg(alpha), vhat, u)
@@ -224,21 +224,22 @@ def bicgstab_quad(A, b, x0, M, spec: SolverSpec) -> SolverOutput:
                    omega=one, rho_old=one)
 
     def step(s):
-        rho = q.dot(s["rtld"], s["r"])
+        rho = q.dot(s["rtld"], s["r"], spec.axis_name)
         broke1 = q.is_zero(rho)
         beta = q.mul(q.div(rho, s["rho_old"]), q.div(s["alpha"], s["omega"]))
         pm = q.axpy(q.neg(s["omega"]), s["vv"], s["p"])
         p = q.where(s["it"] == 1, s["r"], q.xpay(s["r"], beta, pm))
         phat = _psolve_dd(M, p)
         vv = A.matvec(phat)
-        tmp1 = q.dot(s["rtld"], vv)
+        tmp1 = q.dot(s["rtld"], vv, spec.axis_name)
         alpha = q.div(rho, q.where(q.is_zero(tmp1), one, tmp1))
         srec = q.axpy(q.neg(alpha), vv, s["r"])
         nrm_s = _resid_dd(srec, bnrm_inv, spec)
         early = nrm_s <= tol_eff
         shat = _psolve_dd(M, srec)
         t = A.matvec(shat)
-        omega = q.div(q.dot(t, srec), q.dot(t, t))
+        omega = q.div(q.dot(t, srec, spec.axis_name),
+                      q.dot(t, t, spec.axis_name))
         x_half = q.axpy(alpha, phat, s["x"])
         x_full = q.axpy(omega, shat, x_half)
         r_full = q.axpy(q.neg(omega), t, srec)

@@ -69,12 +69,12 @@ def bicr_quad(A, b, x0, M, spec: SolverSpec) -> SolverOutput:
     ztld = _psolveh_dd(M, r)
     ap = A.matvec(z)
     state = _start(x0, r, nrm0, spec, rtld=r, z=z, ztld=ztld, p=z,
-                   ptld=ztld, ap=ap, rho_old=q.dot(ztld, ap))
+                   ptld=ztld, ap=ap, rho_old=q.dot(ztld, ap, spec.axis_name))
 
     def step(s):
         aptld = A.matvech(s["ptld"])
         map_ = _psolve_dd(M, s["ap"])
-        tmpdot1 = q.dot(aptld, map_)
+        tmpdot1 = q.dot(aptld, map_, spec.axis_name)
         broke1 = _z(tmpdot1)
         alpha = q.div(s["rho_old"], _safe(tmpdot1, broke1))
         x = q.axpy(alpha, s["p"], s["x"])
@@ -85,7 +85,7 @@ def bicr_quad(A, b, x0, M, spec: SolverSpec) -> SolverOutput:
         z = _sub_scaled(s["z"], alpha, map_)
         ztld = _psolveh_dd(M, rtld)
         az = A.matvec(z)
-        rho = q.dot(ztld, az)
+        rho = q.dot(ztld, az, spec.axis_name)
         broke2 = _z(rho) & ~conv
         broke = broke1 | broke2
         beta = q.div(rho, _safe(s["rho_old"], _z(s["rho_old"])))
@@ -117,14 +117,14 @@ def crs_quad(A, b, x0, M, spec: SolverSpec) -> SolverOutput:
 
     def step(s):
         z = _psolve_dd(M, s["r"])
-        rho = q.dot(s["rtld"], z)
+        rho = q.dot(s["rtld"], z, spec.axis_name)
         broke1 = _z(rho)
         beta = q.div(rho, s["rho_old"])
         u = q.axpy(beta, s["qq"], z)
         p = q.xpay(u, beta, q.add(s["qq"], q.scal(beta, s["p"])))
         ap = A.matvec(p)
         map_ = _psolve_dd(M, ap)
-        tmpdot1 = q.dot(s["rtld"], map_)
+        tmpdot1 = q.dot(s["rtld"], map_, spec.axis_name)
         broke = broke1 | _z(tmpdot1)
         alpha = q.div(rho, _safe(tmpdot1, broke))
         qq = _sub_scaled(u, alpha, map_)
@@ -149,25 +149,26 @@ def bicrstab_quad(A, b, x0, M, spec: SolverSpec) -> SolverOutput:
     rtld = A.matvech(r)
     z = _psolve_dd(M, r)
     state = _start(x0, r, nrm0, spec, z=z, p=z, map_=q.zeros_like(r),
-                   rho_old=q.dot(rtld, z))
+                   rho_old=q.dot(rtld, z, spec.axis_name))
 
     def step(s):
         ap = A.matvec(s["p"])
         map_ = _psolve_dd(M, ap)
-        tmpdot1 = q.dot(rtld, map_)
+        tmpdot1 = q.dot(rtld, map_, spec.axis_name)
         alpha = q.div(s["rho_old"], _safe(tmpdot1, _z(tmpdot1)))
         srec = _sub_scaled(s["r"], alpha, ap)
         nrm_s = _resid_dd(srec, bnrm_inv, spec)
         early = nrm_s <= tol_eff
         ms = _sub_scaled(s["z"], alpha, map_)
         ams = A.matvec(ms)
-        omega = q.div(q.dot(ams, srec), q.dot(ams, ams))
+        omega = q.div(q.dot(ams, srec, spec.axis_name),
+                      q.dot(ams, ams, spec.axis_name))
         x_half = q.axpy(alpha, s["p"], s["x"])
         x_full = q.axpy(omega, ms, x_half)
         r_full = _sub_scaled(srec, omega, ams)
         nrm_full = _resid_dd(r_full, bnrm_inv, spec)
         z_new = _psolve_dd(M, r_full)
-        rho = q.dot(rtld, z_new)
+        rho = q.dot(rtld, z_new, spec.axis_name)
         conv_full = nrm_full <= tol_eff
         broke = _z(rho) & ~early & ~conv_full
         beta = q.mul(q.div(rho, s["rho_old"]),
@@ -186,13 +187,13 @@ def bicrstab_quad(A, b, x0, M, spec: SolverSpec) -> SolverOutput:
     return _finish(spec, tol_eff, krylov_loop(spec, tol_eff, state, step))
 
 
-def _qsi_eta_dd(first, y: DD, tvec: DD, w: DD):
+def _qsi_eta_dd(first, y: DD, tvec: DD, w: DD, axis_name=None):
     """The DD 2x2 least-squares solve shared by GPBiCG and BiCGSafe."""
-    d0 = q.dot(y, y)
-    d1 = q.dot(w, tvec)
-    d2 = q.dot(y, tvec)
-    d3 = q.dot(w, y)
-    d4 = q.dot(w, w)
+    d0 = q.dot(y, y, axis_name)
+    d1 = q.dot(w, tvec, axis_name)
+    d2 = q.dot(y, tvec, axis_name)
+    d3 = q.dot(w, y, axis_name)
+    d4 = q.dot(w, w, axis_name)
     tmp = q.sub(q.mul(d4, d0), q.mul(d3, d3))
     tmp = _safe(tmp, _z(tmp))
     qsi_n = q.div(q.sub(q.mul(d0, d1), q.mul(d2, d3)), tmp)
@@ -211,7 +212,7 @@ def gpbicg_quad(A, b, x0, M, spec: SolverSpec) -> SolverOutput:
                    ptld=z0, u=z0, z=z0, alpha=one, qsi=one, rho_old=one)
 
     def step(s):
-        rho = q.dot(s["rtld"], s["r"])
+        rho = q.dot(s["rtld"], s["r"], spec.axis_name)
         broke = _z(rho)
         beta = q.mul(q.div(rho, s["rho_old"]),
                      q.div(s["alpha"], _safe(s["qsi"], _z(s["qsi"]))))
@@ -219,7 +220,7 @@ def gpbicg_quad(A, b, x0, M, spec: SolverSpec) -> SolverOutput:
         rhat = _psolve_dd(M, s["r"])
         p = q.xpay(rhat, beta, q.sub(s["p"], s["u"]))
         ptld = A.matvec(p)
-        tdot = q.dot(s["rtld"], ptld)
+        tdot = q.dot(s["rtld"], ptld, spec.axis_name)
         alpha = q.div(rho, _safe(tdot, _z(tdot)))
         y = q.sub(q.axpy(alpha, q.sub(ptld, w), s["t"]), s["r"])
         t = _sub_scaled(s["r"], alpha, ptld)
@@ -229,7 +230,7 @@ def gpbicg_quad(A, b, x0, M, spec: SolverSpec) -> SolverOutput:
         phat = _psolve_dd(M, ptld)
         t0hat = _psolve_dd(M, s["t0"])
         ttld = A.matvec(that)
-        qsi, eta = _qsi_eta_dd(s["it"] == 1, y, t, ttld)
+        qsi, eta = _qsi_eta_dd(s["it"] == 1, y, t, ttld, spec.axis_name)
         u = q.add(q.scal(qsi, phat),
                   q.scal(eta, q.add(q.sub(t0hat, rhat), q.scal(beta, s["u"]))))
         z = q.sub(q.add(q.scal(qsi, rhat), q.scal(eta, s["z"])),
@@ -266,12 +267,12 @@ def gpbicr_quad(A, b, x0, M, spec: SolverSpec) -> SolverOutput:
     p = _psolve_dd(M, r)
     state = _start(x0, r, nrm0, spec, mr=z0, p=p, t=z0, w=z0, u=z0, y=z0,
                    z=z0, mt_old=z0, beta=_const(0.0, b),
-                   rho_old=q.dot(rtld, p))
+                   rho_old=q.dot(rtld, p, spec.axis_name))
 
     def step(s):
         ap = A.matvec(s["p"])
         map_ = _psolve_dd(M, ap)
-        tdot = q.dot(rtld, map_)
+        tdot = q.dot(rtld, map_, spec.axis_name)
         broke1 = _z(tdot)
         alpha = q.div(s["rho_old"], _safe(tdot, broke1))
         y = q.sub(q.axpy(alpha, q.sub(ap, s["w"]), s["t"]), s["r"])
@@ -280,7 +281,7 @@ def gpbicr_quad(A, b, x0, M, spec: SolverSpec) -> SolverOutput:
         early = nrm_t <= tol_eff
         mt = _sub_scaled(s["mr"], alpha, map_)
         amt = A.matvec(mt)
-        qsi, eta = _qsi_eta_dd(s["it"] == 1, y, t, amt)
+        qsi, eta = _qsi_eta_dd(s["it"] == 1, y, t, amt, spec.axis_name)
         u = q.add(q.scal(qsi, map_),
                   q.scal(eta, q.add(q.sub(s["mt_old"], s["mr"]),
                                     q.scal(s["beta"], s["u"]))))
@@ -292,7 +293,7 @@ def gpbicr_quad(A, b, x0, M, spec: SolverSpec) -> SolverOutput:
         nrm_full = _resid_dd(r_full, bnrm_inv, spec)
         conv_full = nrm_full <= tol_eff
         mr = _psolve_dd(M, r_full)
-        rho = q.dot(rtld, mr)
+        rho = q.dot(rtld, mr, spec.axis_name)
         broke2 = _z(rho) & ~early & ~conv_full
         beta = q.mul(q.div(rho, _safe(s["rho_old"], _z(s["rho_old"]))),
                      q.div(alpha, _safe(qsi, _z(qsi))))
@@ -328,12 +329,13 @@ def bicgsafe_quad(A, b, x0, M, spec: SolverSpec) -> SolverOutput:
     amr = A.matvec(mr)
     state = _start(x0, r, nrm0, spec, mr=mr, amr=amr, p=mr, ap=amr, u=z0,
                    au=z0, y=z0, z=z0, beta=_const(0.0, b),
-                   rho_old=q.dot(rtld, r))
+                   rho_old=q.dot(rtld, r, spec.axis_name))
 
     def step(s):
-        tdot = q.dot(rtld, s["ap"])
+        tdot = q.dot(rtld, s["ap"], spec.axis_name)
         alpha = q.div(s["rho_old"], _safe(tdot, _z(tdot)))
-        qsi, eta = _qsi_eta_dd(s["it"] == 1, s["y"], s["r"], s["amr"])
+        qsi, eta = _qsi_eta_dd(s["it"] == 1, s["y"], s["r"], s["amr"],
+                               spec.axis_name)
         t = q.add(q.scal(qsi, s["ap"]), q.scal(eta, s["y"]))
         mt = _psolve_dd(M, t)
         u = q.axpy(q.mul(eta, s["beta"]), s["u"], mt)
@@ -346,7 +348,7 @@ def bicgsafe_quad(A, b, x0, M, spec: SolverSpec) -> SolverOutput:
         r = q.sub(_sub_scaled(s["r"], alpha, s["ap"]), y)
         nrm = _resid_dd(r, bnrm_inv, spec)
         conv = nrm <= tol_eff
-        rho = q.dot(rtld, r)
+        rho = q.dot(rtld, r, spec.axis_name)
         broke = _z(rho) & ~conv
         beta = q.mul(q.div(rho, _safe(s["rho_old"], _z(s["rho_old"]))),
                      q.div(alpha, _safe(qsi, _z(qsi))))
@@ -374,13 +376,14 @@ def bicrsafe_quad(A, b, x0, M, spec: SolverSpec) -> SolverOutput:
     amr = A.matvec(mr)
     state = _start(x0, r, nrm0, spec, mr=mr, amr=amr, p=mr, ap=amr, u=z0,
                    au=z0, y=z0, my=z0, z=z0, beta=_const(0.0, b),
-                   rho_old=q.dot(rtld, amr))
+                   rho_old=q.dot(rtld, amr, spec.axis_name))
 
     def step(s):
         map_ = _psolve_dd(M, s["ap"])
-        tdot = q.dot(artld, map_)
+        tdot = q.dot(artld, map_, spec.axis_name)
         alpha = q.div(s["rho_old"], _safe(tdot, _z(tdot)))
-        qsi, eta = _qsi_eta_dd(s["it"] == 1, s["y"], s["r"], s["amr"])
+        qsi, eta = _qsi_eta_dd(s["it"] == 1, s["y"], s["r"], s["amr"],
+                               spec.axis_name)
         u = q.add(q.add(q.scal(qsi, map_), q.scal(eta, s["my"])),
                   q.scal(q.mul(eta, s["beta"]), s["u"]))
         au = A.matvec(u)
@@ -395,7 +398,7 @@ def bicrsafe_quad(A, b, x0, M, spec: SolverSpec) -> SolverOutput:
         conv = nrm <= tol_eff
         mr = q.sub(_sub_scaled(s["mr"], alpha, map_), my)
         amr = A.matvec(mr)
-        rho = q.dot(rtld, amr)
+        rho = q.dot(rtld, amr, spec.axis_name)
         broke = _z(rho) & ~conv
         beta = q.mul(q.div(rho, _safe(s["rho_old"], _z(s["rho_old"]))),
                      q.div(alpha, _safe(qsi, _z(qsi))))
@@ -417,10 +420,11 @@ def tfqmr_quad(A, b, x0, M, spec: SolverSpec) -> SolverOutput:
     one = _const(1.0, b)
     zero = _const(0.0, b)
     rtld = r
-    tau = q.nrm2(r)
+    tau = q.nrm2(r, spec.axis_name)
     state = _start(x0, r, nrm0, spec, p=r, u=r, d=q.zeros_like(r),
                    vv=A.matvec(_psolve_dd(M, r)),
-                   rhoold=q.dot(r, rtld), tau=tau, wold=tau, theta=zero,
+                   rhoold=q.dot(r, rtld, spec.axis_name), tau=tau, wold=tau,
+                   theta=zero,
                    eta=zero)
 
     def half_step(x, d, tau, theta, eta, alpha, ww, vec):
@@ -434,14 +438,14 @@ def tfqmr_quad(A, b, x0, M, spec: SolverSpec) -> SolverOutput:
         return x, d, tau, theta, eta
 
     def step(s):
-        sdot = q.dot(s["vv"], rtld)
+        sdot = q.dot(s["vv"], rtld, spec.axis_name)
         broke1 = _z(sdot)
         alpha = q.div(s["rhoold"], _safe(sdot, broke1))
         qvec = _sub_scaled(s["u"], alpha, s["vv"])
         t = q.add(s["u"], qvec)
         vv = A.matvec(_psolve_dd(M, t))
         r = _sub_scaled(s["r"], alpha, vv)
-        w = q.nrm2(r)
+        w = q.nrm2(r, spec.axis_name)
         x, d, tau, theta, eta = half_step(
             s["x"], s["d"], s["tau"], s["theta"], s["eta"], alpha,
             q.sqrt(q.mul(w, s["wold"])), s["u"])
@@ -456,7 +460,7 @@ def tfqmr_quad(A, b, x0, M, spec: SolverSpec) -> SolverOutput:
         x, d, tau = late(x, x2), late(d, d2), late(tau, tau2)
         theta, eta = late(theta, theta2), late(eta, eta2)
         nrm = torch.where(early, nrm_a, nrm_b)
-        rho = q.dot(r, rtld)
+        rho = q.dot(r, rtld, spec.axis_name)
         broke2 = _z(rho) & ~early & (nrm > tol_eff)
         beta = q.div(rho, _safe(s["rhoold"], _z(s["rhoold"])))
         u = q.axpy(beta, qvec, r)
@@ -504,7 +508,7 @@ def orthomin_quad(A, b, x0, M, spec: SolverSpec) -> SolverOutput:
         lmax = min(m, host_it - 1)
         for l in range(1, lmax + 1):
             ip0 = (ip + m + 1 - l) % (m + 1)
-            beta = q.neg(q.mul(q.dot(apt_new, _row(APT, ip0)),
+            beta = q.neg(q.mul(q.dot(apt_new, _row(APT, ip0), spec.axis_name),
                                dotsave[l - 1]))
             p_new = q.axpy(beta, _row(P, ip0), p_new)
             ap_new = q.axpy(beta, _row(AP, ip0), ap_new)
@@ -513,12 +517,12 @@ def orthomin_quad(A, b, x0, M, spec: SolverSpec) -> SolverOutput:
             p_new = q.add(p_new, zero_vec)
             ap_new = q.add(ap_new, zero_vec)
             apt_new = q.add(apt_new, zero_vec)
-        dot0 = q.dot(apt_new, apt_new)
+        dot0 = q.dot(apt_new, apt_new, spec.axis_name)
         broke = _z(dot0)
         dot0_inv = q.div(one, _safe(dot0, broke))
         dotsave = [q.where(broke, old, new) for old, new in
                    zip(dotsave, [dot0_inv] + dotsave[:-1])]
-        alpha = q.mul(q.dot(s["rtld"], apt_new), dot0_inv)
+        alpha = q.mul(q.dot(s["rtld"], apt_new, spec.axis_name), dot0_inv)
         x = q.axpy(alpha, p_new, s["x"])
         r = _sub_scaled(s["r"], alpha, ap_new)
         rtld = _sub_scaled(s["rtld"], alpha, apt_new)
@@ -560,7 +564,7 @@ def bicgstabl_quad(A, b, x0, M, spec: SolverSpec) -> SolverOutput:
         rho0 = q.neg(q.mul(s["omega"], s["rho0"]))
         for j in range(l):
             active = flag == RUNNING
-            rho1 = q.dot(rtld, _row(R, j))
+            rho1 = q.dot(rtld, _row(R, j), spec.axis_name)
             broke1 = _z(rho1) & active
             beta = q.mul(alpha, q.div(rho1, _safe(rho0, _z(rho0))))
             for i in range(j + 1):
@@ -570,7 +574,7 @@ def bicgstabl_quad(A, b, x0, M, spec: SolverSpec) -> SolverOutput:
             t = _psolve_dd(M, _row(U, j))
             _setrow(U, j + 1, q.where(active, A.matvec(t),
                                       _row(U, j + 1)))
-            nu = q.dot(rtld, _row(U, j + 1))
+            nu = q.dot(rtld, _row(U, j + 1), spec.axis_name)
             broke2 = _z(nu) & active
             alpha_new = q.div(rho1, _safe(nu, _z(nu)))
             xc = q.where(active, q.axpy(alpha_new, _row(U, 0), xc), xc)
@@ -603,12 +607,14 @@ def bicgstabl_quad(A, b, x0, M, spec: SolverSpec) -> SolverOutput:
         for j in range(1, l + 1):
             for i in range(1, j):
                 si = _row(sigma, i)
-                nu = q.div(q.dot(_row(R, j), _row(R, i)), _safe(si, _z(si)))
+                nu = q.div(q.dot(_row(R, j), _row(R, i), spec.axis_name),
+                           _safe(si, _z(si)))
                 tau.hi[i, j], tau.lo[i, j] = nu.hi, nu.lo
                 _setrow(R, j, _sub_scaled(_row(R, j), nu, _row(R, i)))
-            sj = q.dot(_row(R, j), _row(R, j))
+            sj = q.dot(_row(R, j), _row(R, j), spec.axis_name)
             _setrow(sigma, j, sj)
-            _setrow(gamma1, j, q.div(q.dot(_row(R, 0), _row(R, j)),
+            _setrow(gamma1, j, q.div(q.dot(_row(R, 0), _row(R, j),
+                                           spec.axis_name),
                                      _safe(sj, _z(sj))))
         gamma = _zeros(l + 1, r0.hi)
         _setrow(gamma, l, _row(gamma1, l))
@@ -687,7 +693,7 @@ def _gmres_core_dd(A, b, x0, M, spec: SolverSpec, flexible: bool):
     x = q.dd(x0)
     it = 1
     while it <= spec.maxiter and float(nrm) > tol:
-        rnorm = to_host(q.nrm2(r))
+        rnorm = to_host(q.nrm2(r, spec.axis_name))
         rinv = q.div(one, _safe(rnorm, _z(rnorm)))
         V = _zeros((m + 1, n), r.hi)
         _setrow(V, 0, q.scal(to_dev(rinv), r))
@@ -704,10 +710,10 @@ def _gmres_core_dd(A, b, x0, M, spec: SolverSpec, flexible: bool):
                 _setrow(Z, i, z)
             col = []
             for k in range(i + 1):
-                t = q.dot(w, _row(V, k))
+                t = q.dot(w, _row(V, k), spec.axis_name)
                 w = _sub_scaled(w, t, _row(V, k))
                 col.append(t)
-            t = q.nrm2(w)
+            t = q.nrm2(w, spec.axis_name)
             col.append(t)
             hcol = to_host(DD(torch.stack([c.hi for c in col]),
                               torch.stack([c.lo for c in col])))

@@ -30,11 +30,11 @@ from lis_tpu_torch.solvers.base import (RUNNING, SolverOutput, SolverSpec,
 
 
 def _stationary(A, b, x0, M, spec, apply_w):
-    bn = v.nrm2(b)
+    bn = v.nrm2(b, spec.axis_name)
     one = torch.ones_like(bn)
     bnrm_inv = torch.where(bn == 0, one, 1.0 / torch.where(bn == 0, one, bn))
     r0 = b - A.matvec(M.psolve(x0))
-    nrm0 = v.nrm2(r0) * bnrm_inv
+    nrm0 = v.nrm2(r0, spec.axis_name) * bnrm_inv
     rh = new_rhistory(spec, nrm0, b.real.dtype)
 
     state = dict(it=loop_scalar(1, b), flag=loop_scalar(RUNNING, b),
@@ -42,7 +42,7 @@ def _stationary(A, b, x0, M, spec, apply_w):
 
     def step(s):
         r = b - A.matvec(M.psolve(s["x"]))
-        nrm = v.nrm2(r) * bnrm_inv
+        nrm = v.nrm2(r, spec.axis_name) * bnrm_inv
         return dict(it=s["it"] + 1, flag=s["flag"], x=s["x"] + apply_w(r),
                     nrm=nrm, rh=record(s["rh"], s["it"], nrm))
 

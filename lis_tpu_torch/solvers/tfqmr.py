@@ -31,11 +31,12 @@ def tfqmr(A, b, x0, M, spec: SolverSpec) -> SolverOutput:
     zero = torch.zeros((), dtype=b.dtype, device=b.device)
     rtld = v.conj(r)
     vv = A.matvec(M.psolve(r))
-    tau = v.nrm2(r)
+    tau = v.nrm2(r, spec.axis_name)
 
     state = dict(it=loop_scalar(1, b), flag=loop_scalar(RUNNING, b),
                  x=x0, r=r, p=r, u=r, d=torch.zeros_like(b), vv=vv,
-                 rhoold=v.dot(r, rtld), tau=tau, wold=tau, theta=zero,
+                 rhoold=v.dot(r, rtld, spec.axis_name), tau=tau, wold=tau,
+                 theta=zero,
                  eta=zero, nrm=nrm0, rh=rh)
 
     def half_step(x, d, tau, theta, eta, alpha, ww, vec):
@@ -48,14 +49,14 @@ def tfqmr(A, b, x0, M, spec: SolverSpec) -> SolverOutput:
         return x, d, tau, theta, eta
 
     def step(s):
-        sdot = v.dot(s["vv"], rtld)
+        sdot = v.dot(s["vv"], rtld, spec.axis_name)
         broke1 = sdot == 0.0
         alpha = s["rhoold"] / torch.where(broke1, one, sdot)
         q = s["u"] - alpha * s["vv"]
         t = s["u"] + q
         vv = A.matvec(M.psolve(t))
         r = s["r"] - alpha * vv
-        w = v.nrm2(r)
+        w = v.nrm2(r, spec.axis_name)
 
         # half-step m=0: ww = sqrt(w*wold), direction u
         x, d, tau, theta, eta = half_step(
@@ -74,7 +75,7 @@ def tfqmr(A, b, x0, M, spec: SolverSpec) -> SolverOutput:
         theta, eta = late(theta, theta2), late(eta, eta2)
         nrm = late(nrm_a, nrm_b)
 
-        rho = v.dot(r, rtld)
+        rho = v.dot(r, rtld, spec.axis_name)
         broke2 = (rho == 0.0) & ~early & (nrm > tol_eff)
         beta = rho / torch.where(s["rhoold"] == 0.0, one, s["rhoold"])
         u = r + beta * q

@@ -1872,3 +1872,72 @@ def test_fortran_shim_on_the_card(cuda, tmp_path):
                        env=dict(env, CUDA_VISIBLE_DEVICES=""),
                        capture_output=True)
     assert r.returncode != 0 and "CHKERR" in r.stderr
+
+
+# ---- kernel F's rectangular form and the distributed layer -------------------
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("vdtype,xdtype", [
+    (torch.float64, torch.float64), (torch.float32, torch.float32),
+    (torch.complex128, torch.complex128), (torch.float64, torch.complex128)],
+    ids=lambda d: str(d)[6:])
+@pytest.mark.parametrize("n,ncols,offsets", [
+    (1003, 1117, tuple(o + 57 for o in (-57, -5, -1, 0, 1, 5, 57))),
+    (1003, 700, (-300, -2, 0, 3, 400)), (70001, 70001 + 2 * 13,
+                                         tuple(range(0, 27)))],
+    ids=["shard", "narrow", "stencil"])
+def test_dia_spmvh_rectangular(cuda, vdtype, xdtype, n, ncols, offsets):
+    """Kernel F's rectangular form, y = Aᴴx with ncols entries for the
+    n × ncols matrix of kernel E, against its plain version: the layout of
+    a DistDIAMatrix rank (offsets + hw, ncols = n + 2 hw) and a narrower
+    output."""
+    from lis_tpu_torch.matrix import dia
+    rng = np.random.default_rng(n)
+    A = _banded(rng, n, offsets, vdtype, ncols=ncols)
+    x = _randn(rng, n, xdtype)
+    want = dia._spmvh_plain(A.value, A.offsets, x, ncols)
+    before = dia.dia_spmvh.launches
+    got = dia.dia_spmvh(A.value.to(cuda), A.off.to(cuda), A.offsets,
+                        x.to(cuda), ncols)
+    assert dia.dia_spmvh.launches == before + 1
+    assert got.shape == (ncols,) and got.dtype == want.dtype
+    tol = max(_tol(vdtype), _tol(xdtype))
+    torch.testing.assert_close(got.cpu(), want, rtol=tol,
+                               atol=tol * float(want.abs().max()))
+
+
+def _dist_dia_rank(mesh, g, opts):
+    """A rank of the card tests: poisson3d27 g^3 in DIA, distributed, one
+    dist_solve of ones; (status, iters, x)."""
+    from lis_tpu_torch import parallel as P
+    from lis_tpu_torch.utils import testmat
+    D = testmat.poisson3d27_dia(g, g, g)
+    Ad = P.distribute_dia(D, mesh)
+    r = P.dist_solve(Ad, np.ones(D.nrows), mesh, options=opts)
+    return r.status, r.iters, r.x.cpu().numpy(), str(Ad.value.device)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("nprocs,backend,opts", [
+    (1, "nccl", "-i cg -p jacobi -tol 1e-10"),
+    (2, "gloo", "-i bicg -p jacobi -tol 1e-10")])
+def test_dist_solve_on_the_card(cuda, nprocs, backend, opts):
+    """dist_solve on the card against the serial solve: one rank over
+    nccl (the same count, x to 1e-12), and two ranks sharing the card over
+    gloo (staged; the matvech through the rectangular F; count ±1)."""
+    from lis_tpu_torch.parallel import launch
+    from lis_tpu_torch.utils import testmat
+    st, it, x, where = launch(_dist_dia_rank, nprocs, 24, opts,
+                              device="cuda", backend=backend, timeout=300)
+    D = testmat.poisson3d27_dia(24, 24, 24)
+    s = lis_tpu_torch.solve(D, np.ones(D.nrows), options=opts)
+    assert where.startswith("cuda") and st == s.status == 0
+    xs = s.x.cpu().numpy()
+    if nprocs == 1:
+        assert it == s.iters
+        np.testing.assert_allclose(x, xs, rtol=0,
+                                   atol=1e-12 * np.abs(xs).max())
+    else:
+        assert abs(it - s.iters) <= 1
+        np.testing.assert_allclose(x, xs, rtol=0,
+                                   atol=1e-8 * np.abs(xs).max())

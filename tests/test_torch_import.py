@@ -35,6 +35,9 @@ import lis_tpu_torch.compat, lis_tpu_torch.interop
 import lis_tpu_torch.interop.fapi, lis_tpu_torch.cli.spmvtest
 import lis_tpu_torch.utils.checkpoint, lis_tpu_torch.utils.profiling
 import lis_tpu_torch.core.array, lis_tpu_torch.ops.spmv
+import lis_tpu_torch.parallel, lis_tpu_torch.parallel.mesh
+import lis_tpu_torch.parallel.dist, lis_tpu_torch.parallel.dist_precon
+import lis_tpu_torch.core.ranges, lis_tpu_torch.cli.scaling
 import lis_tpu_torch._native.lisf as lisf
 import lis_tpu_torch.ops._cuda as cu
 import lis_tpu_torch._native as nat
@@ -76,3 +79,22 @@ def test_shim_sources_are_the_ports_own():
         text = f.read()
     assert '"lis_tpu_torch.interop.fapi"' in text
     assert '"lis_tpu.interop.fapi"' not in text
+
+
+def test_parallel_exports_lis_tpus_names():
+    """lis_tpu_torch.parallel exports every name of lis_tpu.parallel but
+    dist_esolve (the distributed eigensolvers, still to come), and its
+    modules read no file under lis_tpu/."""
+    import ast
+    import lis_tpu_torch.parallel as tp
+    src = os.path.join(_ROOT, "lis_tpu", "parallel", "__init__.py")
+    names = None
+    for node in ast.parse(open(src).read()).body:
+        if isinstance(node, ast.Assign) and node.targets[0].id == "__all__":
+            names = ast.literal_eval(node.value)
+    assert names and set(names) - {"dist_esolve"} <= set(tp.__all__)
+    for mod in ("mesh", "dist", "dist_precon"):
+        text = open(os.path.join(_ROOT, "lis_tpu_torch", "parallel",
+                                 mod + ".py")).read()
+        assert "import jax" not in text and "from lis_tpu." not in text
+        assert "from jax" not in text and "import lis_tpu\n" not in text
