@@ -330,7 +330,7 @@ Phases (one or more lines each):
    rank every iteration), the distributed matvech (F's rectangular form
    and the halo return) held to the serial F within 1e-13, and F's
    rectangular form at rank 0's shard against its plain version, timed
-   beside torch.sparse and the bound; (b2) phase 3's n = 2^20 system on
+   at f64 and f32 beside torch.sparse and the bound; (b2) phase 3's n = 2^20 system on
    the per-rank CST (``distribute_csr_cst``), CG + Jacobi at phase 3's
    count ±1 with A-D launched on every rank every iteration, and with
    -scale 1 (#1 on every rank); (b3) CG + ILU and CG + SA-AMG at 96³
@@ -342,8 +342,30 @@ Phases (one or more lines each):
    4 -backend gloo``; (c) (b1) and (b2) over nccl with a card a rank,
    only where four cards are visible, else one line that says so.  Any
    failing rank fails the smoke; every wait on the ranks is bounded.
+18. the distributed eigensolvers (``phase dist_esolve:`` lines;
+   ``parallel/dist_esolve.py``): (a) one rank over nccl (a group of its
+   own, after 17a's) on phase 14's 96³ DIA: ``-e ii -i cg -etol 1e-8``,
+   ``-e cg -etol 1e-8``, ``-e li -ss 4 -rval true``, ``-e si -ss 2 -i cg
+   -etol 1e-8``, ``-e gii -etol 1e-8`` with phase 14e's B and ``-e pi
+   -emaxiter 200``, each held to phase 14's serial run (status,
+   eigenvalues to 1e-8 relative and to the closed form where phase 14
+   holds it, counts equal for pi, li and gii and within 2 for ii, cg and
+   si), E at least once a shard matvec and G1-G4 at least once an inner
+   CG step, pi's history also against the same run over the plain
+   versions on the card (1e-10); (b) phase 17's four gloo ranks, on the
+   shards phase 17 kept: (b1) ``-e pi -emaxiter 200`` on the 96³ DIA
+   (MAXITER, history within 1e-10 of (a)'s, E on every rank every
+   iteration), (b2) ``-e li -ss 2 -rval true`` on the per-rank CST of
+   2^20 (eigenvalues within 1e-10 of phase 14h's, A and B-D on every
+   rank at each of the k + 2 matvecs), (b3) ``-e cg -etol 1e-8`` at 96³
+   (G1-G4 on every rank, (a)'s count within 2), (b4) ``-e gii -etol
+   1e-8`` on a 32³ pencil through nested distributed B-solves (the
+   rectangular F on every rank) held to the same case at one rank; (c)
+   (b1) and (b2) over nccl with a card a rank, only where four cards are
+   visible, else one line that says so.  Each case prints its
+   collectives an outer iteration.
 
-Phases 1 to 17 all run at the sizes named here.  The matrices of phases 3
+Phases 1 to 18 all run at the sizes named here.  The matrices of phases 3
 to 6 are built with no ``device`` argument, so they live on the default
 device, the card.  Their CPU oracles (the port's plain path on the CPU,
 whose Benes passes take up to a minute a solve at n = 2^20) run at
@@ -355,8 +377,8 @@ on poisson3d27 (``ORACLES``) run in two worker processes, started at
 phase 9, beside the card's work; the checks wait for their results.
 
 Launch counts are set to 0 just before each solve of phases 3, 5, 6 and
-8 to 17 (and each lis_matvec and spmvtest row of phase 16; in phase 17
-on every rank, whose counts come back to this process) and read just
+8 to 18 (and each lis_matvec and spmvtest row of phase 16; in phases 17
+and 18 on every rank, whose counts come back to this process) and read just
 after; launches made to compare a kernel with its plain
 version are not counted.  It prints one JSON line of per-kernel results
 (each row's ``timing`` says how its ``ms`` was taken; where that is
@@ -1617,7 +1639,13 @@ def main() -> None:
     phase_compat(S)
     # ---- 17. the distributed layer over torch.distributed ----------------
     stamp("phase 17")
-    phase_dist(S, total)
+    pool = phase_dist(S, total)
+    # ---- 18. the distributed eigensolvers ---------------------------------
+    stamp("phase 18")
+    try:
+        phase_dist_esolve(S, pool, total)
+    finally:
+        pool.close()
     report_results(S, smi_line, total)
 
 def phase_preconditioned(S):
@@ -3221,6 +3249,8 @@ def phase_eigen(S):
             > 1e-9:
         fail("phase 14: the closed-form spectrum disagrees with its "
              "documented values")
+    # phase 18 holds the distributed eigensolves to these cases
+    S.p14 = {"closed form": (lam_min, spectrum[1])}
 
     t0 = time.perf_counter()
     D = testmat.poisson3d27_dia(g96, g96, g96)
@@ -3323,6 +3353,9 @@ def phase_eigen(S):
                 ro.iters_all) != list(r.iters_all) or not rel <= 1e-10):
             fail(f"phase 14 {what} {opts}: the kernels' run differs from "
                  f"its plain-version oracle")
+        S.p14[opts] = types.SimpleNamespace(
+            status=r.status, iters_all=[int(i) for i in r.iters_all],
+            evalues=np.asarray(r.evalues), rhistory=np.asarray(r.rhistory))
         return r, got, ro
 
     def near(what, got, want, tol):
@@ -4725,45 +4758,52 @@ def dist_dia_rank(mesh, g, opts_list, time_f=False, plain=()):
     if time_f:
         mesh.barrier()
         if mesh.rank == 0:
-            out["f_rect"] = _time_f_rect(Ad, xl)
+            out["f_rect"] = _time_f_rect(Ad, xl, torch.float64)
+            out["f_rect32"] = _time_f_rect(Ad, xl, torch.float32)
         mesh.barrier()
     out["solves"] = [_dist_solve_rank(mesh, Ad, n, o, M=Ms.get(o))
                      for o in opts_list]
     out["plain"] = [_dist_solve_rank(mesh, Ad, n, o, plain=True,
                                      M=Ms.get(o)) for o in plain]
+    if g == 96:
+        _KEEP[("dia", g)] = Ad       # phase 18b's operator
     return out
 
 
-def _time_f_rect(Ad, xl):
-    """The rectangular F of one rank: its max error against the plain
-    version, and its time beside the plain version's, torch.sparse CSR @
-    x on the same (nlocal + 2 hw) x nlocal operator and the byte bound."""
+def _time_f_rect(Ad, xl, dtype):
+    """The rectangular F of one rank in ``dtype``: its max error against
+    the plain version (and relative to the largest entry), and its time
+    beside the plain version's, torch.sparse CSR @ x on the same
+    (nlocal + 2 hw) x nlocal operator and the byte bound."""
     import torch
     from lis_tpu_torch.matrix import dia as diam
     nl, hw, nnd = Ad.nlocal, Ad.hw, len(Ad.offsets)
     ext = tuple(o + hw for o in Ad.offsets)
     ncols = nl + 2 * hw
+    value, xl = Ad.value.to(dtype), xl.to(dtype)
 
     def kern():
-        return diam.dia_spmvh(Ad.value, Ad.off_ext, ext, xl, ncols)
+        return diam.dia_spmvh(value, Ad.off_ext, ext, xl, ncols)
 
     def plain():
-        return diam._spmvh_plain(Ad.value, ext, xl, ncols)
+        return diam._spmvh_plain(value, ext, xl, ncols)
     err = (kern() - plain()).abs().max().item()
     i = torch.arange(nl, device=xl.device)
     rows = torch.cat([i + o for o in ext])
     cols = i.repeat(nnd)
-    vals = Ad.value.reshape(-1)
+    vals = value.reshape(-1)
     keep = (vals != 0) & (rows >= 0) & (rows < ncols)
     S = torch.sparse_coo_tensor(torch.stack([rows[keep], cols[keep]]),
                                 vals[keep], (ncols, nl)).coalesce() \
         .to_sparse_csr()
     lib = S @ xl
-    if (lib - plain()).abs().max().item() > 1e-12 * lib.abs().max().item():
+    rtol = 1e-12 if dtype == torch.float64 else 1e-5
+    if (lib - plain()).abs().max().item() > rtol * lib.abs().max().item():
         fail("torch.sparse disagrees with the rectangular F's plain version")
-    b_ms, b_by = bound_ms((nnd * nl + nl + ncols) * 8, 2 * nnd * nl,
-                          torch.float64)
-    rec = {"max_abs_err": err, "ms": cuda_ms(kern, reps=10),
+    b_ms, b_by = bound_ms((nnd * nl + nl + ncols) * value.element_size(),
+                          2 * nnd * nl, dtype)
+    rec = {"max_abs_err": err, "rel_err": err / lib.abs().max().item(),
+           "ms": cuda_ms(kern, reps=10),
            "plain_ms": cuda_ms(plain, reps=5), "bound_ms": b_ms,
            "bound_by": b_by, "library_ms": cuda_ms(lambda: S @ xl, reps=10),
            "timing": "host"}
@@ -4772,6 +4812,7 @@ def _time_f_rect(Ad, xl):
 
 
 _PREP = {}           # a rank's shards built ahead of phase 17
+_KEEP = {}           # a rank's shards of phase 17 that phase 18 reuses
 
 
 def dist_cst_prep(mesh, n, k, seed):
@@ -4800,6 +4841,7 @@ def dist_cst_rank(mesh, n, k, seed, opts_list):
     out = {"build": build, "G": Ad.G, "comm": Ad.comm_elems,
            "dists": len(Ad.dists)}
     out["solves"] = [_dist_solve_rank(mesh, Ad, n, o) for o in opts_list]
+    _KEEP["cst"] = Ad                # phase 18b2's operator
     return out
 
 
@@ -4834,7 +4876,8 @@ def phase_dist(S, total):
     issue-level description in the docstring of parallel/mesh.py).  (a)
     one rank over nccl on the card; (b) four ranks sharing the card over
     gloo (staged through pinned host buffers); (c) four cards over nccl,
-    only where four are visible."""
+    only where four are visible.  Returns (b)'s pool of ranks, still
+    running, with the shards phase 18 reuses."""
     import torch
     import lis_tpu_torch
     from lis_tpu_torch import parallel as P
@@ -4938,6 +4981,16 @@ def phase_dist(S, total):
             f"{fr['library_ms']:.4f} ms")
         if fr["max_abs_err"] > 1e-12 * 27:
             fail("17b1: the rectangular F disagrees with its plain version")
+        fr = S.results32["dia_spmvh_rect"] = r0["f_rect32"]
+        tag(f"(b1) rectangular F at f32, rank 0: max_abs_err "
+            f"{fr['max_abs_err']:.2e} ({fr['rel_err']:.1e} relative); "
+            f"{fr['ms']:.4f} ms vs plain {fr['plain_ms']:.4f} ms, bound "
+            f"{fr['bound_ms']:.4f} ms "
+            f"({100 * fr['bound_ms'] / fr['ms']:.0f} %), torch.sparse "
+            f"{fr['library_ms']:.4f} ms")
+        if not fr["rel_err"] <= 1e-5:
+            fail("17b1: the rectangular F at f32 disagrees with its plain "
+                 "version")
 
         # (b2) phase 3's locality-free system over the per-rank CST
         cg = "-i cg -p jacobi -tol 1e-10"
@@ -5023,8 +5076,9 @@ def phase_dist(S, total):
                  f"{rb.status}/{rb.iters}")
         need_each([q["solves"][3] for q in res], ("dia_spmvh",), r["iters"],
                   "(b4) bicg")
-    finally:
+    except BaseException:
         pool.close()
+        raise
 
     # (b5) the scaling harness
     buf = io.StringIO()
@@ -5056,6 +5110,280 @@ def phase_dist(S, total):
         tag(f"(c) not run: {torch.cuda.device_count()} card(s) visible, and "
             "nccl needs one card per rank (four for this part); not a pass")
     print(f"phase time: phase 17 took {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    return pool
+
+
+# ---- phase 18: the distributed eigensolvers ---------------------------------
+
+def kept_shard(mesh, key, seed=0):
+    """A rank's shard for phase 18: the one phase 17 kept on these ranks,
+    else built here: ("dia", g) poisson3d27 g^3 in DIA, ("bdiag", g) the
+    diagonal B = diag(linspace(1, 2)) of phase 14e, "cst" phase 3's
+    n = 2^20 system on the per-rank CST."""
+    import torch
+    from lis_tpu_torch import parallel as P
+    from lis_tpu_torch.matrix import dia as diam
+    from lis_tpu_torch.utils import testmat
+    if key not in _KEEP:
+        if key == "cst":
+            dist_cst_prep(mesh, 1 << 20, 8, seed)
+            _KEEP[key] = _PREP.pop("cst")
+        elif key[0] == "dia":
+            g = key[1]
+            _KEEP[key] = P.distribute_dia(
+                testmat.poisson3d27_dia(g, g, g, device=mesh.device), mesh)
+        else:
+            n = key[1] ** 3
+            d = torch.linspace(1.0, 2.0, n, dtype=torch.float64,
+                               device=mesh.device)[None, :]
+            _KEEP[key] = P.distribute_dia(diam.DIAMatrix.from_diagonals(
+                d, (0,), (n, n), n), mesh)
+    return _KEEP[key]
+
+
+@contextlib.contextmanager
+def counting_steps():
+    """Counts the shards' matvecs and the steps of the inner registry
+    solves while it is open (the registry and the shard classes are
+    looked up at each call): yields the dict of the two counts."""
+    import lis_tpu_torch.parallel.dist as pd
+    from lis_tpu_torch.solvers.base import SOLVER_FNS
+    cnt = {"matvecs": 0, "steps": 0}
+    saved = dict(SOLVER_FNS)
+    classes = (pd.DistDIAMatrix, pd.DistCSTMatrix)
+    mv = {c: c.matvec for c in classes}
+
+    def solver(fn):
+        def run(*a, **kw):
+            out = fn(*a, **kw)
+            cnt["steps"] += int(out.iters)
+            return out
+        return run
+
+    def matvec(fn):
+        def run(self, x):
+            cnt["matvecs"] += 1
+            return fn(self, x)
+        return run
+    for name, fn in saved.items():
+        SOLVER_FNS[name] = solver(fn)
+    for c, fn in mv.items():
+        c.matvec = matvec(fn)
+    try:
+        yield cnt
+    finally:
+        SOLVER_FNS.update(saved)
+        for c, fn in mv.items():
+            c.matvec = fn
+
+
+def dist_esolve_rank(mesh, key, opts, bkey=None, seed=0, plain=False):
+    """Phase 18 on a rank: one counted dist_esolve on the shard ``key``
+    (with B ``bkey``; ``plain``: over the plain versions of E, F and G):
+    the result's numbers, the launches, collectives, shard matvecs and
+    inner-solve steps of this rank, and its wall."""
+    from lis_tpu_torch import parallel as P
+    Ad = kept_shard(mesh, key, seed)
+    Bd = None if bkey is None else kept_shard(mesh, bkey, seed)
+    ctx = plain_kernels() if plain else contextlib.nullcontext()
+    with ctx, counting_steps() as cnt:
+        r, got, coll, wall = _rank_counted(
+            mesh, lambda: P.dist_esolve(Ad, mesh, options=opts, B=Bd))
+    x = r.evector
+    return {"opts": opts, "status": r.status, "iters": int(r.iters),
+            "iters_all": [int(i) for i in r.iters_all],
+            "evalues": np.asarray(r.evalues), "rhistory": r.rhistory,
+            "launches": got, "coll": coll, "wall": wall, **cnt,
+            "whole": bool(x.shape == (Ad.gn,) and x.isfinite().all()
+                          and r.evectors.shape[1] == Ad.gn),
+            "n": Ad.gn}
+
+
+def phase_dist_esolve(S, pool, total):
+    """Phase 18: the distributed eigensolvers (``phase dist_esolve:``
+    lines).  (a) one rank over nccl on phase 14's 96^3 DIA, each case
+    held to phase 14's serial run; (b) phase 17's four gloo ranks on the
+    shards phase 17 kept (b1-b3) and a 32^3 pencil (b4); (c) (b1) and
+    (b2) over nccl with a card a rank, only where four are visible."""
+    import torch
+    from lis_tpu_torch import parallel as P
+    t_phase = time.perf_counter()
+    lam_min, lam_2 = S.p14["closed form"]
+
+    def tag(msg):
+        print(f"phase dist_esolve: {msg}", flush=True)
+
+    def add(launches):
+        for name, cnt in launches.items():
+            total[name] += cnt
+
+    def rel(got, want):
+        want = np.asarray(want, dtype=float)
+        return float(np.abs(np.asarray(got) - want).max()
+                     / np.abs(want).max())
+
+    def line(what, rs):
+        """The case's line: rank 0's result, every rank's launches of the
+        path's kernels, rank 0's collectives an outer iteration."""
+        r = rs[0]
+        it = max(sum(r["iters_all"]) if "-e si" in r["opts"] else r["iters"],
+                 1)
+        kern = [{k: c for k, c in q["launches"].items() if c} for q in rs]
+        tag(f"{what} {r['opts']} n={r['n']}, {len(rs)} rank(s): status "
+            f"{r['status']} outer iterations {r['iters_all']} eigenvalues "
+            f"{[round(float(e), 10) for e in r['evalues']]}; "
+            f"{1e3 * r['wall'] / it:.3f} ms an outer iteration, wall "
+            f"{r['wall']:.2f} s; shard matvecs {r['matvecs']}, inner steps "
+            f"{r['steps']}; collectives of rank 0 {r['coll']} "
+            f"({sum(r['coll'].values()) / it:.1f} an outer iteration); "
+            f"launches per rank {kern}")
+        for q in rs:
+            add(q["launches"])
+            if not q["whole"]:
+                fail(f"18 {what}: a rank's evector is not whole and finite")
+            if (q["iters_all"], q["status"]) != (r["iters_all"],
+                                                 r["status"]) or \
+                    not np.array_equal(q["evalues"], r["evalues"]):
+                fail(f"18 {what}: the ranks disagree")
+        return r
+
+    def need_each(rs, names, least, what):
+        for k, q in enumerate(rs):
+            for name in names:
+                if q["launches"][name] < least:
+                    fail(f"18 {what}: rank {k} launched {name} "
+                         f"{q['launches'][name]} times, expected at least "
+                         f"{least}")
+
+    def held(what, r, ref, band, closed=()):
+        """Status equal, eigenvalues to 1e-8 relative, counts equal (band
+        0) or within ``band``, the closed form where given."""
+        d = rel(r["evalues"], ref.evalues)
+        counts = np.abs(np.subtract(r["iters_all"], ref.iters_all))
+        tag(f"{what} against the serial run: status {ref.status}, outer "
+            f"iterations {ref.iters_all}, eigenvalues rel diff {d:.1e}")
+        if r["status"] != ref.status or not d <= 1e-8 \
+                or counts.max() > band:
+            fail(f"18 {what}: status {r['status']} / {ref.status}, counts "
+                 f"{r['iters_all']} / {ref.iters_all}, eigenvalues {d:.1e}")
+        for k, want, tol in closed:
+            if not abs(r["evalues"][k] - want) <= tol:
+                fail(f"18 {what}: pair {k + 1} at {r['evalues'][k]:.12f}, "
+                     f"closed form {want:.12f}")
+
+    def kernels_ran(what, rs, cg):
+        """E at least once a shard matvec, and with inner CG solves G1-G4
+        at least once an inner step, on every rank."""
+        for q in rs:
+            need_each([q], ("dia_spmv",), q["matvecs"], what)
+            if cg:
+                need_each([q], ("krylov_dot", "cg_direction", "cg_update",
+                                "cg_finish"), q["steps"], what)
+
+    # ---- (a) one rank over nccl, each case held to phase 14's ------------
+    mesh = P.make_mesh(1, device=S.dev)
+    A96 = ("dia", 96)
+    t0 = time.perf_counter()
+    kept_shard(mesh, A96)
+    kept_shard(mesh, ("bdiag", 96))
+    tag(f"(a) 1 rank, {mesh.backend}: poisson3d27 96^3 and phase 14e's B "
+        f"built and distributed in {time.perf_counter() - t0:.2f} s")
+    one = {}
+    for what, opts, bkey, band, cg, closed in (
+            ("(a) ii", "-e ii -i cg -etol 1e-8", None, 2, True,
+             [(0, lam_min, 1e-8)]),
+            ("(a) cg", "-e cg -etol 1e-8", None, 2, True, ()),
+            ("(a) li", "-e li -ss 4 -rval true", None, 0, False, ()),
+            ("(a) si", "-e si -ss 2 -i cg -etol 1e-8", None, 2, True,
+             [(0, lam_min, 1e-8), (1, lam_2, 1e-7)]),
+            ("(a) gii", "-e gii -etol 1e-8", ("bdiag", 96), 0, False, ()),
+            ("(a) pi", "-e pi -emaxiter 200", None, 0, False, ())):
+        r = line(what, [dist_esolve_rank(mesh, A96, opts, bkey)])
+        ref = S.p14[opts]
+        if opts == "-e cg -etol 1e-8" and r["status"] == 0:
+            closed = [(0, lam_min, 1e-8)]
+        held(what, r, ref, band, closed)
+        kernels_ran(what, [r], cg)
+        one[opts] = r
+    pi = one["-e pi -emaxiter 200"]
+    d = rel(pi["rhistory"], S.p14["-e pi -emaxiter 200"].rhistory)
+    o = dist_esolve_rank(mesh, A96, pi["opts"], plain=True)
+    dp = rel(pi["rhistory"], o["rhistory"])
+    tag(f"(a) pi history against phase 14g's: {d:.1e} relative; against "
+        f"the same run over the plain versions of E and G on the card: "
+        f"{dp:.1e} (plain launches {sum(o['launches'].values())})")
+    if not d <= 1e-10 or not dp <= 1e-10 or any(o["launches"].values()):
+        fail(f"18a pi: history {d:.1e} / plain {dp:.1e}")
+    # (b4)'s reference: the 32^3 pencil on one rank
+    g4 = "-e gii -etol 1e-8"
+    r32 = line("(a) gii 32^3", [dist_esolve_rank(mesh, ("dia", 32), g4,
+                                                 ("bdiag", 32))])
+    _KEEP.clear()
+    torch.distributed.destroy_process_group()
+    torch.cuda.empty_cache()
+
+    # ---- (b) phase 17's four gloo ranks on the shards it kept ------------
+    def run4(what, pool, key, opts, bkey=None):
+        t0 = time.perf_counter()
+        rs = pool.run_all(dist_esolve_rank, key, opts, bkey, S.seed)
+        tag(f"{what}: {time.perf_counter() - t0:.1f} s on the ranks")
+        return rs, line(what, rs)
+
+    def b1(pool, what):
+        rs, r = run4(what, pool, A96, pi["opts"])
+        d = rel(r["rhistory"], pi["rhistory"])
+        tag(f"{what} history against (a)'s: {d:.1e} relative")
+        if r["status"] != S.p14[pi["opts"]].status or not d <= 1e-10:
+            fail(f"18{what[1:3]}: status {r['status']}, history {d:.1e}")
+        need_each(rs, ("dia_spmv",), r["iters"], what)
+        kernels_ran(what, rs, False)
+
+    def b2(pool, what):
+        rs, r = run4(what, pool, "cst", "-e li -ss 2 -rval true")
+        ref = S.p14["-e li -ss 2 -rval true -estorage 15"]
+        d = rel(r["evalues"], ref.evalues)
+        tag(f"{what} eigenvalues against phase 14h's: {d:.1e} relative")
+        if r["status"] != ref.status or not d <= 1e-10:
+            fail(f"18{what[1:3]}: status {r['status']}, eigenvalues {d:.1e}")
+        k = r["iters"] + 2          # the Lanczos steps and two residuals
+        for q in rs:
+            bd = sum(q["launches"][n] for n in (
+                "benes_pass", "benes_pass_rowsum", "benes_small_run"))
+            if q["matvecs"] != k or q["launches"]["cst_front"] < k \
+                    or bd < k:
+                fail(f"18{what[1:3]}: a rank ran {q['matvecs']} matvecs "
+                     f"(expected {k}), A {q['launches']['cst_front']}, B-D "
+                     f"{bd}")
+
+    b1(pool, "(b1)")
+    b2(pool, "(b2)")
+    rs, r = run4("(b3)", pool, A96, "-e cg -etol 1e-8")
+    c1 = one["-e cg -etol 1e-8"]
+    if r["status"] != c1["status"] or abs(r["iters"] - c1["iters"]) > 2 \
+            or not rel(r["evalues"], c1["evalues"]) <= 1e-8:
+        fail(f"18b3: {r['status']}/{r['iters']}/{r['evalues']} vs one "
+             f"rank's {c1['status']}/{c1['iters']}/{c1['evalues']}")
+    kernels_ran("(b3)", rs, True)
+    rs, r = run4("(b4)", pool, ("dia", 32), g4, ("bdiag", 32))
+    if r["status"] != r32["status"] or abs(r["iters"] - r32["iters"]) > 2 \
+            or not rel(r["evalues"], r32["evalues"]) <= 1e-8:
+        fail(f"18b4: {r['status']}/{r['iters']}/{r['evalues']} vs one "
+             f"rank's {r32['status']}/{r32['iters']}/{r32['evalues']}")
+    kernels_ran("(b4)", rs, False)
+    need_each(rs, ("dia_spmvh",), r["iters"], "(b4)")
+    S.rect_launches += sum(q["launches"]["dia_spmvh"] for q in rs)
+
+    # ---- (c) four cards over nccl --------------------------------------------
+    if torch.cuda.device_count() >= 4:
+        with P.RankPool(4, device="cuda", backend="nccl",
+                        timeout=600) as pool4:
+            b1(pool4, "(c1)")
+            b2(pool4, "(c2)")
+    else:
+        tag(f"(c) not run: {torch.cuda.device_count()} card(s) visible, and "
+            "nccl needs one card per rank (four for this part); not a pass")
+    print(f"phase time: phase 18 took {time.perf_counter() - t_phase:.1f} s",
           flush=True)
 
 

@@ -40,9 +40,10 @@ integer-handle flat API with its Fortran/C shim and drivers
 process per rank over ``torch.distributed``, ``launch`` / ``RankPool``,
 the sharded DIA, CSR (gather, neighbour and comm-table halos), CST, BES,
 multi-BES and hybrid operators, ``dist_solve`` at every precision with
-the block-local preconditioners, hybrid and SA-AMG) and the scaling
-harness (``cli/scaling.py``).  Not yet: the distributed eigensolvers
-(lis_tpu's ``parallel/dist_esolve.py``).
+the block-local preconditioners, hybrid and SA-AMG, and ``dist_esolve``
+with all eight eigensolvers and their generalized forms) and the scaling
+harness (``cli/scaling.py``).  Every module of lis_tpu has its
+counterpart here.
 """
 
 from lis_tpu_torch.config import (

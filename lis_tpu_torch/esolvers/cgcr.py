@@ -13,11 +13,19 @@ exactly 30 inverse iterations (cgcr.py:100-114, 218-252).  It runs on
 the host in Python floats from the 12 inner products read with the
 convergence test, so each iteration reads the device once; on the card
 those 30 tiny iterations would be hundreds of launches.
+
+The loops take lis_tpu's ``axis_name`` (None, or the ``Mesh`` of a
+distributed eigensolve).  Inner products that no update separates are
+formed as one stack of local partials (``_dots``), which a mesh
+all-reduces in one collective: each product's arithmetic is the one
+``v.dot`` does, and a mesh that stages its collectives through the host
+makes one round trip where it would make up to 13.
 """
 
 from __future__ import annotations
 
 import math
+from functools import partial
 
 import numpy as np
 import torch
@@ -63,6 +71,20 @@ def ecg(A, B, x0, opts):
                    host(rh)[1:iters + 1])
 
 
+def _dots(pairs, axis_name=None):
+    """The inner products <a, b> of ``pairs`` (``v.dot``'s, conjugating a
+    for complex) as one tensor, all-reduced over the mesh ``axis_name``
+    in one collective (lis_tpu's psum of each)."""
+    local = torch.stack([torch.vdot(a, b) if a.is_complex()
+                         else torch.dot(a, b) for a, b in pairs])
+    return v._reduced(local, axis_name)
+
+
+def _norms(xs, axis_name=None):
+    """The 2-norms of ``xs`` (``v.nrm2``'s), with one collective."""
+    return torch.sqrt(_dots([(x, x) for x in xs], axis_name).real)
+
+
 def _dot3(a, b):
     return a[0] * b[0] + a[1] * b[1] + a[2] * b[2]
 
@@ -97,13 +119,14 @@ def _ritz3(a3, b3):
     return v3
 
 
-def _ecg_run(A, B, M, x, p, maxiter, tol):
+def _ecg_run(A, B, M, x, p, maxiter, tol, axis_name=None):
     """The CG eigeniteration (lis_tpu ``_ecg_run``, and ``_egcg_run`` with a
     B: the pencil's Rayleigh-Ritz, with r = Bx − Ax/λ and λ = (Ax·Bx) /
     (Bx·Bx), as in the reference).  A step whose residual met tol counts
     in ``iters`` but leaves x, p and their products as they were
-    (lis_tpu's ``keep`` mask, cgcr.py:128-131 and :267-270)."""
-    d = v.dot
+    (lis_tpu's ``keep`` mask, cgcr.py:128-131 and :267-270).  Under a
+    mesh an iteration makes four collectives: λ, ‖w‖, ‖r‖ with the 12
+    products, and the two new norms."""
     rh = _history(x, maxiter)
     Ax, Ap = A.matvec(x), x          # p = A⁻¹x from the set-up solve
     Bx = Bp = None
@@ -114,25 +137,25 @@ def _ecg_run(A, B, M, x, p, maxiter, tol):
     it = 1
     while it <= maxiter and resid >= tol:
         if B is None:
-            lam = d(x, Ax)
+            lam = v.dot(x, Ax, axis_name=axis_name)
             r = x - (1.0 / lam) * Ax
         else:
-            lam = d(Ax, Bx) / d(Bx, Bx)
+            ab, bb = _dots([(Ax, Bx), (Bx, Bx)], axis_name)
+            lam = ab / bb
             r = Bx - (1.0 / lam) * Ax
-        res_t = v.nrm2(r)
-        rh[it] = res_t
         w = M.psolve(r)
-        w = w / v.nrm2(w)
+        w = w / v.nrm2(w, axis_name=axis_name)
         Aw = A.matvec(w)
         # the standard problem's B3 holds the inner products of w, x, p
         Bw, Bx_, Bp_ = (w, x, p) if B is None else (B.matvec(w), Bx, Bp)
-        # one read: the residual and the 12 inner products of the pencil
-        vals = torch.stack([res_t.to(lam.dtype),
-                            d(w, Aw), d(x, Aw), d(p, Aw), d(x, Ax),
-                            d(p, Ax), d(p, Ap),
-                            d(w, Bw), d(x, Bw), d(p, Bw), d(x, Bx_),
-                            d(p, Bx_), d(p, Bp_)]).tolist()
-        resid = vals[0].real if isinstance(vals[0], complex) else vals[0]
+        # one read: ‖r‖² and the 12 inner products of the pencil
+        prods = _dots([(r, r), (w, Aw), (x, Aw), (p, Aw), (x, Ax),
+                       (p, Ax), (p, Ap), (w, Bw), (x, Bw), (p, Bw),
+                       (x, Bx_), (p, Bx_), (p, Bp_)], axis_name)
+        rh[it] = torch.sqrt(prods[0].real)
+        vals = prods.tolist()
+        # the host's sqrt and the device's are both correctly rounded
+        resid = math.sqrt(vals[0].real)
         wa, xa, pa, xx, px, pp = vals[1:7]
         wb, xb, pb, xbx, pbx, pbp = vals[7:13]
         a3 = ((wa, xa, pa), (xa, xx, px), (pa, px, pp))
@@ -145,7 +168,7 @@ def _ecg_run(A, B, M, x, p, maxiter, tol):
         xn = w2 + c1 * x
         Aw2 = c0 * Aw + c2 * Ap
         Axn = Aw2 + c1 * Ax
-        nx, npn = v.nrm2(xn), v.nrm2(w2)
+        nx, npn = _norms([xn, w2], axis_name)
         x, Ax = xn / nx, Axn / nx
         p, Ap = w2 / npn, Aw2 / npn
         if B is not None:
@@ -174,11 +197,13 @@ def ecr(A, B, x0, opts):
                    host(rh)[1:iters + 1])
 
 
-def _ecr_run(A, M, x, maxiter, tol):
-    """The CR eigeniteration's device loop (lis_tpu ``_ecr_run``)."""
-    d = v.dot
+def _ecr_run(A, M, x, maxiter, tol, axis_name=None):
+    """The CR eigeniteration's device loop (lis_tpu ``_ecr_run``): three
+    collectives an iteration under a mesh, one for each group of
+    products that no update separates."""
+    dots = partial(_dots, axis_name=axis_name)
     Ax = A.matvec(x)
-    lam = d(x, Ax)
+    lam = v.dot(x, Ax, axis_name=axis_name)
     r = -(Ax - lam * x)
     p = r
     Ap = A.matvec(p)
@@ -186,22 +211,24 @@ def _ecr_run(A, M, x, maxiter, tol):
     resid = torch.tensor(float("inf"), dtype=rh.dtype, device=x.device)
     it = 1
     while it <= maxiter and bool(resid >= tol):
-        rAp, rp = d(r, Ap), d(r, p)
-        ApAp, pAp, pp = d(Ap, Ap), d(p, Ap), d(p, p)
+        rAp, rp, ApAp, pAp, pp = dots([(r, Ap), (r, p), (Ap, Ap), (p, Ap),
+                                       (p, p)])
         den = ApAp - 2.0 * lam * pAp + lam * lam * pp
         den = torch.where(den == 0, torch.ones_like(den), den)
         alpha = (rAp - lam * rp) / den
         x = x + alpha * p
         Ax = A.matvec(x)
-        lam = d(x, Ax) / (v.nrm2(x) ** 2)
+        xAx, xx = dots([(x, Ax), (x, x)])
+        lam = xAx / (torch.sqrt(xx.real) ** 2)
         r = -(Ax - lam * x)
         w = M.psolve(r)
         Aw = A.matvec(w)
-        beta = -(d(Aw, Ap) - lam * (d(p, Aw) + d(w, Ap))
-                 + lam * lam * d(w, p)) / den
+        AwAp, pAw, wAp, wp, rr = dots([(Aw, Ap), (p, Aw), (w, Ap), (w, p),
+                                       (r, r)])
+        beta = -(AwAp - lam * (pAw + wAp) + lam * lam * wp) / den
         p = w + beta * p
         Ap = Aw + beta * Ap
-        resid = v.nrm2(r) / _den(lam)
+        resid = torch.sqrt(rr.real) / _den(lam)
         rh[it] = resid
         it += 1
-    return it - 1, x / v.nrm2(x), lam, resid, rh
+    return it - 1, x / v.nrm2(x, axis_name=axis_name), lam, resid, rh

@@ -18,12 +18,21 @@ lis_tpu gives each eigensolver two forms, and so does this port:
   inner option surface (-p, -f, every solver).
 
 PI, II and RQI take the device loop when ``_raw_inner_ok`` holds (lis_tpu
-``_jit_inner_ok``, power.py:188-197).  lis_tpu's operator-only branches
-(the distributed ``GlobalView`` adapter, power.py:50-58 and :287-316) come
-with the distributed layer (ROADMAP.md queue 1 item 13).
+``_jit_inner_ok``, power.py:188-197).
+
+Each device loop takes lis_tpu's ``axis_name``: None (serial) or the
+``parallel.mesh.Mesh`` of a distributed eigensolve
+(``parallel/dist_esolve.py``), which goes into every dot and norm and
+into the inner ``SolverSpec``, so that every value the host reads is
+reduced over the mesh and every rank takes the same branch.  Under a
+mesh the operator is a rank's shard, which the driver cannot analyse:
+``_bsolve`` and ``_shift_solve`` then take lis_tpu's operator-only branch
+(power.py:50-58, :287-316), a raw registry solve over the mesh.
 """
 
 from __future__ import annotations
+
+from functools import partial
 
 import numpy as np
 import torch
@@ -55,8 +64,14 @@ def _inner_precision(opts):
     return p if p != "double" else opts.inner.precision
 
 
-def _bsolve(B, rhs, opts):
-    """Solve B y = rhs for the generalized reduction, through the driver."""
+def _bsolve(B, rhs, opts, axis_name=None):
+    """Solve B y = rhs for the generalized reduction, through the driver;
+    under a mesh a raw unpreconditioned registry solve over it (lis_tpu's
+    operator-only branch, power.py:50-58)."""
+    if axis_name is not None:
+        return _raw_solve(B, rhs, SolverSpec(
+            solver=_raw_inner_name(opts), tol=max(opts.tol * 1e-2, 1e-14),
+            maxiter=opts.inner.maxiter, conv_cond=0, axis_name=axis_name))
     from lis_tpu_torch.solvers.driver import solve
     r = solve(B, rhs, options=None,
               solver=opts.inner.solver, precon=opts.inner.precon,
@@ -177,19 +192,21 @@ def epi(A, B, x0, opts):
     return _result(evalue, x, iters, resid, status, rh)
 
 
-def _epi_run(A, x0, maxiter, tol):
+def _epi_run(A, x0, maxiter, tol, axis_name=None):
     """The power iteration's device loop (lis_tpu ``_epi_run``)."""
-    x = x0 / v.nrm2(x0)
+    dot = partial(v.dot, axis_name=axis_name)
+    nrm2 = partial(v.nrm2, axis_name=axis_name)
+    x = x0 / nrm2(x0)
     z = A.matvec(x)
     rh = _history(x0, maxiter)
     lam = torch.zeros((), dtype=x0.dtype, device=x0.device)
     resid = torch.tensor(float("inf"), dtype=rh.dtype, device=x0.device)
     it = 1
     while it <= maxiter and bool(resid > tol):
-        lam = v.dot(x, z)
-        x = z / v.nrm2(z)
+        lam = dot(x, z)
+        x = z / nrm2(z)
         z = A.matvec(x)
-        resid = v.nrm2(z - lam * x) / _den(lam)
+        resid = nrm2(z - lam * x) / _den(lam)
         rh[it] = resid
         it += 1
     return it - 1, x, lam, resid, rh
@@ -197,7 +214,8 @@ def _epi_run(A, x0, maxiter, tol):
 
 class _GenOp:
     """B⁻¹A as an operator: matvec nests a raw inner solve with B, so the
-    standard device loops run unchanged on the generalized pencil."""
+    standard device loops run unchanged on the generalized pencil (under
+    a mesh, ``spec.axis_name`` carries it into the nested solve)."""
 
     def __init__(self, A, B, spec: SolverSpec):
         self.A, self.B, self.spec = A, B, spec
@@ -206,20 +224,23 @@ class _GenOp:
         return _raw_solve(self.B, self.A.matvec(x), self.spec)
 
 
-def _egpi_run(A, B, x0, maxiter, tol, inner):
+def _egpi_run(A, B, x0, maxiter, tol, inner, axis_name=None):
     """Generalized power iteration's device loop (lis_tpu
     ``_egpi_runner``): two raw B-solves per outer iteration."""
-    x = x0 / v.nrm2(x0)
+    dot = partial(v.dot, axis_name=axis_name)
+    nrm2 = partial(v.nrm2, axis_name=axis_name)
+    inner = inner._replace(axis_name=axis_name)
+    x = x0 / nrm2(x0)
     rh = _history(x0, maxiter)
     ev = torch.zeros((), dtype=x0.dtype, device=x0.device)
     resid = torch.tensor(float("inf"), dtype=rh.dtype, device=x0.device)
     it = 1
     while it <= maxiter and bool(resid > tol):
         z = _raw_solve(B, A.matvec(x), inner)
-        ev = v.dot(x, z)
-        x = z / v.nrm2(z)
+        ev = dot(x, z)
+        x = z / nrm2(z)
         az = _raw_solve(B, A.matvec(x), inner)
-        resid = v.nrm2(az - ev * x) / _den(ev)
+        resid = nrm2(az - ev * x) / _den(ev)
         rh[it] = resid
         it += 1
     return it - 1, x, ev, resid, rh
@@ -227,10 +248,18 @@ def _egpi_run(A, B, x0, maxiter, tol, inner):
 
 # ---- II ---------------------------------------------------------------------
 
-def _shift_solve(A, B, sigma, rhs, opts):
+def _shift_solve(A, B, sigma, rhs, opts, axis_name=None):
     """Solve (A − σB) y = rhs through the driver (the inner Krylov solve of
     II and RQI's host loops, reference lis_esolver_ii.c:216).  A DIA shifts
-    on the device (``DIAMatrix.shift_diagonal`` / ``axpy``)."""
+    on the device (``DIAMatrix.shift_diagonal`` / ``axpy``).  Under a mesh
+    A and B are shards: a raw registry solve over the mesh with A − σI or
+    A − σB as an operator (lis_tpu's operator-only branches,
+    power.py:287-316)."""
+    if axis_name is not None:
+        As = _shifted(A, sigma) if B is None else \
+            _ShiftedPencil(A, B, float(sigma))
+        return _raw_solve(As, rhs,
+                          _inner_spec(opts)._replace(axis_name=axis_name))
     from lis_tpu_torch.solvers.driver import solve
     if B is None:
         As = A.shift_diagonal(sigma)          # A − σI
@@ -280,20 +309,23 @@ def eii(A, B, x0, opts):
     return _result(evalue, x, iters, resid, status, rh)
 
 
-def _eii_run(As, A, x0, sigma, maxiter, tol, inner):
+def _eii_run(As, A, x0, sigma, maxiter, tol, inner, axis_name=None):
     """Inverse iteration's device loop (lis_tpu ``_eii_runner``): a raw
     inner solve with the shifted operator ``As`` per outer iteration."""
-    x = x0 / v.nrm2(x0)
+    dot = partial(v.dot, axis_name=axis_name)
+    nrm2 = partial(v.nrm2, axis_name=axis_name)
+    inner = inner._replace(axis_name=axis_name)
+    x = x0 / nrm2(x0)
     rh = _history(x0, maxiter)
     ev = torch.zeros((), dtype=x0.dtype, device=x0.device)
     resid = torch.tensor(float("inf"), dtype=rh.dtype, device=x0.device)
     it = 1
     while it <= maxiter and bool(resid > tol):
         y = _finite(_raw_solve(As, x, inner))
-        theta = v.dot(x, y)
-        x = y / v.nrm2(y)
+        theta = dot(x, y)
+        x = y / nrm2(y)
         ev = sigma + 1.0 / theta
-        resid = v.nrm2(A.matvec(x) - ev * x) / _den(ev)
+        resid = nrm2(A.matvec(x) - ev * x) / _den(ev)
         rh[it] = resid
         it += 1
     return it - 1, x, ev, resid, rh
@@ -313,6 +345,11 @@ class _Shifted:
         return self.A.matvech(x) - _conj(self.sigma) * x
 
 
+def _shifted(A, sigma):
+    """A − σI as an operator (A itself at σ = 0)."""
+    return _Shifted(A, float(sigma)) if sigma != 0.0 else A
+
+
 class _ShiftedPencil:
     """A − σB as an operator with σ a device scalar: the generalized
     shift-solve operator of II and RQI's device loops (reference
@@ -328,21 +365,24 @@ class _ShiftedPencil:
         return self.A.matvech(x) - _conj(self.sigma) * self.B.matvech(x)
 
 
-def _egii_run(A, B, x0, sigma, maxiter, tol, inner):
+def _egii_run(A, B, x0, sigma, maxiter, tol, inner, axis_name=None):
     """Generalized inverse iteration's device loop (lis_tpu
     ``_egii_runner``): one raw solve of (A − σB) y = Bx per outer step."""
+    dot = partial(v.dot, axis_name=axis_name)
+    nrm2 = partial(v.nrm2, axis_name=axis_name)
+    inner = inner._replace(axis_name=axis_name)
     As = _ShiftedPencil(A, B, sigma)
-    x = x0 / v.nrm2(x0)
+    x = x0 / nrm2(x0)
     rh = _history(x0, maxiter)
     ev = torch.zeros((), dtype=x0.dtype, device=x0.device)
     resid = torch.tensor(float("inf"), dtype=rh.dtype, device=x0.device)
     it = 1
     while it <= maxiter and bool(resid > tol):
         y = _finite(_raw_solve(As, B.matvec(x), inner))
-        theta = v.dot(x, y)
-        x = y / v.nrm2(y)
+        theta = dot(x, y)
+        x = y / nrm2(y)
         ev = sigma + 1.0 / theta
-        resid = v.nrm2(A.matvec(x) - ev * B.matvec(x)) / _den(ev)
+        resid = nrm2(A.matvec(x) - ev * B.matvec(x)) / _den(ev)
         rh[it] = resid
         it += 1
     return it - 1, x, ev, resid, rh
@@ -350,7 +390,7 @@ def _egii_run(A, B, x0, sigma, maxiter, tol, inner):
 
 # ---- RQI --------------------------------------------------------------------
 
-def _rqi_run(A, B, x0, maxiter, tol, inner):
+def _rqi_run(A, B, x0, maxiter, tol, inner, axis_name=None):
     """Rayleigh-quotient iteration's device loop (lis_tpu ``_erqi_runner``,
     and ``_egrqi_runner`` with a B: the shift follows x·Ax / x·Bx).
 
@@ -359,9 +399,12 @@ def _rqi_run(A, B, x0, maxiter, tol, inner):
     finite part (a shift on an eigenvalue) keeps the last iterate and
     nudges the shift to σ·(1 + 1e-6) + 1e-12; three in a row end the loop,
     which then reports BREAKDOWN (power.py:545-566, 600-627)."""
-    x = x0 / v.nrm2(x0)
+    dot = partial(v.dot, axis_name=axis_name)
+    nrm2 = partial(v.nrm2, axis_name=axis_name)
+    inner = inner._replace(axis_name=axis_name)
+    x = x0 / nrm2(x0)
     bx = x if B is None else B.matvec(x)
-    sigma = v.dot(x, A.matvec(x)) / v.dot(x, bx)
+    sigma = dot(x, A.matvec(x)) / dot(x, bx)
     ev = sigma
     rh = _history(x0, maxiter)
     resid = torch.tensor(float("inf"), dtype=rh.dtype, device=x0.device)
@@ -375,13 +418,13 @@ def _rqi_run(A, B, x0, maxiter, tol, inner):
         # a near-singular shift makes the inner Krylov solve blow up in the
         # target eigendirection, which is RQI working: keep the finite part
         y = _finite(y)
-        ynrm = v.nrm2(y)
+        ynrm = nrm2(y)
         bad = ~torch.isfinite(ynrm) | (ynrm == 0.0)
         xn = torch.where(bad, x, y / torch.where(ynrm == 0, 1.0, ynrm))
         axn = A.matvec(xn)
         bxn = xn if B is None else B.matvec(xn)
-        evn = v.dot(xn, axn) / v.dot(xn, bxn)
-        residn = v.nrm2(axn - evn * bxn) / _den(evn)
+        evn = dot(xn, axn) / dot(xn, bxn)
+        residn = nrm2(axn - evn * bxn) / _den(evn)
         move = (residn < 0.5 * resid) | ~torch.isfinite(resid)
         sigman = torch.where(move, evn, sigma)
         rh[it] = residn

@@ -10,13 +10,21 @@ The Krylov factorisations (Lanczos' three-term recurrence, Arnoldi's MGS)
 are matvecs and inner products on the matrix's device, their
 coefficients read on the host step by step; the small projected
 eigenproblem is solved on the host by numpy (``eigh`` / ``eig``, as in
-lis_tpu, so the pairs come out in the same order).  lis_tpu's
-operator-only branch of ``_gen_op`` (the distributed ``GlobalView``,
-subspace.py:42-48) comes with the distributed layer (ROADMAP.md queue 1
-item 13).
+lis_tpu, so the pairs come out in the same order).
+
+Each eigensolver takes lis_tpu's ``axis_name``: None, or the ``Mesh`` of
+a distributed eigensolve (``parallel/dist_esolve.py``), where A and B
+are a rank's shards behind its view.  Every dot and norm is then
+all-reduced, so each rank reads the same coefficients, takes the same
+branches and solves the same small eigenproblem on its host; ``Qm @ s``
+stays a product over the rank's rows, and the B-solves and shifted
+solves take lis_tpu's operator-only branch (subspace.py:42-48, raw
+registry solves over the mesh).
 """
 
 from __future__ import annotations
+
+from functools import partial
 
 import numpy as np
 import torch
@@ -53,11 +61,14 @@ def _multi_result(evalues, evectors, iters, resids, status, rh):
                         rhistory=np.asarray(rh))
 
 
-def _gen_op(A, B, opts):
+def _gen_op(A, B, opts, axis_name=None):
     """The operator x -> B⁻¹Ax of the generalized problem (B None: A),
-    its B-solve through the driver."""
+    its B-solve through the driver, or under a mesh ``_bsolve``'s raw
+    solve over it (lis_tpu's operator-only branch)."""
     if B is None:
         return A.matvec
+    if axis_name is not None:
+        return lambda x: _bsolve(B, A.matvec(x), opts, axis_name)
     from lis_tpu_torch.solvers.driver import solve
 
     def op(x):
@@ -68,13 +79,13 @@ def _gen_op(A, B, opts):
     return op
 
 
-def _pair_resid(A, B, lam, x):
+def _pair_resid(A, B, lam, x, axis_name=None):
     bx = x if B is None else B.matvec(x)
     den = abs(lam) if lam != 0 else 1.0
-    return float(v.nrm2(A.matvec(x) - lam * bx) / den)
+    return float(v.nrm2(A.matvec(x) - lam * bx, axis_name) / den)
 
 
-def _refine_pair(A, B, lam, x, opts):
+def _refine_pair(A, B, lam, x, opts, axis_name=None):
     """Polish a Ritz pair by fixed-shift inverse iteration (the reference's
     per-pair refinement by the inner esolver, lis_esolver_li.c:576).  The
     shift stays at the Ritz value: moving it onto the converging eigenvalue
@@ -82,14 +93,16 @@ def _refine_pair(A, B, lam, x, opts):
 
     The standard problem runs II's device loop (50 steps at most, raw
     inner solves of ``_raw_inner_name``'s solver, as lis_tpu runs its
-    compiled loop there); a pencil runs the host loop through the driver."""
-    resid = _pair_resid(A, B, lam, x)
+    compiled loop there); a pencil runs the host loop, its shifted solves
+    through the driver (under a mesh raw solves over it)."""
+    resid = _pair_resid(A, B, lam, x, axis_name)
     if resid <= opts.tol:
         return lam, x, resid
     if B is None:
         As = A.shift_diagonal(lam)
         iters, xr, ev, res, rh = _eii_run(As, A, x, float(lam), 50,
-                                          opts.tol, _inner_spec(opts))
+                                          opts.tol, _inner_spec(opts),
+                                          axis_name)
         res = float(res)
         if np.isfinite(res) and res < resid:
             return complex(ev).real, xr, res
@@ -99,19 +112,20 @@ def _refine_pair(A, B, lam, x, opts):
         if resid <= opts.tol:
             break
         try:
-            y = _shift_solve(A, B, sigma, B.matvec(x), opts)
+            y = _shift_solve(A, B, sigma, B.matvec(x), opts, axis_name)
         except _INNER_SOLVE_FAILURES:
             break
-        nrm = float(v.nrm2(y))
+        nrm = float(v.nrm2(y, axis_name))
         if not np.isfinite(nrm) or nrm == 0.0:
             break
         x = y / nrm
-        lam = complex(v.dot(x, A.matvec(x)) / v.dot(x, B.matvec(x))).real
-        resid = _pair_resid(A, B, lam, x)
+        lam = complex(v.dot(x, A.matvec(x), axis_name)
+                      / v.dot(x, B.matvec(x), axis_name)).real
+        resid = _pair_resid(A, B, lam, x, axis_name)
     return lam, x, resid
 
 
-def _ritz_pairs(A, B, opts, Qm, evalues, vecs, ss):
+def _ritz_pairs(A, B, opts, Qm, evalues, vecs, ss, axis_name=None):
     """The ss Ritz pairs Qm·s (each normalised), refined by
     ``_refine_pair`` unless -rval true asks for the raw pairs
     (lis_esolver_li.c's ``if (rval) return LIS_SUCCESS`` branch,
@@ -121,12 +135,13 @@ def _ritz_pairs(A, B, opts, Qm, evalues, vecs, ss):
     for idx in range(ss):
         xi = Qm @ torch.from_numpy(np.ascontiguousarray(vecs[idx])).to(
             Qm.device, Qm.dtype)
-        nrm = v.nrm2(xi)
+        nrm = v.nrm2(xi, axis_name)
         xi = xi / torch.where(nrm == 0, torch.ones_like(nrm), nrm)
         if ritz_only:
-            res = _pair_resid(A, B, float(evalues[idx]), xi)
+            res = _pair_resid(A, B, float(evalues[idx]), xi, axis_name)
         else:
-            lam, xi, res = _refine_pair(A, B, float(evalues[idx]), xi, opts)
+            lam, xi, res = _refine_pair(A, B, float(evalues[idx]), xi, opts,
+                                        axis_name)
             evalues[idx] = lam
         evectors.append(xi)
         resids.append(res)
@@ -137,7 +152,7 @@ def _ritz_pairs(A, B, opts, Qm, evalues, vecs, ss):
 
 
 @register_esolver("li")
-def eli(A, B, x0, opts):
+def eli(A, B, x0, opts, axis_name=None):
     """Lanczos (lis_eli): tridiagonalisation with full reorthogonalisation,
     a dense eigh of T on the host, fixed-shift II refinement of each Ritz
     pair (lis_esolver_li.c:253,576).
@@ -149,21 +164,24 @@ def eli(A, B, x0, opts):
     n = A.nrows
     ss = min(max(opts.ss, 1), n)
     m = min(max(2 * ss, ss + 8), n)       # Krylov dimension >= pairs asked
-    op = _gen_op(A, B, opts)
+    op = _gen_op(A, B, opts, axis_name)
+    dot = partial(v.dot, axis_name=axis_name)
+    nrm2 = partial(v.nrm2, axis_name=axis_name)
 
-    q = x0 / v.nrm2(x0)
+    q = x0 / nrm2(x0)
     Q = [q]
     alphas, betas = [], []
     beta = 0.0
     qm1 = torch.zeros_like(q)
     for j in range(m):
         w = op(Q[-1])
-        alpha = complex(v.dot(Q[-1], w)).real
+        alpha = complex(dot(Q[-1], w)).real
         w = w - alpha * Q[-1] - beta * qm1
-        # full reorthogonalisation
+        # full reorthogonalisation (each dot reads the w the last one
+        # updated, so under a mesh each is a collective of its own)
         for qq in Q:
-            w = w - v.dot(qq, w) * qq
-        beta = float(v.nrm2(w))
+            w = w - dot(qq, w) * qq
+        beta = float(nrm2(w))
         alphas.append(alpha)
         if j + 1 < m:
             betas.append(beta)
@@ -183,32 +201,35 @@ def eli(A, B, x0, opts):
     evalues = np.array(w_eig[order], dtype=float)
     Qm = torch.stack(Q[:k], dim=1)
     evalues, evectors, resids, status = _ritz_pairs(
-        A, B, opts, Qm, evalues, [s_eig[:, order[i]] for i in range(ss)], ss)
+        A, B, opts, Qm, evalues, [s_eig[:, order[i]] for i in range(ss)], ss,
+        axis_name)
     return _multi_result(evalues, evectors, [k] * ss, resids, status,
                          resids)
 
 
 @register_esolver("ai")
-def eai(A, B, x0, opts):
+def eai(A, B, x0, opts, axis_name=None):
     """Arnoldi (lis_eai): MGS Hessenberg factorisation, a dense eig of H on
     the host."""
     n = A.nrows
     ss = min(max(opts.ss, 1), n)
     m = min(max(2 * ss, ss + 8), n)
-    op = _gen_op(A, B, opts)
+    op = _gen_op(A, B, opts, axis_name)
+    dot = partial(v.dot, axis_name=axis_name)
+    nrm2 = partial(v.nrm2, axis_name=axis_name)
 
-    q = x0 / v.nrm2(x0)
+    q = x0 / nrm2(x0)
     Q = [q]
     H = np.zeros((m + 1, m), dtype=host(x0).dtype)
     k = m
     for j in range(m):
         w = op(Q[j])
         for i in range(j + 1):
-            h = complex(v.dot(Q[i], w)) \
-                if np.iscomplexobj(H) else float(v.dot(Q[i], w))
+            h = complex(dot(Q[i], w)) \
+                if np.iscomplexobj(H) else float(dot(Q[i], w))
             H[i, j] = h
             w = w - h * Q[i]
-        hn = float(v.nrm2(w))
+        hn = float(nrm2(w))
         H[j + 1, j] = hn
         if hn == 0.0:
             k = j + 1
@@ -227,13 +248,26 @@ def eai(A, B, x0, opts):
         vecs.append(np.real(vec))
     Qm = torch.stack(Q[:k], dim=1)
     evalues, evectors, resids, status = _ritz_pairs(A, B, opts, Qm, evalues,
-                                                    vecs, ss)
+                                                    vecs, ss, axis_name)
     return _multi_result(evalues, evectors, [k] * ss, resids, status,
                          resids)
 
 
+def _si_start(A, j, x0, axis_name):
+    """SI's start for pair j >= 2: ``default_rng(j)``'s normal vector of
+    the global size; under a mesh padded to gn_pad and cut to the rank's
+    rows (``A`` is then the rank's view, which knows gn)."""
+    rng = np.random.default_rng(j)
+    if axis_name is None:
+        return torch.from_numpy(rng.standard_normal(A.nrows)).to(
+            x0.device, x0.dtype)
+    from lis_tpu_torch.parallel.dist import distribute_vector
+    return distribute_vector(rng.standard_normal(A.gn), axis_name,
+                             A.gn_pad).to(x0.dtype)
+
+
 @register_esolver("si")
-def esi(A, B, x0, opts):
+def esi(A, B, x0, opts, axis_name=None):
     """Subspace iteration (lis_esi, src/esolver/lis_esolver_si.c:230-330):
     sequential deflated iteration.  Pair j is orthogonalised against the
     converged v_1..v_{j-1} every sweep; the kernel is the inner esolver's
@@ -247,22 +281,25 @@ def esi(A, B, x0, opts):
     converge depends on the order of a dot product's sum (ROADMAP.md queue
     3).  Here pair j >= 2 starts from a seeded random vector (numpy
     ``default_rng(j)``), deflated like any other, so the later pairs do
-    not rest on rounding."""
+    not rest on rounding.  Under a mesh that vector is drawn at the
+    global size and the rank takes its rows, so every mesh width starts
+    from the serial solve's vector."""
     n = A.nrows
     ss = min(max(opts.ss, 1), n)
     inner = opts.inner_esolver
     sigma = opts.rval
+    dot = partial(v.dot, axis_name=axis_name)
+    nrm2 = partial(v.nrm2, axis_name=axis_name)
 
     vs = []
     evalues, resids, iters_all, rh = [], [], [], []
     status = C.LIS_SUCCESS
     for j in range(ss):
         if j == 0:
-            vj = x0 / v.nrm2(x0)
+            vj = x0 / nrm2(x0)
         else:
-            vj = torch.from_numpy(np.random.default_rng(j).standard_normal(
-                n)).to(x0.device, x0.dtype)
-            vj = vj / v.nrm2(vj)
+            vj = _si_start(A, j, x0, axis_name)
+            vj = vj / nrm2(vj)
         resid = np.inf
         theta = 0.0
         it = opts.maxiter
@@ -271,18 +308,18 @@ def esi(A, B, x0, opts):
                 # project out vk: the coefficient is <vk, vj>, conjugate on
                 # vk's side (dot(vj, vk) would deflate the wrong component
                 # of complex operands)
-                vj = vj - v.dot(vk, vj) * vk
+                vj = vj - dot(vk, vj) * vk
             if inner == "pi":
                 rnew = A.matvec(vj) if B is None else _bsolve(
-                    B, A.matvec(vj), opts)
+                    B, A.matvec(vj), opts, axis_name)
             else:
                 rhs = vj if B is None else B.matvec(vj)
-                rnew = _shift_solve(A, B, sigma, rhs, opts)
-            nrm = float(v.nrm2(rnew))
+                rnew = _shift_solve(A, B, sigma, rhs, opts, axis_name)
+            nrm = float(nrm2(rnew))
             if not np.isfinite(nrm) or nrm == 0.0:
                 break
-            theta = complex(v.dot(vj, rnew)).real
-            resid = float(v.nrm2(rnew - theta * vj) /
+            theta = complex(dot(vj, rnew)).real
+            resid = float(nrm2(rnew - theta * vj) /
                           (abs(theta) if theta != 0 else 1.0))
             vj = rnew / nrm
             if j == 0:

@@ -100,6 +100,21 @@ def solve(name, layout, p, b, options, x0=None):
             "type": type(Ad).__name__}
 
 
+def esolve(name, layout, p, options, bname=None):
+    """lis_tpu's dist_esolve of problem ``name`` (and B ``bname``) in
+    ``layout`` on a mesh of p devices."""
+    from lis_tpu.parallel.dist_esolve import dist_esolve
+    Ad = distribute(name, layout, p)
+    Bd = None if bname is None else distribute(bname, layout, p)
+    r = dist_esolve(Ad, mesh(p), options=options, B=Bd)
+    return {"status": r.status, "iters": r.iters, "evalue": r.evalue,
+            "evalues": np.asarray(r.evalues),
+            "iters_all": np.asarray(r.iters_all),
+            "evector": np.asarray(r.evector)[: Ad.gn],
+            "evectors": np.asarray(r.evectors)[:, : Ad.gn],
+            "type": type(Ad).__name__}
+
+
 def state(Ad):
     """A lis_tpu distributed matrix as the (kind, arrays, statics) triple
     of lis_tpu_torch's from_numpy_state: leaves as numpy arrays, every

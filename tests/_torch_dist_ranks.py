@@ -121,6 +121,7 @@ PROBLEMS = {
     "tri100d3": lambda: tridiag(100, 3.0),
     "tri173": lambda: tridiag(173),
     "tri120d4": lambda: tridiag(120, 4.0),
+    "tri400d4": lambda: tridiag(400, 4.0),
     "bes1024": lambda: windowed(),
     "mbes4000": two_bands,
     "table1200": table_general,
@@ -200,6 +201,30 @@ def solve(mesh, name, layout, b, options, x0=None):
     return {"status": r.status, "iters": r.iters, "x": r.x.numpy(),
             "true_resid": r.true_resid, "type": type(Ad).__name__,
             "warnings": [str(w.message) for w in got]}
+
+
+def on_first(mesh, k, fn, *args):
+    """fn on the mesh of the first k ranks (None on the others): one pool
+    serves several mesh widths."""
+    sub = mesh.first(k)
+    return None if sub is None else fn(sub, *args)
+
+
+def esolve(mesh, name, layout, options, bname=None):
+    """dist_esolve on the rank's shard (with B, problem ``bname``, in the
+    same layout): the result's fields, the layout and this rank's
+    collectives."""
+    from lis_tpu_torch.parallel import dist_esolve
+    _no_jax()
+    Ad = distribute(mesh, name, layout)
+    Bd = None if bname is None else distribute(mesh, bname, layout)
+    mesh.reset_counts()
+    r = dist_esolve(Ad, mesh, options=options, B=Bd)
+    return {"status": r.status, "iters": r.iters, "evalue": r.evalue,
+            "evalues": r.evalues, "iters_all": r.iters_all,
+            "resids_all": r.resids_all, "evector": r.evector.numpy(),
+            "evectors": r.evectors, "rhistory": r.rhistory,
+            "type": type(Ad).__name__, "coll": dict(mesh.counts)}
 
 
 def roundtrip(mesh, name):

@@ -1941,3 +1941,46 @@ def test_dist_solve_on_the_card(cuda, nprocs, backend, opts):
         assert abs(it - s.iters) <= 1
         np.testing.assert_allclose(x, xs, rtol=0,
                                    atol=1e-8 * np.abs(xs).max())
+
+
+def _dist_esolve_rank(mesh, g, opts):
+    """A rank of the card tests: poisson3d27 g^3 in DIA, distributed, one
+    dist_esolve; (status, iters, eigenvalues, E launches, the evector's
+    device and length)."""
+    from lis_tpu_torch import parallel as P
+    from lis_tpu_torch.matrix import dia
+    from lis_tpu_torch.utils import testmat
+    Ad = P.distribute_dia(testmat.poisson3d27_dia(g, g, g), mesh)
+    before = dia.dia_spmv.launches
+    r = P.dist_esolve(Ad, mesh, options=opts)
+    return (r.status, r.iters, r.evalues, dia.dia_spmv.launches - before,
+            str(r.evector.device), r.evector.shape[0])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("nprocs,backend,opts", [
+    (1, "nccl", "-e pi -etol 1e-8 -emaxiter 2000"),
+    (1, "nccl", "-e ii -i cg -etol 1e-8"),
+    (1, "nccl", "-e li -ss 2 -rval true"),
+    (4, "gloo", "-e pi -emaxiter 100")])
+def test_dist_esolve_on_the_card(cuda, nprocs, backend, opts):
+    """dist_esolve on the card against the serial esolve: one rank over
+    nccl (the same count, eigenvalues to 1e-10), and four ranks sharing
+    the card over gloo (staged; the same capped count and eigenvalue, and
+    on every rank E three times a matvec: the interior and the two
+    boundary slabs)."""
+    from lis_tpu_torch.parallel import RankPool
+    from lis_tpu_torch.utils import testmat
+    with RankPool(nprocs, device="cuda", backend=backend,
+                  timeout=300) as pool:
+        outs = pool.run_all(_dist_esolve_rank, 24, opts)
+    D = testmat.poisson3d27_dia(24, 24, 24)
+    s = lis_tpu_torch.esolve(D, options=opts)
+    for st, it, ev, e_launches, where, n in outs:
+        assert where.startswith("cuda") and n == D.nrows
+        assert st == s.status and it == s.iters
+        np.testing.assert_allclose(ev, s.evalues, rtol=1e-10)
+        if nprocs == 1:
+            assert e_launches >= it
+        else:
+            assert e_launches == 3 * (it + 1)    # pi: a matvec an iteration

@@ -37,6 +37,7 @@ import lis_tpu_torch.utils.checkpoint, lis_tpu_torch.utils.profiling
 import lis_tpu_torch.core.array, lis_tpu_torch.ops.spmv
 import lis_tpu_torch.parallel, lis_tpu_torch.parallel.mesh
 import lis_tpu_torch.parallel.dist, lis_tpu_torch.parallel.dist_precon
+import lis_tpu_torch.parallel.dist_esolve
 import lis_tpu_torch.core.ranges, lis_tpu_torch.cli.scaling
 import lis_tpu_torch._native.lisf as lisf
 import lis_tpu_torch.ops._cuda as cu
@@ -82,9 +83,8 @@ def test_shim_sources_are_the_ports_own():
 
 
 def test_parallel_exports_lis_tpus_names():
-    """lis_tpu_torch.parallel exports every name of lis_tpu.parallel but
-    dist_esolve (the distributed eigensolvers, still to come), and its
-    modules read no file under lis_tpu/."""
+    """lis_tpu_torch.parallel exports every name of lis_tpu.parallel, and
+    its modules import neither jax nor lis_tpu."""
     import ast
     import lis_tpu_torch.parallel as tp
     src = os.path.join(_ROOT, "lis_tpu", "parallel", "__init__.py")
@@ -92,9 +92,20 @@ def test_parallel_exports_lis_tpus_names():
     for node in ast.parse(open(src).read()).body:
         if isinstance(node, ast.Assign) and node.targets[0].id == "__all__":
             names = ast.literal_eval(node.value)
-    assert names and set(names) - {"dist_esolve"} <= set(tp.__all__)
-    for mod in ("mesh", "dist", "dist_precon"):
+    assert names and set(names) <= set(tp.__all__)
+    for mod in ("mesh", "dist", "dist_precon", "dist_esolve"):
         text = open(os.path.join(_ROOT, "lis_tpu_torch", "parallel",
                                  mod + ".py")).read()
         assert "import jax" not in text and "from lis_tpu." not in text
         assert "from jax" not in text and "import lis_tpu\n" not in text
+
+
+def test_every_lis_tpu_module_has_a_counterpart():
+    """Each .py module of lis_tpu/ has a module at the same path under
+    lis_tpu_torch/."""
+    def modules(pkg):
+        top = os.path.join(_ROOT, pkg)
+        return {os.path.relpath(os.path.join(d, f), top)
+                for d, _, fs in os.walk(top) for f in fs
+                if f.endswith(".py")}
+    assert modules("lis_tpu") - modules("lis_tpu_torch") == set()
