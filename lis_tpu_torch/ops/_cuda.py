@@ -13,6 +13,10 @@ stream (``torch.cuda.current_stream().cuda_stream``) travel as
 returns ``cudaGetLastError()`` after its launch and ``launch`` raises when
 that is not ``cudaSuccess`` — a refused launch (too much shared memory, a
 bad grid) never runs, and a later synchronize would not report it.
+
+While a ``torch.profiler`` records, ``launch`` counts ``launch.calls`` and
+both ``check`` and ``launch`` add their host time to ``launch.host_ns``
+(``utils/trace.py``'s counters); otherwise they read one flag.
 """
 
 from __future__ import annotations
@@ -22,8 +26,12 @@ import glob
 import os
 import shutil
 import subprocess
+import time
 
 import torch
+from torch.autograd import profiler as _profiler
+
+from lis_tpu_torch.utils import trace as _trace
 
 _ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
@@ -102,7 +110,6 @@ def build() -> str:
     global build_seconds, build_log
     if not _stale():
         return _SO
-    import time
     os.makedirs(_BUILD, exist_ok=True)
     nvcc, pid = _nvcc(), os.getpid()
     tmp = f"{_SO}.{pid}.tmp"
@@ -158,8 +165,12 @@ def lib():
 
 def launch(name: str, *args) -> None:
     """Call C entry ``name`` and raise if its launch failed."""
+    t0 = time.perf_counter_ns() if _profiler._is_profiler_enabled else None
     handle = lib()
     rc = getattr(handle, name)(*args)
+    if t0 is not None:
+        _trace.count("launch.host_ns", time.perf_counter_ns() - t0)
+        _trace.count("launch.calls")
     if rc != 0:
         msg = handle.lis_cuda_error_string(rc).decode()
         raise RuntimeError(f"{name}: CUDA error {rc} ({msg})")
@@ -179,6 +190,7 @@ def check(t: torch.Tensor, name: str, dtype=None, numel=None,
           aligned: bool = True) -> None:
     """Validate a kernel operand: CUDA, contiguous, dtype, size and, for
     the kernels that load 16 B vectors, ``aligned``."""
+    t0 = time.perf_counter_ns() if _profiler._is_profiler_enabled else None
     if not t.is_cuda:
         raise ValueError(f"{name}: expected a CUDA tensor, got {t.device}")
     if not t.is_contiguous():
@@ -194,3 +206,5 @@ def check(t: torch.Tensor, name: str, dtype=None, numel=None,
         raise ValueError(f"{name}: {t.numel()} elements, expected {numel}")
     if aligned and t.data_ptr() % 16:
         raise ValueError(f"{name}: data pointer not 16-byte aligned")
+    if t0 is not None:
+        _trace.count("launch.host_ns", time.perf_counter_ns() - t0)

@@ -33,6 +33,7 @@ import torch
 from lis_tpu_torch.matrix.base import TensorFields, static
 from lis_tpu_torch.matrix.csr import CSRMatrix
 from lis_tpu_torch.ops.trisolve import trisolve
+from lis_tpu_torch.utils.trace import psolve_span
 
 
 def _block_scipy(rows, cols, vals, lo, hi, nl) -> sp.csr_matrix:
@@ -219,6 +220,7 @@ class DistSAAMGPrecon(TensorFields):
         x_loc = x_loc + m.gs(b - m.matvec(x), lower=False)
         return m.gather(x_loc)
 
+    @psolve_span
     def psolve(self, r):
         x = trisolve(self.fwd, r)
         x = x + trisolve(self.bwd, r - self.A0.matvec(x))
@@ -227,6 +229,7 @@ class DistSAAMGPrecon(TensorFields):
         x = x + self.P0.matvec(ec)
         return self._smooth(x, r)
 
+    @psolve_span
     def psolveh(self, r):
         return self.psolve(r)               # symmetric hierarchy
 

@@ -16,6 +16,7 @@ import dataclasses
 
 from lis_tpu_torch.matrix.base import TensorFields, static
 from lis_tpu_torch.matrix.dia import DIAMatrix, dia_relax, dia_relaxh
+from lis_tpu_torch.utils.trace import psolve_span
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -30,12 +31,14 @@ class AdditiveSchwarzPrecon(TensorFields):
             return (dia_relaxh if herm else dia_relax)(A, b, x)
         return b - (A.matvech(x) if herm else A.matvec(x))
 
+    @psolve_span
     def psolve(self, b):
         x = self.inner.psolve(b)
         for _ in range(self.iters):
             x = x + self.inner.psolve(self._residual(b, x, False))
         return x
 
+    @psolve_span
     def psolveh(self, b):
         x = self.inner.psolveh(b)
         for _ in range(self.iters):

@@ -14,7 +14,7 @@ import dataclasses
 from typing import Callable
 
 from lis_tpu_torch.matrix.base import TensorFields
-from lis_tpu_torch.utils.trace import traced
+from lis_tpu_torch.utils.trace import psolve_span, traced
 
 PRECON_REGISTRY: dict[str, Callable] = {}
 
@@ -55,8 +55,10 @@ def create_precon(name: str, A, opts) -> "object":
 class NonePrecon(TensorFields):
     """psolve = copy (reference: precon type 0)."""
 
+    @psolve_span
     def psolve(self, r):
         return r
 
+    @psolve_span
     def psolveh(self, r):
         return r

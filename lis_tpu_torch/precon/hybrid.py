@@ -24,6 +24,7 @@ from lis_tpu_torch.matrix.base import TensorFields, static
 from lis_tpu_torch.precon.base import (NonePrecon, create_precon,
                                        register_precon)
 from lis_tpu_torch.solvers.base import SOLVER_FNS, SOLVER_PREPARE, SolverSpec
+from lis_tpu_torch.utils.trace import psolve_span
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -32,9 +33,11 @@ class _AdjointPrecon(TensorFields):
     the adjoint of the inner preconditioner."""
     inner: object
 
+    @psolve_span
     def psolve(self, r):
         return self.inner.psolveh(r)
 
+    @psolve_span
     def psolveh(self, r):
         return self.inner.psolve(r)
 
@@ -54,10 +57,12 @@ class HybridPrecon(TensorFields):
                                            self.spec, **kw)
         return out.x
 
+    @psolve_span
     def psolve(self, r):
         M = self.M if self.M is not None else NonePrecon()
         return self._inner(self.A, r, M, self.aux)
 
+    @psolve_span
     def psolveh(self, r):
         M = _AdjointPrecon(inner=self.M) if self.M is not None \
             else NonePrecon()

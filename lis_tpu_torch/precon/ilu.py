@@ -43,6 +43,7 @@ from lis_tpu_torch.matrix.dia import DIAMatrix
 from lis_tpu_torch.ops.trisolve import (TriSolvePlan, make_plan,
                                         sweep_series, trisolve)
 from lis_tpu_torch.precon.base import register_precon
+from lis_tpu_torch.utils.trace import psolve_span
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -52,9 +53,11 @@ class ILUPrecon(TensorFields):
     lower_t: TriSolvePlan     # Uᴴ (for the Mᴴ solve)
     upper_t: TriSolvePlan     # Lᴴ (unit)
 
+    @psolve_span
     def psolve(self, r):
         return trisolve(self.upper, trisolve(self.lower, r))
 
+    @psolve_span
     def psolveh(self, r):
         return trisolve(self.upper_t, trisolve(self.lower_t, r))
 
@@ -332,6 +335,7 @@ class ILUDiaPrecon(TensorFields):
     udinv: torch.Tensor       # 1 / diag(U)
     nsweeps: int = static()
 
+    @psolve_span
     def psolve(self, r):
         ns, ud = self.nsweeps, self.udinv
         if ns == 0:
@@ -339,6 +343,7 @@ class ILUDiaPrecon(TensorFields):
         y = sweep_series(self.L, r, ns)
         return sweep_series(self.U, y, ns, w=ud)
 
+    @psolve_span
     def psolveh(self, r):
         ns = self.nsweeps
         ud = self.udinv.conj().resolve_conj() if self.udinv.is_complex() \
@@ -514,9 +519,11 @@ class BlockILUPrecon(TensorFields):
         w = _promoted_einsum("tij,tj->ti", d, z.view(-1, self.bnr))
         return trisolve(up, w.reshape(-1))[: self.n]
 
+    @psolve_span
     def psolve(self, r):
         return self._apply(r, self.lower, self.dinv, self.upper)
 
+    @psolve_span
     def psolveh(self, r):
         dh = self.dinv.transpose(1, 2)
         return self._apply(r, self.lower_t, dh.conj() if dh.is_complex()
@@ -691,9 +698,11 @@ class VBlockILUPrecon(TensorFields):
             return self._pad_apply(conj(self.pbinv).transpose(1, 2), x)
         return self.dL.matvech(x) + self.dU.matvech(x) + conj(self.dd) * x
 
+    @psolve_span
     def psolve(self, r):
         return trisolve(self.upper, self._dinv(trisolve(self.lower, r)))
 
+    @psolve_span
     def psolveh(self, r):
         return trisolve(self.upper_t, self._dinvh(trisolve(self.lower_t, r)))
 

@@ -19,6 +19,7 @@ import torch
 from lis_tpu_torch.matrix.base import TensorFields, static
 from lis_tpu_torch.matrix.split import split_matrix
 from lis_tpu_torch.precon.base import NonePrecon, register_precon
+from lis_tpu_torch.utils.trace import psolve_span
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -27,11 +28,13 @@ class ISPrecon(TensorFields):
     value: torch.Tensor       # (n, m) truncated-U values (0-padded)
     alpha: float = static()
 
+    @psolve_span
     def psolve(self, r):
         n, m = self.index.shape
         g = r.index_select(0, self.index.reshape(-1)).view(n, m)
         return r - self.alpha * (self.value * g).sum(1)
 
+    @psolve_span
     def psolveh(self, r):
         v = self.value.conj() if self.value.is_complex() else self.value
         prod = (v * r[:, None]).reshape(-1)

@@ -18,15 +18,18 @@ import torch
 
 from lis_tpu_torch.matrix.base import TensorFields, static
 from lis_tpu_torch.precon.base import register_precon
+from lis_tpu_torch.utils.trace import psolve_span
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
 class JacobiPrecon(TensorFields):
     dinv: torch.Tensor
 
+    @psolve_span
     def psolve(self, r):
         return self.dinv * r
 
+    @psolve_span
     def psolveh(self, r):
         if self.dinv.is_complex():
             return self.dinv.conj() * r
@@ -48,9 +51,11 @@ class BlockJacobiPrecon(TensorFields):
         z = torch.einsum("kij,kj->ki", b.to(dt), rp.reshape(nb, bs).to(dt))
         return z.reshape(-1)[: r.shape[0]]
 
+    @psolve_span
     def psolve(self, r):
         return self._apply(self.binv, r)
 
+    @psolve_span
     def psolveh(self, r):
         b = self.binv.transpose(1, 2)
         return self._apply(b.conj() if b.is_complex() else b, r)

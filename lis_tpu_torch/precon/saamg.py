@@ -52,6 +52,7 @@ from lis_tpu_torch.ops.amg import (OMEGA, LatticeTransfer, lattice_prolong,
 from lis_tpu_torch.ops.trisolve import (TriSolvePlan, make_plan,
                                         sweep_series, trisolve)
 from lis_tpu_torch.precon.base import register_precon
+from lis_tpu_torch.utils.trace import psolve_span
 
 COARSE_MAX = 4096             # rows the dense coarsest solve may have
 
@@ -172,9 +173,11 @@ class SAAMGPrecon(TensorFields):
         x = x + level.R.matvech(ec)                       # prolongation Rᵀ
         return self._postsmooth_h(level, x, b)
 
+    @psolve_span
     def psolve(self, r):
         return self._cycle(0, r)
 
+    @psolve_span
     def psolveh(self, r):
         # with R = Pᵀ and a symmetric A the cycle is its own adjoint; the
         # Petrov-Galerkin hierarchy runs the transposed cycle

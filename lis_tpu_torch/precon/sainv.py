@@ -20,6 +20,7 @@ import torch
 from lis_tpu_torch.matrix.base import TensorFields
 from lis_tpu_torch.matrix.csr import CSRMatrix
 from lis_tpu_torch.precon.base import register_precon
+from lis_tpu_torch.utils.trace import psolve_span
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -28,9 +29,11 @@ class SAINVPrecon(TensorFields):
     Z: CSRMatrix              # right factor (unit diagonal)
     dinv: torch.Tensor
 
+    @psolve_span
     def psolve(self, r):
         return self.Z.matvec(self.dinv * self.W.matvech(r))
 
+    @psolve_span
     def psolveh(self, r):
         d = self.dinv.conj() if self.dinv.is_complex() else self.dinv
         return self.W.matvec(d * self.Z.matvech(r))

@@ -35,6 +35,7 @@ from lis_tpu_torch.matrix.split import split_matrix
 from lis_tpu_torch.ops.trisolve import (TriSolvePlan, make_plan,
                                         sweep_series, trisolve)
 from lis_tpu_torch.precon.base import register_precon
+from lis_tpu_torch.utils.trace import psolve_span
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -45,10 +46,12 @@ class SSORPrecon(TensorFields):
     bwd_t: TriSolvePlan       # (D̄/ω + Lᴴ)
     dtil: torch.Tensor        # D/ω
 
+    @psolve_span
     def psolve(self, r):
         y = trisolve(self.fwd, r)
         return trisolve(self.bwd, y, rs=self.dtil)
 
+    @psolve_span
     def psolveh(self, r):
         z = trisolve(self.fwd_t, r)
         return trisolve(self.bwd_t, z)
@@ -70,6 +73,7 @@ class SSORRelaxPrecon(TensorFields):
     dtil: torch.Tensor        # D/ω
     nsweeps: int = static()
 
+    @psolve_span
     def psolve(self, r):
         ns, wd, dtil = self.nsweeps, self.wd, self.dtil
         if ns == 0:
@@ -78,6 +82,7 @@ class SSORRelaxPrecon(TensorFields):
         # the backward series on rhs = y·dtil, which each sweep forms itself
         return sweep_series(self.U, y, ns, w=wd, rs=dtil)
 
+    @psolve_span
     def psolveh(self, r):
         ns, wd = self.nsweeps, self.wd
         if wd.is_complex():

@@ -75,7 +75,7 @@ from lis_tpu_torch.solvers import quad as _quad           # noqa: F401
 from lis_tpu_torch.solvers import quad_ext as _quad_ext   # noqa: F401
 from lis_tpu_torch.solvers import stationary as _stat     # noqa: F401
 from lis_tpu_torch.solvers import tfqmr as _tfqmr         # noqa: F401
-from lis_tpu_torch.utils.trace import traced
+from lis_tpu_torch.utils.trace import span, traced
 
 _STORAGE_BY_ID = {i: n for n, i in STORAGE_NAMES.items()}
 
@@ -331,6 +331,7 @@ def _sync(device: torch.device) -> None:
 
 
 @traced
+@span("lis.solve")
 def solve(A: SparseMatrix, b, x0=None, options=None, M=None,
           **overrides) -> SolveResult:
     """Solve Ax = b (the lis_solve equivalent) on A's device.
@@ -413,27 +414,28 @@ def solve(A: SparseMatrix, b, x0=None, options=None, M=None,
     _sync(device)
     ptime = C.wtime() - t_p
 
-    # ---- execute -----------------------------------------------------------
+    # ---- execute (span lis.krylov: what itime times) ----------------------
     t_i = C.wtime()
     extra_iters = 0
-    if dd is not None:
-        out, extra_iters = _solve_dd(dd, spec, opts, prepare)
-    else:
-        b32 = b
-        if opts.precision == "single":
-            # like lis_tpu's _cast32: real float64 tensors drop to float32,
-            # complex ones stay as they are (TensorFields.to casts only
-            # real floating-point leaves)
-            f32 = torch.float32
-            A, b32, x0, M = A.to(dtype=f32), _cast32(b), _cast32(x0), \
-                M.to(dtype=f32)
-            aux = None if aux is None else aux.to(dtype=f32)
-        if prepare:
-            fn = functools.partial(fn, aux=aux)
-        out = fn(A, b32, x0, M, spec)
-    out = out._replace(x=out.x.to(b.dtype))
-    x = out.x
-    _sync(device)
+    with span("lis.krylov"):
+        if dd is not None:
+            out, extra_iters = _solve_dd(dd, spec, opts, prepare)
+        else:
+            b32 = b
+            if opts.precision == "single":
+                # like lis_tpu's _cast32: real float64 tensors drop to float32,
+                # complex ones stay as they are (TensorFields.to casts only
+                # real floating-point leaves)
+                f32 = torch.float32
+                A, b32, x0, M = A.to(dtype=f32), _cast32(b), _cast32(x0), \
+                    M.to(dtype=f32)
+                aux = None if aux is None else aux.to(dtype=f32)
+            if prepare:
+                fn = functools.partial(fn, aux=aux)
+            out = fn(A, b32, x0, M, spec)
+        out = out._replace(x=out.x.to(b.dtype))
+        x = out.x
+        _sync(device)
     itime = C.wtime() - t_i
 
     # ---- unscale + true residual (lis_solve_kernel :877-924) --------------

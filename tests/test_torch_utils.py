@@ -219,24 +219,6 @@ def test_phase_timer_and_sync(capsys):
     assert out[0].startswith("work") and "(3 calls)" in out[0]
 
 
-def test_traced_prints_only_when_enabled(capsys):
-    from lis_tpu_torch.utils import profiling as P
-
-    @P.traced
-    def f(a):
-        return a + 1
-
-    P.set_trace(False)
-    assert f(1) == 2 and capsys.readouterr().out == ""
-    P.set_trace(True)
-    try:
-        assert f(2) == 3
-    finally:
-        P.set_trace(False)
-    out = capsys.readouterr().out
-    assert "IN  :" in out and "OUT :" in out and "f" in out
-
-
 def test_profile_trace_writes_a_chrome_trace(tmp_path):
     """On the CPU the trace holds the host's operations (the card's are
     added where the default device is one)."""
