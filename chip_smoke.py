@@ -171,14 +171,20 @@ Phases (one or more lines each):
    its plain version, bit-equal, and O's dot at 192³ (m = 2^23) in f64
    pairs; the forward M, N, the dots and axpy timed
    beside the plain version and the bound (no PyTorch call computes
-   double-double arithmetic: library none); (b) ``-i cg -p jacobi -f quad
+   double-double arithmetic: library none); kernels S of cg_quad's fused
+   step (ddcg_direction, ddcg_pq, ddcg_update) at 192³ in f64 and f32
+   pairs and 96³ in f32 pairs, one launch each from one mid-solve state,
+   the whole state (x, r, p, the scalar blocks, the history) bit-equal to
+   the plain versions' after each, each at 192³ timed beside its plain
+   version and its 7 / 4 / 13 limb-pass bound; (b) ``-i cg -p jacobi -f quad
    -tol 1e-12`` on poisson3d27 96³ (CSR -> router -> DIA) and 192³ (built
-   in DIA): SUCCESS, DD residual <= 1e-12, true residual <= 1e-11, the
-   count of the same solve over the plain versions of M-P on the card
-   exactly (every M-P wrapper swapped for its plain version, which must
-   launch no kernel), M, O, P launched exactly it + 1, 3 it + 1, 3 it + 1
-   times at 96³, and the torch operations and host reads per iteration
-   counted by a dispatch mode; (c) test5: ``-i bicg -f quad -tol 1e-12
+   in DIA), through the fused step: SUCCESS, DD residual <= 1e-12, true
+   residual <= 1e-11, the count, x, rhistory and status of the same solve
+   over the plain versions of M-P and S on the card exactly (every M-P
+   and S wrapper swapped for its plain version, which must launch no
+   kernel), M it + 1, O and P
+   twice, S1-S3 it times each at 96³, and the kernel launches, torch
+   operations and host reads per iteration counted by a dispatch mode; (c) test5: ``-i bicg -f quad -tol 1e-12
    -maxiter 500`` on gamma_matrix(200, 2.0), b = A·1: SUCCESS in the CPU's
    count where ``-f double`` ends MAXITER; (d) -f switch (-switch_tol
    1e-8), df and switch_df at 96³, each SUCCESS within the limits of (b);
@@ -218,7 +224,7 @@ Phases (one or more lines each):
    (``DIAMatrix.shift_diagonal``) timed beside the host rebuild, their CSR
    arrays bit-equal.  Then (a) ``-e ii -i cg -etol 1e-8`` (the device
    loop: E and G); (b) ``-e ii -i cg -ef quad -etol 1e-8`` (the host loop
-   through the driver: M-P), with no host rebuild and no host CSR read in
+   through the driver: M and S, O and P), with no host rebuild and no host CSR read in
    its outer loop; (c) ``-e cg -etol 1e-8``; (d) ``-e li -ss 4 -rval
    true`` and ``-e si -ss 2 -i cg -etol 1e-8``; (e) ``gesolve -e gii
    -etol 1e-8`` with B = diag(linspace(1, 2, n)) as a DIA; (f) ``-e rqi
@@ -409,7 +415,7 @@ import numpy as np
 def kernel_wrappers() -> dict:
     """Every kernel wrapper of the port by name; each counts its launches
     in ``.launches``."""
-    from lis_tpu_torch.core import ddreal as dq, vector as v
+    from lis_tpu_torch.core import ddcg, ddreal as dq, vector as v
     from lis_tpu_torch.matrix import bes as besm, cst as cstm, dia as diam
     from lis_tpu_torch.ops import amg, shuffle as sh, trisolve as tsm
     return {"lane_shuffle": sh.lane_shuffle, "cst_front": cstm.cst_front,
@@ -425,6 +431,8 @@ def kernel_wrappers() -> dict:
             "lattice_restrict": amg.lattice_restrict,
             "dd_dia_spmv": dq.dd_dia_spmv, "dd_ell_spmv": dq.dd_ell_spmv,
             "dd_reduce": dq.dd_reduce, "dd_update": dq.dd_update,
+            "ddcg_direction": ddcg.ddcg_direction, "ddcg_pq": ddcg.ddcg_pq,
+            "ddcg_update": ddcg.ddcg_update,
             "bes_spmv": besm.bes_spmv, "bes_spmvh": besm.bes_spmvh}
 
 
@@ -2703,6 +2711,71 @@ def phase_quad(S):
     del x, y
     tag(f"M, O, P at {g96}^3 and O at {g192}^3 in "
         f"{time.perf_counter() - t0:.2f} s")
+
+    # S1-S3 (cg_quad's fused step) at 192^3 in f64 limbs, as
+    # quad-cg-jacobi-192^3 runs them, and in f32 limbs (df), then at 96^3
+    # in f32 limbs untimed (its 7 limb passes would fit in the L2 cache):
+    # each pass on one copy of a mid-solve state, its plain version on
+    # another, the whole state (p, x, r, the scalar blocks, rh) compared
+    # after each; timed on a third copy (beta 1/2, so p stays finite over
+    # the reps)
+    from lis_tpu_torch.core import ddcg
+    t0 = time.perf_counter()
+    for nn, dtype, shape in ((n192, f64, f"{g192}^3"),
+                             (n192, f32, f"{g192}^3"), (n, f32, f"{g96}^3")):
+        timing = nn == n192
+        esz = torch.empty((), dtype=dtype).element_size()
+        mm = 1 << (nn - 1).bit_length()
+        base = {k: pair(nn, dtype) for k in "xrpq"}
+        dinv = (0.02 + 0.03 * torch.rand(nn, generator=S.gen, device=dev,
+                                         dtype=f64)).to(dtype)
+        rho = dq.DD(torch.tensor(0.5, dtype=dtype, device=dev),
+                    torch.tensor(2.0 ** -60, dtype=dtype, device=dev))
+
+        def fresh():
+            v = {k: dq.DD(t.hi.clone(), t.lo.clone())
+                 for k, t in base.items()}
+            ws = ddcg.DDCGScalars(v["r"], 1 << 12, 0.0, 0.25, 3.0, rho,
+                                  nrm1=False, running=0, breakdown=2)
+            return ws, v, torch.zeros((1 << 12) + 2, dtype=f64, device=dev)
+
+        def state(ws, v, rh):
+            return torch.cat([ws.dd.double(), ws.f, ws.ic.double(), rh]
+                             + [t.double() for k in "xrp" for t in v[k]])
+
+        passes = (
+            ("ddcg_direction",
+             lambda f, ws, v, rh: f(v["p"], v["r"], dinv, ws),
+             ddcg.ddcg_direction, ddcg._direction_plain, 7 * nn * esz,
+             46 * nn),
+            ("ddcg_pq", lambda f, ws, v, rh: f(v["p"], v["q"], ws),
+             ddcg.ddcg_pq, ddcg._pq_plain, 4 * nn * esz, 24 * nn + 20 * mm),
+            ("ddcg_update",
+             lambda f, ws, v, rh: f(v["x"], v["r"], v["p"], v["q"], dinv,
+                                    ws, rh),
+             ddcg.ddcg_update, ddcg._update_plain, 13 * nn * esz,
+             140 * nn + 40 * mm))
+        kst, pst, tst = fresh(), fresh(), fresh()
+        if kst[0].plan[0] == 0 or kst[0].plan[0] > \
+                ddcg.resident_blocks(dtype, dev):
+            fail(f"S2/S3 plan {kst[0].plan} at {shape}")
+        for name, call, kern, plain, nbytes, flops in passes:
+            before = kern.launches
+            call(kern, *kst)
+            call(plain, *pst)
+            if kern.launches != before + 1:
+                fail(f"{name}: {kern.launches - before} launches, expected 1")
+            check(name, dtype, f"{shape} plan {kst[0].plan}",
+                  state(*kst), state(*pst), True,
+                  (lambda: call(kern, *tst), lambda: call(plain, *tst), None,
+                   nbytes, flops) if timing else None, queued=True)
+        if int(kst[0].it) != 2 or int(kst[0].live) != 1:
+            fail(f"S at {shape}: it {int(kst[0].it)} live "
+                 f"{int(kst[0].live)} after one step")
+        del base, dinv, kst, pst, tst
+    torch.cuda.empty_cache()
+    tag(f"S1-S3 at {g192}^3 (f64, f32) and {g96}^3 (f32) in "
+        f"{time.perf_counter() - t0:.2f} s")
     t0 = time.perf_counter()
     a20 = system(1 << 20, 8, S.seed)
     A20 = lis_tpu_torch.CSRMatrix.from_csr_arrays(a20.indptr, a20.indices,
@@ -2736,36 +2809,42 @@ def phase_quad(S):
 
     @contextlib.contextmanager
     def plain_dd():
-        """Every M-P wrapper swapped for its plain version (the solvers
-        and operators look them up in ddreal at each call)."""
+        """Every M-P and S wrapper swapped for its plain version (the
+        solvers and operators look them up in ddreal and ddcg at each
+        call)."""
+        from lis_tpu_torch.core import ddcg
         swaps = {
-            "dd_update": lambda mode, alpha, x, y: dq._update_plain(
+            (dq, "dd_update"): lambda mode, alpha, x, y: dq._update_plain(
                 mode, alpha, x, y),
-            "dd_reduce": lambda mode, x, y=None: dq._reduce_plain(mode, x,
-                                                                  y),
-            "dd_dia_spmv": lambda A, x, trans=False: dq._dia_plain(
+            (dq, "dd_reduce"): lambda mode, x, y=None: dq._reduce_plain(
+                mode, x, y),
+            (dq, "dd_dia_spmv"): lambda A, x, trans=False: dq._dia_plain(
                 A.value, A.offsets, x, A.value_lo, trans),
-            "dd_ell_spmv": lambda index, value, x, value_lo=None:
-                dq._ell_plain(index, value, x, value_lo)}
-        saved = {k: getattr(dq, k) for k in swaps}
+            (dq, "dd_ell_spmv"): lambda index, value, x, value_lo=None:
+                dq._ell_plain(index, value, x, value_lo),
+            (ddcg, "ddcg_direction"): ddcg._direction_plain,
+            (ddcg, "ddcg_pq"): ddcg._pq_plain,
+            (ddcg, "ddcg_update"): ddcg._update_plain}
+        saved = {k: getattr(*k) for k in swaps}
         before = {k: f.launches for k, f in saved.items()}
-        for k, f in swaps.items():
-            setattr(dq, k, f)
+        for (mod, k), f in swaps.items():
+            setattr(mod, k, f)
         try:
             yield
         finally:
-            for k, f in saved.items():
-                setattr(dq, k, f)
+            for (mod, k), f in saved.items():
+                setattr(mod, k, f)
         if before != {k: f.launches for k, f in saved.items()}:
-            fail("a plain-version oracle launched one of M-P")
+            fail("a plain-version oracle launched one of M-P or S")
 
     rows = []
 
     def solve(A, b, opts, what, oracle=True, dd_limit=1e-12,
-              true_limit=1e-11):
+              true_limit=1e-11, exact=False):
         """The plain oracle (which also warms the torch operations), then
         the counted solve: SUCCESS, the DD residual and the true residual
-        within their limits, the oracle's count exactly."""
+        within their limits, the oracle's count exactly, and with
+        ``exact`` its x, rhistory and status bit for bit."""
         it_o = None
         if oracle:
             t0 = time.perf_counter()
@@ -2777,13 +2856,20 @@ def phase_quad(S):
                                                              options=opts))
         per = 1e3 * r.itime / max(r.iters, 1)
         dd = {k: got[k] for k in ("dd_dia_spmv", "dd_ell_spmv", "dd_reduce",
-                                  "dd_update")}
+                                  "dd_update", "ddcg_direction", "ddcg_pq",
+                                  "ddcg_update")}
+        same = None
+        if oracle:
+            same = torch.equal(r.x, ro.x) and np.array_equal(
+                r.rhistory, ro.rhistory) and r.status == ro.status
         tag(f"{what} {opts}: route {S.route_of(A, opts)}, status "
             f"{r.status} iters {r.iters}"
-            + (f" (plain oracle {it_o} in {wall_o:.2f} s)" if oracle else "")
+            + (f" (plain oracle {it_o} in {wall_o:.2f} s, x, rhistory and "
+               f"status {'bit-equal' if same else 'DIFFER'})"
+               if oracle else "")
             + f" resid {r.resid:.3e} true_resid {r.true_resid:.3e} wall "
             f"{wall:.3f} s itime {r.itime:.4f} s ({per:.4f} ms/iter); "
-            f"M-P launches {dd}")
+            f"M-P and S launches {dd}")
         rows.append((what, opts, r.iters, per, sum(dd.values()) / r.iters,
                      wall))
         if r.status != lis_tpu_torch.LIS_SUCCESS or not r.resid <= dd_limit \
@@ -2792,6 +2878,9 @@ def phase_quad(S):
                  f"true_resid {r.true_resid:.3e}")
         if oracle and r.iters != it_o:
             fail(f"{what} {opts}: iters {r.iters}, plain oracle {it_o}")
+        if exact and not same:
+            fail(f"{what} {opts}: x, rhistory or status differ from the "
+                 f"plain oracle's")
         return r, got
 
     # ---- (b) cg -f quad at 96^3 (CSR -> router -> DIA) and 192^3 ---------
@@ -2799,20 +2888,25 @@ def phase_quad(S):
     A96 = testmat.poisson3d27(g96, g96, g96)
     b96 = torch.ones(A96.nrows, dtype=f64, device=dev)
     opts = "-i cg -p jacobi -f quad -tol 1e-12"
-    r, got = solve(A96, b96, opts, f"{g96}^3")
+    r, got = solve(A96, b96, opts, f"{g96}^3", exact=True)
     it = r.iters
     S.p12b = (opts, it)             # phase 17b4's count
-    # per iteration: the matvec, two dots and nrm2, xpay and two axpys,
-    # and the two DD divisions (beta, alpha)
-    S.need_exact(got, {"dd_dia_spmv": it + 1, "dd_reduce": 3 * it + 1,
-                       "dd_update": 5 * it + 1, "dd_ell_spmv": 0},
-                 f"{g96}^3 {opts}")
+    # the fused step: per iteration the matvec and S1-S3; before the loop
+    # the initial residual (M, P's subtraction, O's nrm2), the first rho
+    # (O) and beta (P's division)
+    S.need_exact(got, {"dd_dia_spmv": it + 1, "dd_reduce": 2,
+                       "dd_update": 2, "dd_ell_spmv": 0,
+                       "ddcg_direction": it, "ddcg_pq": it,
+                       "ddcg_update": it}, f"{g96}^3 {opts}")
+    wrappers = kernel_wrappers()
+    before = sum(f.launches for f in wrappers.values())
     rd, cnt = dispatched(lambda: lis_tpu_torch.solve(A96, b96, options=opts))
-    kern = 9 * rd.iters + 3
-    tag(f"{g96}^3 {opts}: {kern / rd.iters:.2f} M-P launches, "
+    kern = sum(f.launches for f in wrappers.values()) - before
+    tag(f"{g96}^3 {opts}: {kern / rd.iters:.2f} kernel launches, "
         f"{cnt['ops'] / rd.iters:.1f} torch operations (views, allocations "
         f"and reads excluded) and {cnt['reads'] / rd.iters:.2f} host reads "
         f"per iteration ({rd.iters} iterations)")
+    # the parts of the general step (cg_quad_plain: any other M, a mesh)
     xd = pair(A96.nrows, f64)
     Dq = dq.make_dd_operator(lis_tpu_torch.auto_storage(A96))
     one = dq.DD(torch.ones((), dtype=f64, device=dev),
@@ -2824,7 +2918,7 @@ def phase_quad(S):
         f"{2 * cuda_ms(lambda: dq.div(one, one)):.4f} ms")
     D192 = testmat.poisson3d27_dia(g192, g192, g192)
     b192 = torch.ones(D192.nrows, dtype=f64, device=dev)
-    solve(D192, b192, opts, f"{g192}^3")
+    solve(D192, b192, opts, f"{g192}^3", exact=True)
     del D192, b192, Dq, xd
     torch.cuda.empty_cache()
 
@@ -2879,8 +2973,8 @@ def phase_quad(S):
               f"{g64}^3", dd_limit=1e-8, true_limit=1e-7)
     tag(f"{g64}^3: the {len(QUAD_TWINS)} twins with their oracles in "
         f"{time.perf_counter() - t0:.2f} s")
-    tag("table: size, options, iterations, ms/iter, M-P launches/iter, "
-        "solve wall s")
+    tag("table: size, options, iterations, ms/iter, M-P and S "
+        "launches/iter, solve wall s")
     for row in rows:
         tag("row " + json.dumps(row))
 
@@ -3275,9 +3369,10 @@ def phase_eigen(S):
 
     @contextlib.contextmanager
     def plain_kernels():
-        """Every wrapper of E, F, G and M-P swapped for its plain version
-        (their callers look them up at each call); fails if a kernel
-        launched meanwhile."""
+        """Every wrapper of E, F, G, M-P and S swapped for its plain
+        version (their callers look them up at each call); fails if a
+        kernel launched meanwhile."""
+        from lis_tpu_torch.core import ddcg
         swaps = {
             (diam, "dia_spmv"): lambda value, off, offsets, x, ncols:
                 diam._spmv_plain(value, offsets, x, ncols),
@@ -3293,7 +3388,10 @@ def phase_eigen(S):
             (dq, "dd_dia_spmv"): lambda A, x, trans=False: dq._dia_plain(
                 A.value, A.offsets, x, A.value_lo, trans),
             (dq, "dd_ell_spmv"): lambda index, value, x, value_lo=None:
-                dq._ell_plain(index, value, x, value_lo)}
+                dq._ell_plain(index, value, x, value_lo),
+            (ddcg, "ddcg_direction"): ddcg._direction_plain,
+            (ddcg, "ddcg_pq"): ddcg._pq_plain,
+            (ddcg, "ddcg_update"): ddcg._update_plain}
         saved = {key: getattr(*key) for key in swaps}
         before = {k: f.launches for k, f in S.kernels.items()}
         for (mod, name), f in swaps.items():
@@ -3371,7 +3469,7 @@ def phase_eigen(S):
                     "(a)")
     xa, iters_a = r.evector, int(r.iters)
 
-    # ---- (b) the host loop through the driver, -ef quad: M-P ------------
+    # ---- (b) the host loop through the driver, -ef quad: M-P, S ---------
     S.stamp("phase 14b")
     rebuilds = {"host rebuilds": 0, "host CSR reads": 0}
     originals = (SparseMatrix._rebuilt, diam.DIAMatrix.to_csr_arrays)
@@ -3395,8 +3493,11 @@ def phase_eigen(S):
     # count a 1e-14 change of x0 leaves alone (tools/count_spread.py)
     if int(r.iters) != iters_a:
         fail(f"(b): {r.iters} outer iterations against (a)'s {iters_a}")
-    S.need_launches(got, ("dd_dia_spmv", "dd_reduce", "dd_update"), r.iters,
-                    "(b)")
+    # the inner cg_quad takes the fused step: M and S every inner
+    # iteration, O and P before each inner loop
+    S.need_launches(got, ("dd_dia_spmv", "dd_reduce", "dd_update",
+                          "ddcg_direction", "ddcg_pq", "ddcg_update"),
+                    r.iters, "(b)")
     if any(rebuilds.values()) or got["dd_ell_spmv"]:
         fail(f"(b): {rebuilds}, dd_ell_spmv {got['dd_ell_spmv']}: the "
              f"shifted operator left the card")
@@ -3723,6 +3824,12 @@ WHERE = {
     "dd_ell_spmv": ("lis_tpu_torch/csrc/dd.cu", "lis_tpu/core/ddreal.py:299"),
     "dd_reduce": ("lis_tpu_torch/csrc/dd.cu", "lis_tpu/core/ddreal.py:218"),
     "dd_update": ("lis_tpu_torch/csrc/dd.cu", "lis_tpu/core/ddreal.py:196"),
+    # the fused DD CG step: lis_tpu's cg_quad step is jnp that XLA fuses
+    "ddcg_direction": ("lis_tpu_torch/csrc/dd_cg.cu",
+                       "lis_tpu/solvers/quad.py:65"),
+    "ddcg_pq": ("lis_tpu_torch/csrc/dd_cg.cu", "lis_tpu/solvers/quad.py:65"),
+    "ddcg_update": ("lis_tpu_torch/csrc/dd_cg.cu",
+                    "lis_tpu/solvers/quad.py:65"),
     "bes_spmv": ("lis_tpu_torch/csrc/bes.cu", "lis_tpu/matrix/bes.py:184"),
     "bes_spmvh": ("lis_tpu_torch/csrc/bes.cu", "lis_tpu/matrix/bes.py:193"),
     # kernel F's rectangular form (phase 17): a rank's column sums over its

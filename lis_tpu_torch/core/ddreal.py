@@ -371,19 +371,22 @@ def _reduce_plain(mode, x: DD, y=None) -> DD:
     return _sqrt(s) if mode == _NRM2 else s
 
 
-def _reduce_plan(n: int) -> tuple[int, int]:
+def _reduce_plan(n: int, resident: int = _RED_BLOCKS) -> tuple[int, int]:
     """Kernel O's schedule for n terms: (G, R), G blocks of
     ``_RED_THREADS`` threads in R groups of G / R.  (0, 0) up to 2^15
     padded terms: one block of up to ``_RED_FINAL`` threads does it all.
     Above, each thread walks at least 8 terms, with at most ``_RED_BLOCKS``
-    blocks (a cooperative launch: all resident at once); the groups' size
-    and count are near the square root of G, so that the group trees (G /
-    R partials a position) and the final tree (R a position) take about
-    as long."""
+    blocks, and at most the power of two at or below ``resident``, the
+    blocks the card holds at once (a cooperative launch); with fewer than
+    4 the one block.  The groups' size and count are near the square root
+    of G, so that the group trees (G / R partials a position) and the final
+    tree (R a position) take about as long.  Every plan sums in the same
+    order."""
     m = _pow2(n)
-    if m <= _RED_FINAL * 32:
+    cap = min(_RED_BLOCKS, resident)
+    if m <= _RED_FINAL * 32 or cap < 4:
         return 0, 0
-    G = min(_RED_BLOCKS, m // (8 * _RED_THREADS))
+    G = min(1 << (cap.bit_length() - 1), m // (8 * _RED_THREADS))
     g = 1 << ((G.bit_length() - 1) // 2)
     return G, G // g
 

@@ -14,104 +14,16 @@
 //   P dd_update     axpy / xpay / scal (ddreal.py:196-207) and the
 //                   elementwise add, sub, mul, div, sqrt (:130-183)
 //
-// Each template takes f64 limbs (-f quad) or f32 limbs (-f df).
-//
-// Exactness.  The transforms are exact only if every product and every
-// sum is rounded on its own: nvcc contracts a*b + c into an FMA by
-// default, which turns the error terms of SPLIT and TWO_PROD into zeros
-// and the whole path into plain double.  So every operation below is an
-// explicit round-to-nearest intrinsic (__dadd_rn, __dsub_rn, __dmul_rn,
-// __ddiv_rn, __dsqrt_rn and their f32 forms), which nvcc never contracts;
-// the build flags are those of the other kernels.  TWO_PROD is Dekker's
-// split (no FMA), in the plain version's order, so every kernel equals its
-// plain PyTorch version bit for bit.
+// Each template takes f64 limbs (-f quad) or f32 limbs (-f df).  The DD
+// arithmetic, rounded operation by operation so that every kernel equals
+// its plain PyTorch version bit for bit, and O's tree are in dd.cuh.
 //
 // Bound on the H100: bytes for all four.  About 30 operations an entry
 // of M and 20-40 an element of O and P stay under the FP64 peak's time for
 // the bytes they stream.
-#include <cooperative_groups.h>
-
-#include "common.cuh"
+#include "dd.cuh"
 
 namespace {
-
-__device__ __forceinline__ float add_(float a, float b) { return __fadd_rn(a, b); }
-__device__ __forceinline__ double add_(double a, double b) { return __dadd_rn(a, b); }
-__device__ __forceinline__ float sub_(float a, float b) { return __fsub_rn(a, b); }
-__device__ __forceinline__ double sub_(double a, double b) { return __dsub_rn(a, b); }
-__device__ __forceinline__ float mul_(float a, float b) { return __fmul_rn(a, b); }
-__device__ __forceinline__ double mul_(double a, double b) { return __dmul_rn(a, b); }
-__device__ __forceinline__ float div_(float a, float b) { return __fdiv_rn(a, b); }
-__device__ __forceinline__ double div_(double a, double b) { return __ddiv_rn(a, b); }
-__device__ __forceinline__ float sqrt_(float a) { return __fsqrt_rn(a); }
-__device__ __forceinline__ double sqrt_(double a) { return __dsqrt_rn(a); }
-
-template <typename T> struct Splitter;
-template <> struct Splitter<float> { static constexpr float v = 4097.0f; };
-template <> struct Splitter<double> { static constexpr double v = 134217729.0; };
-
-template <typename T>
-struct DD {
-    T hi, lo;
-};
-
-template <typename T>
-__device__ __forceinline__ DD<T> two_sum(T a, T b) {
-    const T s = add_(a, b);
-    const T v = sub_(s, a);
-    return {s, add_(sub_(a, sub_(s, v)), sub_(b, v))};
-}
-
-template <typename T>
-__device__ __forceinline__ DD<T> quick_two_sum(T a, T b) {
-    const T s = add_(a, b);
-    return {s, sub_(b, sub_(s, a))};
-}
-
-template <typename T>
-__device__ __forceinline__ void split(T a, T& hi, T& lo) {
-    const T t = mul_(Splitter<T>::v, a);
-    hi = sub_(t, sub_(t, a));
-    lo = sub_(a, hi);
-}
-
-template <typename T>
-__device__ __forceinline__ DD<T> two_prod(T a, T b) {
-    const T p = mul_(a, b);
-    T ah, al, bh, bl;
-    split(a, ah, al);
-    split(b, bh, bl);
-    const T e = add_(add_(add_(sub_(mul_(ah, bh), p), mul_(ah, bl)),
-                          mul_(al, bh)), mul_(al, bl));
-    return {p, e};
-}
-
-// accurate QUAD_ADD
-template <typename T>
-__device__ __forceinline__ DD<T> dd_add(DD<T> x, DD<T> y) {
-    DD<T> h = two_sum(x.hi, y.hi);
-    const DD<T> l = two_sum(x.lo, y.lo);
-    h = quick_two_sum(h.hi, add_(h.lo, l.hi));
-    return quick_two_sum(h.hi, add_(h.lo, l.lo));
-}
-
-template <typename T>
-__device__ __forceinline__ DD<T> dd_mul(DD<T> x, DD<T> y) {
-    const DD<T> p = two_prod(x.hi, y.hi);
-    return quick_two_sum(p.hi, add_(add_(p.lo, mul_(x.hi, y.lo)),
-                                    mul_(x.lo, y.hi)));
-}
-
-// QUAD_SQRT, one Newton step (ddreal.py::sqrt)
-template <typename T>
-__device__ __forceinline__ DD<T> dd_sqrt(DD<T> x) {
-    const T s = sqrt_(x.hi);
-    if (s == T(0)) return {T(0), T(0)};
-    const DD<T> p = two_prod(s, s);
-    const T corr = div_(add_(sub_(x.hi, p.hi), sub_(x.lo, p.lo)),
-                        mul_(T(2), s));
-    return quick_two_sum(s, corr);
-}
 
 // ---- M: dd_dia_spmv ------------------------------------------------------
 // One thread a row, the diagonals in the order of the offsets, as the
@@ -401,180 +313,23 @@ int ell_launch(const void* idx, const void* val, const void* vlo,
 }
 
 // ---- O: dd_reduce --------------------------------------------------------
-// lis_tpu's _dd_sum: the m = 2^k padded terms (zeros past n), then level
-// by level a[i] = a[i] + a[i + half] until one is left, then
-// quick_two_sum (and sqrt for nrm2).  Level L adds the pairs whose
-// indices differ in bit k - L, so the tree adds the high index bits
-// first and the low ones last.  The tree fixes the order of the
-// additions, not where they run.  Write index i = t + T*j with thread
-// t = b*B + s (block b of G, position s of B threads) and b = r + R*u
-// (group r of R, member u of g = G/R):
-//
-//   pass 1   thread t: the halving tree over j (the top bits), J = m/T
-//            terms walked in bit-reversed order, where it is a neighbour
-//            tree: register subtrees of kChunk, the next chunk's loads in
-//            flight, and a stack above them;
-//   groups   after a grid barrier, block r < R: for each s, the halving
-//            tree over u (G's top bits) of the g partials of group r, so
-//            the R groups run on R SMs at once;
-//   final    after a second barrier, block 0: for each s, the halving
-//            tree over r; then over s, the levels down to 32 in shared
-//            memory and the last five by shuffles; then the finish in
-//            thread 0.
-//
-// The blocks meet at grid barriers of one cooperative launch, with G at
-// most 128 so that every block is resident at once: one launch a call and
-// no counters to zero (a launch with arrival counters in the call's
-// scratch, zeroed by a memset, and a two-launch form measured slower).
-// Up to 2^15 padded terms one block of up to kFinal threads does all
-// (G = 0).
-enum { R_SUM = 0, R_DOT = 1, R_NRM2 = 2, R_NRM1 = 3 };
-constexpr int kRedThreads = 256;
-constexpr int kFinal = 1024;
-constexpr int kMaxDepth = 40;
-constexpr int kChunk = 4;           // terms a thread loads ahead in pass 1
-constexpr int kMaxGrid = 128;       // resident at once on 114+ SMs
-
-// term j*stride + t of the reduction: load() reads its raw limbs (zeros
-// past n, whose term is (+0, +0) like the plain version's padding), term()
-// forms it, so a walk can issue the next chunk's loads before it adds
+// The halving tree of dd.cuh over the terms of the mode, finished into
+// out[0], out[1]: quick_two_sum, and for nrm2 the square root.  One
+// cooperative launch a call and no counters to zero (a launch with
+// arrival counters in the call's scratch, zeroed by a memset, and a
+// two-launch form measured slower).
 template <typename T>
-struct Terms {
-    struct Raw { T xh, xl, yh, yl; };
+struct OutFin {
     int mode;
-    int64_t n, stride, t;
-    const T *xh, *xl, *yh, *yl;
+    T* out;
 
-    __device__ __forceinline__ Raw load(int64_t j) const {
-        const int64_t i = j * stride + t;
-        Raw r{T(0), T(0), T(0), T(0)};
-        if (i < n) {
-            r.xh = xh[i];
-            r.xl = xl[i];
-            if (mode == R_DOT) {
-                r.yh = yh[i];
-                r.yl = yl[i];
-            }
-        }
-        return r;
-    }
-
-    __device__ __forceinline__ DD<T> term(const Raw& r) const {
-        const DD<T> x{r.xh, r.xl};
-        if (mode == R_DOT) return dd_mul(x, DD<T>{r.yh, r.yl});
-        if (mode == R_NRM2) return dd_mul(x, x);
-        if (mode == R_NRM1) {
-            // torch.sign: 0 for 0 and for NaN
-            const T sg = x.hi > T(0) ? T(1) : (x.hi < T(0) ? T(-1) : T(0));
-            return {fabs(x.hi), mul_(sg, x.lo)};
-        }
-        return x;
-    }
-};
-
-// partial j of a strided set written by other blocks of this launch: read
-// from L2 (ld.cg), never from a stale L1 line
-template <typename T>
-struct Parts {
-    using Raw = DD<T>;
-    const T *hi, *lo;
-    int64_t base, stride;
-
-    __device__ __forceinline__ Raw load(int64_t j) const {
-        const int64_t i = base + j * stride;
-        return {__ldcg(hi + i), __ldcg(lo + i)};
-    }
-
-    __device__ __forceinline__ DD<T> term(const Raw& r) const { return r; }
-};
-
-__device__ __forceinline__ int64_t bitrev(int64_t p, int bits) {
-    return bits == 0 ? 0 : int64_t(__brevll(uint64_t(p)) >> (64 - bits));
-}
-
-// The halving tree over the J = 2^bits values f(j), walked in
-// bit-reversed order with a stack.  With J >= C the walk goes in chunks of
-// C positions, each a whole subtree of height log2(C) added in registers,
-// and only the chunk's sum goes through the stack; the loads of chunk
-// c + 1 are issued before the adds of chunk c.
-template <typename T, int C, typename F>
-__device__ DD<T> walk(const F& f, int64_t J, int bits) {
-    DD<T> stack[kMaxDepth];
-    int depth = 0;
-    if (J < C) {
-        for (int64_t p = 0; p < J; ++p) {
-            DD<T> v = f.term(f.load(bitrev(p, bits)));
-            for (int64_t q = p; q & 1; q >>= 1) v = dd_add(stack[--depth], v);
-            stack[depth++] = v;
-        }
-        return stack[0];
-    }
-    typename F::Raw nxt[C];
-#pragma unroll
-    for (int u = 0; u < C; ++u) nxt[u] = f.load(bitrev(u, bits));
-    for (int64_t c = 0; c < J / C; ++c) {
-        typename F::Raw cur[C];
-#pragma unroll
-        for (int u = 0; u < C; ++u) cur[u] = nxt[u];
-        if (c + 1 < J / C) {
-#pragma unroll
-            for (int u = 0; u < C; ++u)
-                nxt[u] = f.load(bitrev(C * (c + 1) + u, bits));
-        }
-        DD<T> v[C];
-#pragma unroll
-        for (int u = 0; u < C; ++u) v[u] = f.term(cur[u]);
-#pragma unroll
-        for (int width = C; width > 1; width >>= 1) {
-#pragma unroll
-            for (int k = 0; k < width / 2; ++k)
-                v[k] = dd_add(v[2 * k], v[2 * k + 1]);
-        }
-        DD<T> s = v[0];
-        for (int64_t q = c; q & 1; q >>= 1) s = dd_add(stack[--depth], s);
-        stack[depth++] = s;
-    }
-    return stack[0];
-}
-
-// The halving tree over the block's B = blockDim.x <= MAXB values v (one
-// a thread), then the finish into out[0], out[1] by thread 0.  Levels
-// down to 32 in shared memory, the last five by shuffles in warp 0.
-template <typename T, int MAXB>
-__device__ void block_finish(DD<T> v, int finish, T* __restrict__ out) {
-    __shared__ T sh[MAXB], sl[MAXB];
-    const int B = blockDim.x;
-    const int t = threadIdx.x;
-    int half = B >> 1;
-    if (half >= 32) {
-        sh[t] = v.hi;
-        sl[t] = v.lo;
-        __syncthreads();
-        for (; half >= 32; half >>= 1) {
-            if (t < half) {
-                const DD<T> r = dd_add(DD<T>{sh[t], sl[t]},
-                                       DD<T>{sh[t + half], sl[t + half]});
-                sh[t] = r.hi;
-                sl[t] = r.lo;
-            }
-            __syncthreads();
-        }
-        if (t >= 32) return;
-        v = DD<T>{sh[t], sl[t]};
-    }
-    const unsigned mask = B >= 32 ? 0xffffffffu : (1u << B) - 1u;
-    for (; half > 0; half >>= 1) {
-        const T oh = __shfl_down_sync(mask, v.hi, half);
-        const T ol = __shfl_down_sync(mask, v.lo, half);
-        if (t < half) v = dd_add(v, DD<T>{oh, ol});
-    }
-    if (t == 0) {
+    __device__ __forceinline__ void operator()(DD<T> v) const {
         DD<T> r = quick_two_sum(v.hi, v.lo);
-        if (finish == R_NRM2) r = dd_sqrt(r);
+        if (mode == R_NRM2) r = dd_sqrt(r);
         out[0] = r.hi;
         out[1] = r.lo;
     }
-}
+};
 
 // One block of B <= kFinal threads: the walk over m terms (J = m / B
 // each), then block_finish.
@@ -585,44 +340,18 @@ reduce_block(int mode, const T* __restrict__ xh, const T* __restrict__ xl,
              int64_t J, int bits, T* __restrict__ out) {
     const Terms<T> f{mode, n, int64_t(blockDim.x), int64_t(threadIdx.x),
                      xh, xl, yh, yl};
-    block_finish<T, kFinal>(walk<T, kChunk>(f, J, bits), mode, out);
+    block_finish<kFinal>(walk<kChunk>(f, J, bits), OutFin<T>{mode, out});
 }
-
-struct Grid {
-    int64_t n, J;
-    int bits, G, R, gbits, rbits;
-};
 
 template <typename T>
 __global__ void __launch_bounds__(kRedThreads, 2)
 reduce_grid(int mode, const T* __restrict__ xh, const T* __restrict__ xl,
             const T* __restrict__ yh, const T* __restrict__ yl, Grid p,
             T* scratch) {
-    constexpr int B = kRedThreads;
-    const int s = threadIdx.x;
-    const int b = blockIdx.x;
-    const int64_t TT = int64_t(p.G) * B;
-    T* out = scratch;
-    T* ph = scratch + 2;
-    T* pl = ph + TT;
-    T* qh = pl + TT;
-    T* ql = qh + int64_t(p.R) * B;
-    const Terms<T> f{mode, p.n, TT, int64_t(b) * B + s, xh, xl, yh, yl};
-    const DD<T> v = walk<T, kChunk>(f, p.J, p.bits);
-    ph[int64_t(b) * B + s] = v.hi;
-    pl[int64_t(b) * B + s] = v.lo;
-    cooperative_groups::this_grid().sync();
-    if (b < p.R) {
-        const DD<T> g = walk<T, 8>(Parts<T>{ph, pl, int64_t(b) * B + s,
-                                            int64_t(p.R) * B},
-                                   p.G / p.R, p.gbits);
-        qh[int64_t(b) * B + s] = g.hi;
-        ql[int64_t(b) * B + s] = g.lo;
-    }
-    cooperative_groups::this_grid().sync();
-    if (b != 0) return;
-    block_finish<T, B>(walk<T, 8>(Parts<T>{qh, ql, s, B}, p.R, p.rbits), mode,
-                       out);
+    const Terms<T> f{mode, p.n, int64_t(p.G) * kRedThreads,
+                     int64_t(blockIdx.x) * kRedThreads + threadIdx.x,
+                     xh, xl, yh, yl};
+    grid_tree<kChunk>(f, p, scratch + 2, OutFin<T>{mode, scratch});
 }
 
 template <typename T>
@@ -641,9 +370,7 @@ int reduce_launch(int mode, const void* xh, const void* xl, const void* yh,
                                          lis_ilog2(J), out);
         return 0;
     }
-    const int64_t TT = int64_t(blocks) * kRedThreads;
-    Grid p{n, m / TT, lis_ilog2(m / TT), blocks, groups,
-           lis_ilog2(blocks / groups), lis_ilog2(groups)};
+    Grid p = tree_grid(n, m, blocks, groups);
     void* args[] = {&mode, &h, &l, &y1, &y2, &p, &out};
     return (int)cudaLaunchCooperativeKernel(
         (const void*)reduce_grid<T>, dim3(blocks), dim3(kRedThreads), args,
@@ -658,27 +385,6 @@ int reduce_launch(int mode, const void* xh, const void* xl, const void* yh,
 enum { U_AXPY = 0, U_XPAY = 1, U_SCAL = 2, U_ADD = 3, U_SUB = 4, U_MUL = 5,
        U_DIV = 6, U_SQRT = 7 };
 
-template <typename T>
-__device__ __forceinline__ DD<T> dd_neg(DD<T> x) { return {-x.hi, -x.lo}; }
-
-// DD times a float
-template <typename T>
-__device__ __forceinline__ DD<T> mul_d(DD<T> x, T a) {
-    const DD<T> p = two_prod(x.hi, a);
-    return quick_two_sum(p.hi, add_(p.lo, mul_(x.lo, a)));
-}
-
-// QUAD_DIV with two Newton corrections (ddreal.py::div)
-template <typename T>
-__device__ __forceinline__ DD<T> dd_div(DD<T> x, DD<T> y) {
-    const T q1 = div_(x.hi, y.hi);
-    DD<T> r = dd_add(x, dd_neg(mul_d(y, q1)));
-    const T q2 = div_(r.hi, y.hi);
-    r = dd_add(r, dd_neg(mul_d(y, q2)));
-    const T q3 = div_(r.hi, y.hi);
-    const DD<T> s = quick_two_sum(q1, q2);
-    return two_sum(s.hi, add_(q3, s.lo));
-}
 constexpr int kUpdThreads = 256;
 
 template <typename T>
@@ -753,12 +459,9 @@ LIS_EXPORT int lis_dd_ell_spmv(int dtype, const void* idx, const void* val,
                   : 2 * (w + 1)) * es > 232448)
         return (int)cudaErrorInvalidValue;
     cudaStream_t st = static_cast<cudaStream_t>(stream);
-    int rc;
-    if (dtype == 0) rc = ell_launch<float>(idx, val, vlo, xh, xl, xpack, yh, yl, n, nx, (int)w, (int)rows, st);
-    else if (dtype == 1) rc = ell_launch<double>(idx, val, vlo, xh, xl, xpack, yh, yl, n, nx, (int)w, (int)rows, st);
-    else return (int)cudaErrorInvalidValue;
-    const int last = (int)cudaGetLastError();   // read, so it clears
-    return rc ? rc : last;
+    if (dtype == 0) return launched(ell_launch<float>(idx, val, vlo, xh, xl, xpack, yh, yl, n, nx, (int)w, (int)rows, st));
+    if (dtype == 1) return launched(ell_launch<double>(idx, val, vlo, xh, xl, xpack, yh, yl, n, nx, (int)w, (int)rows, st));
+    return (int)cudaErrorInvalidValue;
 }
 
 // mode 0 sum, 1 dot (y given), 2 nrm2, 3 nrm1; m the padded power of two
@@ -771,20 +474,12 @@ LIS_EXPORT int lis_dd_reduce(int dtype, int mode, const void* xh,
                              const void* xl, const void* yh, const void* yl,
                              int64_t n, int64_t m, int64_t blocks,
                              int64_t groups, void* scratch, void* stream) {
-    if (mode < 0 || mode > 3 || m < 1 || (m & (m - 1)) || m < n ||
-        blocks < 0 || (blocks & (blocks - 1)) || blocks > kMaxGrid ||
-        int64_t(blocks) * kRedThreads > m ||
-        (blocks > 0 && (blocks < 4 || groups < 1 || (groups & (groups - 1))
-                        || blocks % groups)) ||
-        (blocks == 0 && m / kFinal >= (int64_t(1) << kMaxDepth)))
+    if (mode < 0 || mode > 3 || !tree_plan_ok(n, m, blocks, groups))
         return (int)cudaErrorInvalidValue;
     cudaStream_t st = static_cast<cudaStream_t>(stream);
-    int rc;
-    if (dtype == 0) rc = reduce_launch<float>(mode, xh, xl, yh, yl, n, m, (int)blocks, (int)groups, scratch, st);
-    else if (dtype == 1) rc = reduce_launch<double>(mode, xh, xl, yh, yl, n, m, (int)blocks, (int)groups, scratch, st);
-    else return (int)cudaErrorInvalidValue;
-    const int last = (int)cudaGetLastError();   // read, so it clears
-    return rc ? rc : last;
+    if (dtype == 0) return launched(reduce_launch<float>(mode, xh, xl, yh, yl, n, m, (int)blocks, (int)groups, scratch, st));
+    if (dtype == 1) return launched(reduce_launch<double>(mode, xh, xl, yh, yl, n, m, (int)blocks, (int)groups, scratch, st));
+    return (int)cudaErrorInvalidValue;
 }
 
 // mode 0 axpy (y + a x), 1 xpay (x + a y), 2 scal (a x), 3 x + y,

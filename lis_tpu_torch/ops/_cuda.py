@@ -72,6 +72,12 @@ _SIGNATURES = {
     "lis_dd_reduce": [_INT, _INT, _P, _P, _P, _P, _I64, _I64, _I64, _I64,
                       _P, _P],
     "lis_dd_update": [_INT, _INT, _P, _P, _P, _P, _P, _P, _P, _P, _I64, _P],
+    "lis_ddcg_direction": [_INT, _P, _P, _P, _P, _P, _I64, _P, _P, _P],
+    "lis_ddcg_pq": [_INT, _P, _P, _P, _P, _I64, _I64, _I64, _I64, _P, _P,
+                    _P, _P],
+    "lis_ddcg_update": [_INT, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I64,
+                        _I64, _I64, _I64, _P, _P, _P, _P, _P, _INT, _P],
+    "lis_ddcg_resident": [_INT, _P],
     "lis_bes_spmv": [_INT, _INT, _INT, _P, _P, _P, _P, _P, _P, _P, _I64,
                      _I64, _I64, _I64, _I64, _I64, _I64, _P],
     "lis_bes_spmvh": [_INT, _INT, _INT, _P, _P, _P, _P, _P, _P, _P, _I64,

@@ -11,6 +11,14 @@ merges are torch operations.  Every loop scalar stays on the device.  The
 preconditioner is applied to each limb (valid for any linear M).  Registered as "<name>_quad"; the driver dispatches on
 ``-f quad``, ``switch``, ``df`` and ``switch_df``.  The other twelve twins
 are in ``quad_ext.py``.
+
+``cg_quad`` with a Jacobi preconditioner in the limb type, or none, and
+no mesh runs the fused step of ``core/ddcg.py`` (kernels S on the card:
+three launches and the matvec an iteration, Jacobi folded in, x, r and p
+updated in place, the breakdown frozen on the device); any other
+preconditioner, and a distributed solve, run ``cg_quad_plain``, which the
+fused step equals bit for bit.  The counters ``cg_quad.fused`` and
+``cg_quad.plain`` (``utils/trace.count``) record the route once a solve.
 """
 
 from __future__ import annotations
@@ -18,13 +26,17 @@ from __future__ import annotations
 import torch
 
 from lis_tpu_torch import config as C
+from lis_tpu_torch.core import ddcg
 from lis_tpu_torch.core import ddreal as q
 from lis_tpu_torch.core.ddreal import DD
+from lis_tpu_torch.precon.base import NonePrecon
+from lis_tpu_torch.precon.jacobi import JacobiPrecon
 from lis_tpu_torch.solvers.base import (RUNNING, SolverOutput, SolverSpec,
                                         _inv_or_one, krylov_loop,
                                         loop_output, loop_scalar,
                                         new_rhistory, record,
                                         register_solver)
+from lis_tpu_torch.utils.trace import count
 
 
 def _psolve_dd(M, r: DD) -> DD:
@@ -87,6 +99,49 @@ def _finish(spec, tol_eff, final) -> SolverOutput:
 @register_solver("cg_quad")
 def cg_quad(A, b, x0, M, spec: SolverSpec) -> SolverOutput:
     r, bnrm_inv, tol_eff, nrm0 = _init_dd(A, b, x0, spec)
+    dinv = None
+    if (type(M) is JacobiPrecon and M.dinv.dtype == r.dtype
+            and M.dinv.shape == r.shape):
+        dinv = M.dinv.contiguous()
+    if spec.axis_name is None and (dinv is not None
+                                   or type(M) is NonePrecon):
+        count("cg_quad.fused")
+        return cg_quad_fused(A, x0, spec, r, bnrm_inv, tol_eff, nrm0, dinv)
+    count("cg_quad.plain")
+    return cg_quad_plain(A, b, x0, M, spec, r, bnrm_inv, tol_eff, nrm0)
+
+
+def cg_quad_fused(A, x0, spec, r, bnrm_inv, tol_eff, nrm0, dinv):
+    """cg_quad through the fused step (``core/ddcg.py``), from
+    ``_init_dd``'s setup: x, r and p updated in place, z = dinv·r (or r
+    with ``dinv`` None) folded into the passes, the loop scalars in
+    ``ws``; the state dict holds views of them."""
+    x = DD(*(t.clone(memory_format=torch.contiguous_format)
+             for t in q.dd(x0)))
+    r = DD(r.hi.contiguous(), r.lo.contiguous())
+    p = q.zeros_like(r)
+    z = ddcg.z_limbs(r, dinv)
+    ws = ddcg.DDCGScalars(r, spec.maxiter, tol_eff, bnrm_inv, nrm0,
+                          q.dot(r, z), nrm1=spec.conv_cond == 2,
+                          running=RUNNING, breakdown=C.LIS_BREAKDOWN)
+    rh = new_rhistory(spec, nrm0, torch.float64)
+
+    def step(s):
+        ddcg.ddcg_direction(p, r, dinv, ws)
+        qv = A.matvec(p)
+        ddcg.ddcg_pq(p, qv, ws)
+        ddcg.ddcg_update(x, r, p, qv, dinv, ws, rh)
+        return s
+
+    state = dict(it=ws.it, flag=ws.flag, nrm=ws.nrm, live=ws.live, x=x, rh=rh)
+    final = krylov_loop(spec, tol_eff, state, step, live=lambda s: s["live"])
+    return _finish(spec, tol_eff, final)
+
+
+def cg_quad_plain(A, b, x0, M, spec, r, bnrm_inv, tol_eff, nrm0):
+    """cg_quad as kernels O and P and torch operations, a new pair per
+    update: the step of every other preconditioner and of a mesh, and the
+    reference the fused step is tested against."""
     one = _const(1.0, b)
     state = _start(x0, r, nrm0, spec, p=q.zeros_like(r), rho_old=one)
 

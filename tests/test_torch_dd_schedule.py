@@ -254,6 +254,21 @@ def test_reduce_plan():
     assert T._reduce_plan(884736) == (128, 16)
 
 
+@pytest.mark.parametrize("resident, plan", [
+    (264, (128, 16)), (132, (128, 16)), (114, (64, 8)), (57, (32, 8)),
+    (8, (8, 4)), (7, (4, 2)), (4, (4, 2)), (3, (0, 0)), (1, (0, 0))])
+def test_reduce_plan_capped_by_resident(resident, plan):
+    """A plan against ``resident`` blocks (what the card holds at once
+    of a cooperative kernel, as the fused DD CG step asks) takes the
+    power of two at or below it, or one block below 4, and still adds in
+    lis_tpu's order."""
+    n = (1 << 18) + 1
+    assert T._reduce_plan(n, resident) == plan
+    rng = np.random.default_rng(resident)
+    x, y = _vec(rng, n, np.float64), _vec(rng, n, np.float64)
+    _same(reduce_model(T._DOT, x, y, plan), _port_plain(T._DOT, x, y))
+
+
 # ---- kernel N ----------------------------------------------------------
 
 def _ell(rng, n, w, dt, lo=False, nan=False):

@@ -1401,6 +1401,173 @@ def test_dd_reduce_on_two_streams(cuda):
             _dd_same(g, want[k])
 
 
+# ---- kernels S: cg_quad's fused step (csrc/dd_cg.cu) -----------------------
+# Each pass against its plain version on the card, bit for bit, from equal
+# inputs; then whole solves of the fused step against the plain step.
+
+def _ddcg_case(rng, n, dtype, dev, mode, resident=None):
+    from lis_tpu_torch.core import ddcg
+    r = _dd_vec(rng, n, dtype, dev)
+    rho = dq.DD(*(t.reshape(()) for t in _dd_vec(rng, 1, dtype, dev)))
+    ws = ddcg.DDCGScalars(r, 50, 1e-30, 0.25, 3.0, rho,
+                          nrm1=mode == "nrm1", running=-99, breakdown=2,
+                          resident=resident)
+    vecs = dict(x=_dd_vec(rng, n, dtype, dev), r=r,
+                p=_dd_vec(rng, n, dtype, dev), q=_dd_vec(rng, n, dtype, dev))
+    for v in vecs.values():
+        v.hi[0] += 1.0          # _dd_vec's zero at 0 would be a breakdown at n = 1
+    if mode == "breakdown":
+        vecs["q"] = dq.zeros_like(vecs["q"])
+    dinv = None
+    if mode != "none":
+        dinv = torch.from_numpy(rng.uniform(0.02, 0.05, n)).to(dtype).to(dev)
+    rh = torch.full((52,), float("nan"), dtype=torch.float64, device=dev)
+    return ws, vecs, dinv, rh
+
+
+def _ddcg_state(ws, vecs, rh):
+    return [ws.dd, ws.f, ws.ic, rh] + [t for v in vecs.values() for t in v]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["jacobi", "none", "nrm1", "breakdown"])
+@pytest.mark.parametrize("n", [1, 1001, 1 << 15, (1 << 15) + 1,
+                               (1 << 20) + 3])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_ddcg_passes(cuda, dtype, n, mode):
+    """S1, S2 and S3, one launch each, bit-equal to their plain versions
+    (the plain step's own functions on the card's tensors); a breakdown
+    keeps x and r; a pass after the loop has ended changes nothing."""
+    from lis_tpu_torch.core import ddcg
+    fns = (ddcg.ddcg_direction, ddcg.ddcg_pq, ddcg.ddcg_update)
+    plains = (ddcg._direction_plain, ddcg._pq_plain, ddcg._update_plain)
+    out = []
+    for run in (fns, plains):
+        ws, v, dinv, rh = _ddcg_case(np.random.default_rng(n), n, dtype,
+                                     cuda, mode)
+        x0, r0 = [t.clone() for t in v["x"]], [t.clone() for t in v["r"]]
+        before = [f.launches for f in fns]
+        run[0](v["p"], v["r"], dinv, ws)
+        run[1](v["p"], v["q"], ws)
+        run[2](v["x"], v["r"], v["p"], v["q"], dinv, ws, rh)
+        got = [f.launches - b for f, b in zip(fns, before)]
+        assert got == ([1, 1, 1] if run is fns else [0, 0, 0])
+        if mode == "breakdown":
+            assert all(torch.equal(a, b) for a, b in zip(v["x"], x0))
+            assert all(torch.equal(a, b) for a, b in zip(v["r"], r0))
+            assert int(ws.flag) == 2 and int(ws.live) == 0
+            assert float(ws.nrm) == 3.0
+        else:
+            assert int(ws.flag) == -99 and int(ws.live) == 1
+        assert int(ws.it) == 2
+        out.append([t.clone() for t in _ddcg_state(ws, v, rh)])
+        # once live is 0 every pass returns at once
+        ws.ic[2] = 0
+        run[0](v["p"], v["r"], dinv, ws)
+        run[1](v["p"], v["q"], ws)
+        run[2](v["x"], v["r"], v["p"], v["q"], dinv, ws, rh)
+        ws.ic[2] = out[-1][2][2]
+        for a, b in zip(_ddcg_state(ws, v, rh), out[-1]):
+            torch.testing.assert_close(a, b, rtol=0, atol=0, equal_nan=True)
+    for a, b in zip(*out):
+        torch.testing.assert_close(a, b, rtol=0, atol=0, equal_nan=True)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("resident, plan", [
+    (None, None), (114, (64, 8)), (57, (32, 8)), (7, (4, 2)), (3, (0, 0))])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_ddcg_grid_capped(cuda, dtype, resident, plan):
+    """S2 and S3 planned against fewer resident blocks than this card
+    holds (114: an H100 PCIe's SMs at one S3 block each; 57, 7, 3: slices
+    of a card) launch and stay bit-equal to their plain versions; the
+    default plan fits the card's own count."""
+    from lis_tpu_torch.core import ddcg
+    n = (1 << 20) + 3
+    out = []
+    for run in ((ddcg.ddcg_direction, ddcg.ddcg_pq, ddcg.ddcg_update),
+                (ddcg._direction_plain, ddcg._pq_plain, ddcg._update_plain)):
+        ws, v, dinv, rh = _ddcg_case(np.random.default_rng(n), n, dtype,
+                                     cuda, "jacobi", resident)
+        if plan is None:
+            G, R = ws.plan
+            assert 0 < G <= ddcg.resident_blocks(dtype, cuda)
+        else:
+            assert ws.plan == plan
+        run[0](v["p"], v["r"], dinv, ws)
+        run[1](v["p"], v["q"], ws)
+        run[2](v["x"], v["r"], v["p"], v["q"], dinv, ws, rh)
+        out.append(_ddcg_state(ws, v, rh))
+    for a, b in zip(*out):
+        torch.testing.assert_close(a, b, rtol=0, atol=0, equal_nan=True)
+
+
+def _ddcg_solve(dev, dims, limb, zero):
+    """A 27-point DIA operator (or the zero operator: p·q = 0 at the first
+    step) and a right-hand side, as DD operands on ``dev``."""
+    from lis_tpu_torch.utils.testmat import poisson3d27_dia
+    A = poisson3d27_dia(*dims, device=dev)
+    n = A.nrows
+    if zero:
+        A = lis_tpu_torch.DIAMatrix.from_diagonals(
+            torch.zeros((1, n), dtype=torch.float64), (0,), (n, n), 0,
+            device=dev)
+    b = torch.from_numpy(np.random.default_rng(n).standard_normal(n)).to(dev)
+    if limb == torch.float32:
+        b = dq.DD(b.float(), (b - b.float().double()).float())
+    return dq.make_dd_operator(A, limb), b, n
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["converged", "maxiter", "breakdown",
+                                  "nrm1"])
+@pytest.mark.parametrize("precon", ["jacobi", "none"])
+@pytest.mark.parametrize("dims", [(7, 9, 11), (33, 33, 33)],
+                         ids=["693", "35937"])
+@pytest.mark.parametrize("limb", DTYPES, ids=["df", "quad"])
+def test_cg_quad_fused_equals_the_plain_step_on_the_card(cuda, limb, dims,
+                                                          precon, case):
+    """The fused cg_quad against the plain step, both on the card: x, the
+    residual history, the count, the status and the residual bit for bit,
+    in f32 and f64 limbs, on an odd n and an n past O's one-block reach
+    (2^15), converged, at maxiter, under nrm1_b and on a breakdown; and at
+    most 6 launches an iteration, the matvec included (4: S1, M, S2, S3)."""
+    from lis_tpu_torch.core import ddcg
+    from lis_tpu_torch.precon.base import NonePrecon
+    from lis_tpu_torch.precon.jacobi import JacobiPrecon
+    from lis_tpu_torch.solvers import quad as Q
+    from lis_tpu_torch.solvers.base import SolverSpec
+    D, b, n = _ddcg_solve(cuda, dims, limb, case == "breakdown")
+    x0 = torch.zeros(n, dtype=limb, device=cuda)
+    dinv = None
+    if precon == "jacobi":
+        dinv = torch.from_numpy(np.random.default_rng(7).uniform(
+            0.02, 0.05, n)).to(limb).to(cuda)
+    tol = 1e-20 if limb == torch.float64 else 1e-11
+    kw = {"maxiter": dict(tol=1e-30, maxiter=30),
+          "nrm1": dict(tol=0.0, tol_w=tol, conv_cond=2)}.get(case,
+                                                              dict(tol=tol))
+    spec = SolverSpec(solver="cg_quad", **{"maxiter": 1000, **kw})
+    fns = (ddcg.ddcg_direction, ddcg.ddcg_pq, ddcg.ddcg_update,
+           dq.dd_dia_spmv)
+    before = [f.launches for f in fns]
+    r, bi, te, n0 = Q._init_dd(D, b, x0, spec)
+    fused = Q.cg_quad_fused(D, x0, spec, r, bi, te, n0, dinv)
+    got = [f.launches - c for f, c in zip(fns, before)]
+    M = NonePrecon() if dinv is None else JacobiPrecon(dinv=dinv)
+    r, bi, te, n0 = Q._init_dd(D, b, x0, spec)
+    plain = Q.cg_quad_plain(D, b, x0, M, spec, r, bi, te, n0)
+    for k in ("x", "rhistory", "iters", "status", "resid"):
+        torch.testing.assert_close(getattr(fused, k), getattr(plain, k),
+                                   rtol=0, atol=0, equal_nan=True)
+    status = {"maxiter": 4, "breakdown": 2}.get(case, 0)
+    assert int(fused.status) == status
+    its = int(fused.iters)
+    # one matvec before the loop (the initial residual), one a step
+    assert got == [its, its, its, its + 1]
+    assert (sum(got) - 1) / its <= 6
+
+
 def _ell_width(rng, n, w, dev):
     """A CSR matrix whose longest row has w entries (row lengths 0 to w,
     so Aᵀ has other widths)."""

@@ -81,7 +81,11 @@ def test_additive_schwarz_psolve_spans_nest_over_ssor(tmp_path):
 
 
 @pytest.mark.parametrize("options, per_iter", [
-    ("-f quad -i cg -p jacobi", 2),     # Jacobi once a limb
+    # folded into the fused DD CG step (core/ddcg.py); the id is the
+    # case's established name
+    pytest.param("-f quad -i cg -p jacobi", 0,
+                 id="-f quad -i cg -p jacobi-2"),
+    ("-f quad -i bicg -p jacobi", 4),   # psolve and psolveh once a limb
     ("-i cg -p jacobi", 0),             # folded into the fused CG step
 ])
 def test_psolve_spans_per_iteration(tmp_path, options, per_iter):
